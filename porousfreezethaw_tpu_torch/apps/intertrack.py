@@ -16,7 +16,8 @@ compatibility and ignored).
 
 Solver paths: f64 integrates the plain PyTorch right-hand side; f32 without
 a noise field runs the increment-form attempt through the CUDA kernels
-(``increment_form 1``, the default) or the classic fused stage kernel
+(``increment_form 1``, the default; with ``compensated_commit 1`` its
+double-f32 commit variant) or the classic fused stage kernel
 (``increment_form 0``).  On ``--device cpu`` the kernel wrappers compute
 with their plain PyTorch versions.
 """
@@ -44,7 +45,7 @@ from ..models.freezing.glass import build_glass_field, read_ball_positions
 from ..models.freezing.icond import build_initial_conditions
 from ..models.freezing.parameters import (
     PARAM_INFO, FreezingParams, shift_temperature_origin)
-from ..ops.cuda.stencil import DeltaAttempt, make_fused_stage
+from ..ops.cuda.stencil import DeltaAttempt, DeltaAttemptComp, make_fused_stage
 from ..solvers.merson import (
     INTERRUPTED, MersonParams, merson_init, merson_solve)
 
@@ -217,11 +218,15 @@ def run_iteration(
     # classic stage kernel stays selectable (`increment_form 0`), with the
     # noise-floor escape below.
     use_delta = bool(pf.vars.get("increment_form", 1.0))
+    # compensated (double-f32) commit, off by default: the JAX package's
+    # round-5 A/B found it does not reduce the f32 step inflation
+    use_comp = bool(pf.vars.get("compensated_commit", 0.0))
     if f32 and noise is None:
         if use_delta:
-            attempt_fn = DeltaAttempt(geom, solver_params, calc_mode)
-            log("Increment-form (delta) attempt kernels: ON (%s)\n",
-                device.type)
+            cls = DeltaAttemptComp if use_comp else DeltaAttempt
+            attempt_fn = cls(geom, solver_params, calc_mode)
+            log("Increment-form (delta) attempt kernels: ON%s (%s)\n",
+                " (compensated commit)" if use_comp else "", device.type)
         else:
             stage_fn = make_fused_stage(geom, solver_params, calc_mode)
             log("Fused stage kernel: ON (%s)\n", device.type)
@@ -325,7 +330,8 @@ def run_iteration(
 
         write_snapshot(
             filename, geom, params,
-            _unshift(state.y.cpu().numpy(), u_shift),
+            # [:3] strips the compensated commit's lo planes when present
+            _unshift(state.y[:3].cpu().numpy(), u_shift),
             grid_mode=pf.grid_io_mode, calc_mode=calc_mode, delta=delta,
             tau=state.h, t=state.t, final_time=final_time,
             snapshot=snapshot - 1 if is_on_demand else snapshot,

@@ -14,8 +14,17 @@
 // With STAGE5 the kernel is the Merson tail: G5 stays in registers, the
 // kernel writes y_spec = w + h K1 + (h/3)(2 G4 + 0.5 G5) (the association
 // of stencil.py:1078-1082) and one NaN-propagating partial max of
-// |-0.9 G3 + 0.8 G4 - 0.1 G5| per block.  The bare-increment output
-// (emit="dy", compensated commit) and the shard variants are not ported.
+// |-0.9 G3 + 0.8 G4 - 0.1 G5| per block.
+//
+// With EMIT_DY as well (emit="dy", stencil.py:1059-1076) the tail writes the
+// bare increment dy = h K1 + (h/3)(2 G4 + 0.5 G5) instead, the input of the
+// compensated (TwoSum) commit.  The low bits of dy are what that commit
+// keeps, so the final products and sum are formed with __fmul_rn and
+// __fadd_rn, which nvcc never contracts into a multiply-add: the kernel and
+// its plain PyTorch version then round dy alike.  The eps partials are those
+// of the y_spec tail.  That launch moves 11 float32 planes (w, K1, G3, G4
+// in; dy out), 88 MB at MR (100x100x200): 0.026 ms at 3.35 TB/s.  The shard
+// variants are not ported.
 //
 // What bounds it on Hopper: memory traffic, as for the classic stage (about
 // 47 float32 single-variable planes per attempt at any grid), though this
@@ -36,7 +45,7 @@ struct DeltaArgs {
     float hc[3];           // h*c_a, formed in float32
     int nk;
     float h, D1, dDi;
-    float* out;            // G (2, Z, Y, X), or y_spec with STAGE5
+    float* out;            // G (2, Z, Y, X), or y_spec / dy with STAGE5
     float* eps;            // per-block partial max (STAGE5)
     Grid g;
 };
@@ -212,7 +221,7 @@ __device__ __forceinline__ void rhs_delta_point(
     gu = (dN * cp_o - N_o * dcp) / (cp_n * cp_o);
 }
 
-template <int MODE, bool STAGE5>
+template <int MODE, bool STAGE5, bool EMIT_DY>
 __global__ void __launch_bounds__(BX * BY)
 delta_g_kernel(const Consts c, const DeltaArgs a) {
     const int x = blockIdx.x * BX + threadIdx.x;
@@ -254,8 +263,16 @@ delta_g_kernel(const Consts c, const DeltaArgs a) {
                     const float k1 = a.k[0][j], g3 = a.k[1][j], g4 = a.k[2][j];
                     float err = -0.9f * g3 + 0.8f * g4 - 0.1f * g5[v];
                     m = nan_max(m, fabsf(err));
-                    a.out[j] = a.w[j] + a.h * k1
-                               + h3 * (2.0f * g4 + 0.5f * g5[v]);
+                    if (EMIT_DY) {
+                        const float u_term = __fmul_rn(a.h, k1);
+                        const float x_term = __fmul_rn(
+                            h3, __fadd_rn(__fmul_rn(2.0f, g4),
+                                          __fmul_rn(0.5f, g5[v])));
+                        a.out[j] = __fadd_rn(u_term, x_term);
+                    } else {
+                        a.out[j] = a.w[j] + a.h * k1
+                                   + h3 * (2.0f * g4 + 0.5f * g5[v]);
+                    }
                 }
             }
             below = cur;
@@ -265,14 +282,17 @@ delta_g_kernel(const Consts c, const DeltaArgs a) {
     if (STAGE5) block_max_store(m, a.eps);
 }
 
+// tail: 0 = G, 1 = y_spec (emit="y"), 2 = dy (emit="dy")
 template <int MODE>
-static void launch_mode(const Consts& c, const DeltaArgs& a, bool stage5,
+static void launch_mode(const Consts& c, const DeltaArgs& a, int tail,
                         cudaStream_t s) {
     dim3 grid = launch_grid(a.g.Z, a.g.Y, a.g.X), block(BX, BY);
-    if (stage5)
-        delta_g_kernel<MODE, true><<<grid, block, 0, s>>>(c, a);
+    if (tail == 2)
+        delta_g_kernel<MODE, true, true><<<grid, block, 0, s>>>(c, a);
+    else if (tail == 1)
+        delta_g_kernel<MODE, true, false><<<grid, block, 0, s>>>(c, a);
     else
-        delta_g_kernel<MODE, false><<<grid, block, 0, s>>>(c, a);
+        delta_g_kernel<MODE, false, false><<<grid, block, 0, s>>>(c, a);
 }
 
 }  // namespace pft
@@ -281,15 +301,17 @@ using namespace pft;
 
 extern "C" {
 
-// G (or y_spec + eps partials with stage5) of one increment-form stage.
+// G of one increment-form stage (tail = 0), or the stage-5 tail with its
+// eps partials: y_spec (tail = 1, emit="y") or dy (tail = 2, emit="dy").
 // consts and coefs are host arrays; every other pointer is device memory.
 // Returns cudaGetLastError() after the launch; 1000 + n for bad arguments.
-int pft_delta_g(const float* consts, int mode, int nk, int stage5, float h,
+int pft_delta_g(const float* consts, int mode, int nk, int tail, float h,
                 float D1, float dDi, const float* coefs, const float* w,
                 const float* k0, const float* k1, const float* k2,
                 float* out, float* eps, int Z, int Y, int X, void* stream) {
     if (nk < 1 || nk > 3) return 1001;
-    if (stage5 && nk != 3) return 1002;
+    if (tail < 0 || tail > 2) return 1005;
+    if (tail && nk != 3) return 1002;
     if (Z < 1 || Y < 1 || X < 1) return 1003;
     Consts c = *reinterpret_cast<const Consts*>(consts);
     DeltaArgs a;
@@ -305,11 +327,11 @@ int pft_delta_g(const float* consts, int mode, int nk, int stage5, float h,
     a.g = Grid{Z, Y, X};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (mode) {
-        case GRADP: launch_mode<GRADP>(c, a, stage5, s); break;
-        case SIGMAP: launch_mode<SIGMAP>(c, a, stage5, s); break;
-        case TEMP: launch_mode<TEMP>(c, a, stage5, s); break;
-        case GRADP_FROZEN_U: launch_mode<GRADP_FROZEN_U>(c, a, stage5, s); break;
-        case SIGMAP_FROZEN_U: launch_mode<SIGMAP_FROZEN_U>(c, a, stage5, s); break;
+        case GRADP: launch_mode<GRADP>(c, a, tail, s); break;
+        case SIGMAP: launch_mode<SIGMAP>(c, a, tail, s); break;
+        case TEMP: launch_mode<TEMP>(c, a, tail, s); break;
+        case GRADP_FROZEN_U: launch_mode<GRADP_FROZEN_U>(c, a, tail, s); break;
+        case SIGMAP_FROZEN_U: launch_mode<SIGMAP_FROZEN_U>(c, a, tail, s); break;
         default: return 1004;
     }
     return (int)cudaGetLastError();

@@ -1,6 +1,7 @@
 // Shared device code of the freezing-model stencil kernels
-// (fused_stage.cu, delta_g.cu): the host-computed constants, the cell-local
-// material blends, the launch geometry and the NaN-propagating block max.
+// (fused_stage.cu, fused_attempt.cu, delta_g.cu): the host-computed
+// constants, the cell-local material blends, the launch geometry and the
+// NaN-propagating block max.
 //
 // Layout: every field is a contiguous float32 array (nv, Z, Y, X) with x
 // fastest; plane = Y*X, variable stride = Z*Y*X.  One thread owns one
@@ -79,7 +80,7 @@ __device__ __forceinline__ float sshape(const Consts& c, float x) {
     return x <= c.p_eps0 ? 0.0f : (x >= c.p_eps1 ? 1.0f : mid);
 }
 
-// Launch geometry shared by both kernels.
+// Launch geometry shared by the kernels.
 struct Grid {
     int Z, Y, X;
     __host__ __device__ int64_t plane() const { return (int64_t)Y * X; }

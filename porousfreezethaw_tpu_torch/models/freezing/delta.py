@@ -315,7 +315,8 @@ class TorchDeltaAttempt:
     def pack(self, y):
         return y
 
-    def attempt(self, t, h, y):
+    def _stages(self, t, h, y):
+        """The five stages on ``y``: (h, K1, G4, G5, eps)."""
         g = self._g
         K1 = self._rhs(t, y)[:2]
         hc = torch.tensor(h, dtype=y.dtype, device=y.device)
@@ -324,9 +325,13 @@ class TorchDeltaAttempt:
         G4 = g(t, t + h / 2, y, hc * (0.5 * K1 + 0.375 * G3))
         G5 = g(t, t + h, y, hc * (K1 - 1.5 * G3 + 2.0 * G4))
         eps = torch.amax(torch.abs(-0.9 * G3 + 0.8 * G4 - 0.1 * G5))
+        return hc, K1, G4, G5, eps.reshape(1)
+
+    def attempt(self, t, h, y):
+        hc, K1, G4, G5, eps = self._stages(t, h, y)
         y_spec = (y[:2] + hc * K1
                   + (hc / 3.0) * (2.0 * G4 + 0.5 * G5))
-        return (y, y_spec), eps.reshape(1)
+        return (y, y_spec), eps
 
     def commit(self, carry_spec, accept: bool):
         y, y_spec = carry_spec
@@ -336,3 +341,41 @@ class TorchDeltaAttempt:
 
     def unpack(self, y):
         return y
+
+
+def two_sum(hi, lo, dy):
+    """The compensated commit's sum (XlaDeltaAttemptComp.commit): with
+    ``t1 = dy + lo``, returns ``s = fl(hi + t1)`` and its exact rounding
+    error ``err`` (Knuth's TwoSum), so that ``s + err == hi + t1``."""
+    t1 = dy + lo
+    s = hi + t1
+    bb = s - hi
+    err = (hi - (s - bb)) + (t1 - bb)
+    return s, err
+
+
+class TorchDeltaAttemptComp(TorchDeltaAttempt):
+    """TorchDeltaAttempt with a compensated (double-f32) commit: the analog
+    of the JAX package's ``XlaDeltaAttemptComp`` and the oracle of the CUDA
+    ``DeltaAttemptComp``.  The packed state is ``(5, n3, n2, n1)`` =
+    [u, p, gl, u_lo, p_lo]; the stages read [u, p, gl] and the commit adds
+    the increment dy into (hi, lo) by :func:`two_sum`, so that hi + lo
+    tracks the exact trajectory to about ulp^2.  ``unpack`` keeps the lo
+    planes; strip them with ``y[:3]`` for output."""
+
+    def pack(self, y):
+        if y.shape[0] == 5:       # already packed: merson_solve packs on
+            return y              # every call, and the lo planes carry
+        return torch.cat([y, torch.zeros_like(y[:2])])
+
+    def attempt(self, t, h, y5):
+        hc, K1, G4, G5, eps = self._stages(t, h, y5[:3])
+        dy = hc * K1 + (hc / 3.0) * (2.0 * G4 + 0.5 * G5)
+        return (y5, dy), eps
+
+    def commit(self, carry_spec, accept: bool):
+        y5, dy = carry_spec
+        if not accept:
+            return y5
+        s, err = two_sum(y5[:2], y5[3:], dy)
+        return torch.cat([s, y5[2:3], err])

@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-The sources are compiled with ``nvcc`` into one shared library with a
-plain C interface, ``build/kernels/libpft_kernels.so`` beside the package,
-and loaded with ctypes.  The build runs at first use and again whenever
-the hash of the sources, the headers or the flags changes.  No PyTorch
-header is included, so a build takes seconds.
+Each source is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain
+C interface, ``build/kernels/libpft_kernels.so`` beside the package, which
+is loaded with ctypes.  The build runs at first use and again whenever the
+hash of the sources, the headers or the flags changes.  No PyTorch header
+is included, so a build takes seconds.
 
 Nothing here falls back: without ``nvcc`` or a CUDA device the build or
 the load raises.
@@ -24,15 +25,15 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
-SOURCES = ("fused_stage.cu", "delta_g.cu")
-HEADERS = ("freezing.cuh",)
+SOURCES = ("fused_stage.cu", "fused_attempt.cu", "delta_g.cu")
+HEADERS = ("freezing.cuh", "stage.cuh")
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 LIB_NAME = "libpft_kernels.so"
 
 # sm_90a (Hopper with its architecture-specific features); IEEE division
 # and square root and no --use_fast_math: the kernels call expf/sqrtf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 class KernelBuildError(RuntimeError):
@@ -73,17 +74,34 @@ def build(force: bool = False) -> BuildResult:
             and stamp.read_text().strip() == digest):
         return BuildResult(lib, False, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC / s) for s in SOURCES]]
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{Path(src).stem}.{tag}.o" for src in SOURCES]
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+                for src, obj in zip(SOURCES, objs)]
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in compiles]
+    steps = []                      # (command, exit code, output)
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        steps.append((cmd, proc.returncode, out))
+    if all(rc == 0 for _, rc, _ in steps):
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        steps.append((link, proc.returncode, proc.stdout + proc.stderr))
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    log = "".join(out for _, _, out in steps)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    failed = [(cmd, rc, out) for cmd, rc, out in steps if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
+        cmd, rc, out = failed[0]
         raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+            f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
     os.replace(tmp, lib)
     stamp.write_text(digest + "\n")
     (BUILD_DIR / (LIB_NAME + ".log")).write_text(log)
@@ -103,7 +121,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pft_fused_stage.argtypes = [vp, ci, ci, ci, cf, cf, vp, vp, vp, vp,
                                     vp, vp, vp, ci, ci, ci, vp]
     lib.pft_fused_stage.restype = ci
-    # consts, mode, nk, stage5, h, D1, dDi, coefs, w, k0, k1, k2, out, eps,
+    # consts, mode, nk, tail, t, h, coefs, y2, cur, k0, k1, k2, out, eps,
+    # Z, Y, X, stream
+    lib.pft_fused_attempt.argtypes = [vp, ci, ci, ci, cf, cf, vp, vp, vp, vp,
+                                      vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.pft_fused_attempt.restype = ci
+    # consts, mode, nk, tail, h, D1, dDi, coefs, w, k0, k1, k2, out, eps,
     # Z, Y, X, stream
     lib.pft_delta_g.argtypes = [vp, ci, ci, ci, cf, cf, cf, vp, vp, vp, vp,
                                 vp, vp, vp, ci, ci, ci, vp]

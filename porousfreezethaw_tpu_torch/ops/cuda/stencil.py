@@ -2,24 +2,31 @@
 versions and the increment-form attempt.
 
 The counterpart of ``porousfreezethaw_tpu/ops/pallas/stencil.py`` on the
-unpadded ``(3, n3, n2, n1)`` layout.  Two CUDA kernels (``csrc/``) carry
-the f32 production attempt:
+unpadded ``(3, n3, n2, n1)`` layout.  Three CUDA kernels (``csrc/``) carry
+the f32 attempts:
 
 * ``fused_stage`` (csrc/fused_stage.cu): one classic Merson stage
   ``K = f(t_s, w + h*sum(c_i K_i))`` over (u, p) with the 7-point FVM
   stencil, mirror boundaries and the Dirichlet top; with ``stage5`` the
   Merson tail ``(y_spec, eps_blocks)`` instead of K5.  Stage 1 of every
   increment-form attempt; all five stages under ``increment_form 0``.
+* ``fused_attempt`` (csrc/fused_attempt.cu): the same stage on slot
+  ``cur`` of a double-buffered ``(2, 3, n3, n2, n1)`` state, whose tail
+  writes y_spec into slot ``1 - cur`` (``FusedAttempt``).
 * ``delta_g`` (csrc/delta_g.cu): the exact increment
   ``G = f(w + d) - f(w)``, ``d = h*(c_0 K1 + sum c_j G_j)``, of
-  models/freezing/delta.py; with ``stage5`` the increment-form tail.
+  models/freezing/delta.py; with ``stage5`` the increment-form tail, which
+  emits y_spec (``emit="y"``) or the bare increment dy (``emit="dy"``, the
+  compensated commit's input, ``DeltaAttemptComp``).
 
 Each wrapper checks device, dtype (float32), shapes and contiguity.  For a
 tensor on the CPU it computes with the kernel's plain PyTorch version
 (``*_plain``, the same arithmetic in the same association); for a CUDA
 tensor it launches the kernel or raises — it never falls back.  Each
 wrapper counts its kernel launches in a plain int attribute
-(``fused_stage.launches``, ``delta_g.launches``).
+(``fused_stage.launches``, ``fused_attempt.launches``,
+``delta_g.launches`` and, for the ``emit="dy"`` tail, a kernel of its
+own, ``delta_g.launches_dy``).
 
 Scalars follow the JAX package exactly: t_stage and h reach the stage
 kernel as float32 (the Dirichlet phase switch of the stage kernel is
@@ -39,7 +46,7 @@ import torch
 
 from ...core.grid import GridGeometry
 from ...models.freezing import physics
-from ...models.freezing.delta import g_rhs
+from ...models.freezing.delta import g_rhs, two_sum
 from ...models.freezing.equation import CalcMode, make_rhs
 from ...models.freezing.parameters import FreezingParams
 
@@ -150,7 +157,8 @@ def fused_stage_plain(spec: StencilSpec, t: float, h: float,
 
 
 def delta_g_plain(spec: StencilSpec, h: float, D1: float, dDi: float,
-                  w: torch.Tensor, ks: Ks, stage5: bool = False):
+                  w: torch.Tensor, ks: Ks, stage5: bool = False,
+                  emit: str = "y"):
     """Plain version of the ``delta_g`` kernel (any device)."""
     h32 = np.float32(h)
     (c0, K0), rest = ks[0], ks[1:]
@@ -168,10 +176,30 @@ def delta_g_plain(spec: StencilSpec, h: float, D1: float, dDi: float,
     # ks are K1, G3, G4 of the stage-5 combination
     k1c, g3c, g4c = (K for _, K in ks)
     err = -0.9 * g3c + 0.8 * g4c - 0.1 * g_out
+    eps = torch.amax(torch.abs(err)).reshape(1)
     h3 = float(h32 / np.float32(3.0))
+    if emit == "dy":
+        # the kernel's rounding: two products, then one uncontracted add
+        u_term = float(h32) * k1c
+        x_term = h3 * (2.0 * g4c + 0.5 * g_out)
+        return u_term + x_term, eps
     y_out = (w[:K_VARS] + float(h32) * k1c
              + h3 * (2.0 * g4c + 0.5 * g_out))
-    return y_out, torch.amax(torch.abs(err)).reshape(1)
+    return y_out, eps
+
+
+def fused_attempt_plain(spec: StencilSpec, t: float, h: float,
+                        y2: torch.Tensor, cur: torch.Tensor, ks: Ks,
+                        tail: bool = False):
+    """Plain version of the ``fused_attempt`` kernel (any device): the
+    plain stage on slot ``cur`` of ``y2``; the tail writes (u, p) of y_spec
+    into slot ``1 - cur`` and returns the eps partials."""
+    c = int(cur)
+    if not tail:
+        return fused_stage_plain(spec, t, h, y2[c], ks)
+    y_spec, eps = fused_stage_plain(spec, t, h, y2[c], ks, stage5=True)
+    y2[1 - c, :K_VARS] = y_spec
+    return eps
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +207,7 @@ def delta_g_plain(spec: StencilSpec, h: float, D1: float, dDi: float,
 # ---------------------------------------------------------------------------
 
 def _check(spec: StencilSpec, name: str, w: torch.Tensor, ks: Ks,
-           stage5: bool, nk_min: int) -> None:
+           stage5: bool, nk_min: int, w_shape=None) -> None:
     if w.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {w.device}")
     nk = len(ks)
@@ -187,8 +215,8 @@ def _check(spec: StencilSpec, name: str, w: torch.Tensor, ks: Ks,
         raise ValueError(f"{name}: takes {nk_min}..3 K inputs, got {nk}")
     if stage5 and nk != 3:
         raise ValueError(f"{name}: stage5 takes the 3-term combination")
-    for t_, want in [(w, spec.state_shape)] + [(K, spec.k_shape)
-                                                for _, K in ks]:
+    for t_, want in [(w, w_shape or spec.state_shape)] + [
+            (K, spec.k_shape) for _, K in ks]:
         if tuple(t_.shape) != want:
             raise ValueError(f"{name}: expected shape {want}, got "
                              f"{tuple(t_.shape)}")
@@ -213,31 +241,36 @@ def _library():
     return lib
 
 
-def _kernel_call(fn_name: str, spec: StencilSpec, scalars, w: torch.Tensor,
-                 ks: Ks, stage5: bool):
-    """Launch ``fn_name`` of the kernel library on ``w``'s device and
-    stream; returns the outputs (K/G, or y_spec and eps partials)."""
+def _kernel_call(fn_name: str, spec: StencilSpec, scalars, state_ptrs,
+                 device: torch.device, ks: Ks, tail: int, out):
+    """Launch ``fn_name`` of the kernel library on ``device``'s current
+    stream, writing K/G/y_spec/dy into ``out`` (None where the kernel
+    writes its state instead); returns the eps partials of a tail
+    (``tail`` > 0), else None."""
     lib = _library()
     Z, Y, X = spec.geom.shape
-    out = torch.empty(spec.k_shape, dtype=torch.float32, device=w.device)
     eps = (torch.empty((lib.pft_eps_blocks(Z, Y, X),), dtype=torch.float32,
-                       device=w.device) if stage5 else None)
+                       device=device) if tail else None)
     nk = len(ks)
     coefs = np.zeros(3, dtype=np.float32)
     coefs[:nk] = [c for c, _ in ks]
     kptrs = [K.data_ptr() for _, K in ks] + [None] * (3 - nk)
-    with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream(w.device).cuda_stream
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, fn_name)(
-            spec.packed.ctypes.data, int(spec.mode), nk, int(stage5),
-            *scalars, coefs.ctypes.data, w.data_ptr(), *kptrs,
-            out.data_ptr(), None if eps is None else eps.data_ptr(),
-            Z, Y, X, stream)
+            spec.packed.ctypes.data, int(spec.mode), nk, tail,
+            *scalars, coefs.ctypes.data, *state_ptrs, *kptrs,
+            None if out is None else out.data_ptr(),
+            None if eps is None else eps.data_ptr(), Z, Y, X, stream)
     if rc != 0:
         msg = (lib.pft_error_string(rc).decode() if rc < 1000
                else "invalid arguments")
         raise KernelLaunchError(f"{fn_name} failed: {rc} ({msg})")
-    return (out, eps) if stage5 else out
+    return eps
+
+
+def _k_out(spec: StencilSpec, device: torch.device) -> torch.Tensor:
+    return torch.empty(spec.k_shape, dtype=torch.float32, device=device)
 
 
 def fused_stage(spec: StencilSpec, t: float, h: float, w: torch.Tensor,
@@ -248,28 +281,71 @@ def fused_stage(spec: StencilSpec, t: float, h: float, w: torch.Tensor,
     if w.device.type == "cpu":
         return fused_stage_plain(spec, t, h, w, ks, stage5)
     scalars = (float(np.float32(t)), float(np.float32(h)))
-    res = _kernel_call("pft_fused_stage", spec, scalars, w, ks, stage5)
+    out = _k_out(spec, w.device)
+    eps = _kernel_call("pft_fused_stage", spec, scalars, (w.data_ptr(),),
+                       w.device, ks, int(stage5), out)
     fused_stage.launches += 1
-    return res
+    return (out, eps) if stage5 else out
 
 
 fused_stage.launches = 0
 
 
+def fused_attempt(spec: StencilSpec, t: float, h: float, y2: torch.Tensor,
+                  cur: torch.Tensor, ks: Ks, tail: bool = False):
+    """One stage of the double-buffered attempt; see the module docstring.
+    ``y2`` is the float32 ``(2, 3, n3, n2, n1)`` state and ``cur`` a
+    one-element int32 tensor on the same device holding the slot (0 or 1)
+    the stage reads.  Returns K of shape (2, n3, n2, n1) or, with ``tail``,
+    the eps partials (y_spec goes into slot ``1 - cur`` of ``y2``)."""
+    _check(spec, "fused_attempt", y2, ks, tail, nk_min=0,
+           w_shape=(2,) + spec.state_shape)
+    if (cur.dtype != torch.int32 or tuple(cur.shape) != (1,)
+            or cur.device != y2.device):
+        raise ValueError("fused_attempt: cur must be a one-element int32 "
+                         f"tensor on {y2.device}, got {cur.dtype} "
+                         f"{tuple(cur.shape)} on {cur.device}")
+    if y2.device.type == "cpu":
+        return fused_attempt_plain(spec, t, h, y2, cur, ks, tail)
+    scalars = (float(np.float32(t)), float(np.float32(h)))
+    out = None if tail else _k_out(spec, y2.device)
+    eps = _kernel_call("pft_fused_attempt", spec, scalars,
+                       (y2.data_ptr(), cur.data_ptr()), y2.device, ks,
+                       int(tail), out)
+    fused_attempt.launches += 1
+    return eps if tail else out
+
+
+fused_attempt.launches = 0
+
+EMITS = ("y", "dy")
+
+
 def delta_g(spec: StencilSpec, h: float, D1: float, dDi: float,
-            w: torch.Tensor, ks: Ks, stage5: bool = False):
+            w: torch.Tensor, ks: Ks, stage5: bool = False, emit: str = "y"):
     """One increment-form stage; see the module docstring.  Returns G of
-    shape (2, n3, n2, n1), or ``(y_spec, eps_blocks)`` with ``stage5``."""
+    shape (2, n3, n2, n1), or with ``stage5`` ``(y_spec, eps_blocks)``
+    (``emit="y"``) or ``(dy, eps_blocks)`` (``emit="dy"``)."""
     _check(spec, "delta_g", w, ks, stage5, nk_min=1)
+    if emit not in EMITS or (emit == "dy" and not stage5):
+        raise ValueError(f"delta_g: emit must be one of {EMITS}, and 'dy' "
+                         f"needs stage5; got {emit!r}")
     if w.device.type == "cpu":
-        return delta_g_plain(spec, h, D1, dDi, w, ks, stage5)
+        return delta_g_plain(spec, h, D1, dDi, w, ks, stage5, emit)
     scalars = tuple(float(np.float32(v)) for v in (h, D1, dDi))
-    res = _kernel_call("pft_delta_g", spec, scalars, w, ks, stage5)
-    delta_g.launches += 1
-    return res
+    out = _k_out(spec, w.device)
+    tail = 2 if emit == "dy" else int(stage5)
+    eps = _kernel_call("pft_delta_g", spec, scalars, (w.data_ptr(),),
+                       w.device, ks, tail, out)
+    if emit == "dy":
+        delta_g.launches_dy += 1
+    else:
+        delta_g.launches += 1
+    return (out, eps) if stage5 else out
 
 
 delta_g.launches = 0
+delta_g.launches_dy = 0
 
 
 # ---------------------------------------------------------------------------
@@ -307,13 +383,13 @@ def make_fused_stage(geom: GridGeometry, params: FreezingParams,
 
 def make_delta_g(geom: GridGeometry, params: FreezingParams, calc_mode: int,
                  *, plain: bool = False):
-    """``g(h, D1, dDi, w, ks, stage5=False)`` computing
+    """``g(h, D1, dDi, w, ks, stage5=False, emit="y")`` computing
     ``G = f(w + d) - f(w)``; ``plain=True`` as in make_fused_stage."""
     spec = StencilSpec.of(geom, params, calc_mode)
     fn = delta_g_plain if plain else delta_g
 
-    def g(h, D1, dDi, w, ks, stage5=False):
-        return fn(spec, h, D1, dDi, w, ks, stage5=stage5)
+    def g(h, D1, dDi, w, ks, stage5=False, emit="y"):
+        return fn(spec, h, D1, dDi, w, ks, stage5=stage5, emit=emit)
 
     return g
 
@@ -345,7 +421,9 @@ class DeltaAttempt:
                              f"got {y.dtype} {tuple(y.shape)}")
         return y.clone(memory_format=torch.contiguous_format)
 
-    def attempt(self, t: float, h: float, y: torch.Tensor):
+    def _stages(self, t: float, h: float, y: torch.Tensor, emit: str):
+        """The five stages on ``y``: the stage-5 tail's output (y_spec or
+        dy, per ``emit``) and the eps partials."""
         prm = self._prm
         D1 = physics.dirichlet_top(t, prm)
 
@@ -358,9 +436,12 @@ class DeltaAttempt:
         G3 = self._g(h, D1, dD(t + h / 3), y,
                      [(1.0 / 3.0, K1), (1.0 / 6.0, G2)])
         G4 = self._g(h, D1, dD(t + h / 2), y, [(0.5, K1), (0.375, G3)])
-        y_spec, eps_blocks = self._g(
-            h, D1, dD(t + h), y, [(1.0, K1), (-1.5, G3), (2.0, G4)],
-            stage5=True)
+        return self._g(h, D1, dD(t + h), y,
+                       [(1.0, K1), (-1.5, G3), (2.0, G4)], stage5=True,
+                       emit=emit)
+
+    def attempt(self, t: float, h: float, y: torch.Tensor):
+        y_spec, eps_blocks = self._stages(t, h, y, "y")
         return (y, y_spec), eps_blocks
 
     def commit(self, carry_spec, accept: bool) -> torch.Tensor:
@@ -369,3 +450,98 @@ class DeltaAttempt:
 
     def unpack(self, y: torch.Tensor) -> torch.Tensor:
         return y
+
+
+class DeltaAttemptComp(DeltaAttempt):
+    """DeltaAttempt with a compensated (double-f32) commit: the
+    counterpart of the JAX ``DeltaAttemptComp`` (stencil.py:1270-1335).
+
+    The stage-5 tail emits the bare increment dy (``emit="dy"``), and the
+    commit adds it into an (hi, lo) float32 pair per dynamic variable by
+    TwoSum, so that hi + lo tracks the exact sum of the increments to about
+    ulp^2.  The stages read the plain hi planes.  The state is
+    ``(5, n3, n2, n1)`` = [u, p, gl, u_lo, p_lo]; ``pack`` adds zero lo
+    planes to a 3-plane state and copies a 5-plane one (the commit writes
+    in place), and ``unpack`` keeps the lo planes, so that successive solve
+    calls carry them: strip them with ``y[:3]`` for output.  The commit is
+    plain PyTorch, as the JAX package left it to XLA.
+    """
+
+    def pack(self, y: torch.Tensor) -> torch.Tensor:
+        if (tuple(y.shape) == (N_VARS + K_VARS,) + self.geom.shape
+                and y.dtype == torch.float32):
+            return y.clone(memory_format=torch.contiguous_format)
+        y = super().pack(y)
+        return torch.cat([y, torch.zeros_like(y[:K_VARS])])
+
+    def attempt(self, t: float, h: float, y5: torch.Tensor):
+        dy, eps_blocks = self._stages(t, h, y5[:N_VARS], "dy")
+        return (y5, dy), eps_blocks
+
+    def commit(self, carry_spec, accept: bool) -> torch.Tensor:
+        y5, dy = carry_spec
+        if accept:
+            hi, lo = y5[:K_VARS], y5[N_VARS:]
+            s, err = two_sum(hi, lo, dy)
+            hi.copy_(s)
+            lo.copy_(err)
+        return y5
+
+
+class FusedAttempt:
+    """Classic Merson attempt over a double-buffered state: the counterpart
+    of the JAX ``FusedAttempt`` (stencil.py:1353-1610), through the
+    ``fused_attempt`` kernel.
+
+    ``pack`` makes one contiguous ``(2, 3, n3, n2, n1)`` buffer holding the
+    state in both slots (gl included, which the tail never writes) and a
+    one-element int32 slot index ``cur`` on the same device, which the
+    kernel reads itself.  Stages 1-4 read slot ``cur``; the tail writes
+    y_spec into slot ``1 - cur``.  ``commit`` flips ``cur`` on the device
+    (no copy, no host sync) and ``unpack`` returns slot ``cur``.  The
+    stage coefficients are those of ``merson_solve``'s stage path, so an
+    attempt equals the ``fused_stage`` chain.  ``plain=True`` computes with
+    the plain PyTorch version on any device.
+    """
+
+    def __init__(self, geom: GridGeometry, params: FreezingParams,
+                 calc_mode: int, *, plain: bool = False):
+        self.geom = geom
+        self._spec = StencilSpec.of(geom, params, calc_mode)
+        self._fn = fused_attempt_plain if plain else fused_attempt
+
+    def pack(self, y: torch.Tensor):
+        want = (N_VARS,) + self.geom.shape
+        if tuple(y.shape) != want or y.dtype != torch.float32:
+            raise ValueError(f"FusedAttempt expects a float32 {want} state, "
+                             f"got {y.dtype} {tuple(y.shape)}")
+        return (torch.stack([y, y]),
+                torch.zeros(1, dtype=torch.int32, device=y.device))
+
+    def attempt(self, t: float, h: float, carry):
+        y2, cur = carry
+
+        def step(t_stage, ks, tail=False):
+            return self._fn(self._spec, t_stage, h, y2, cur, ks, tail)
+
+        K1 = step(t, [])
+        K2 = step(t + h / 3, [(1.0 / 3.0, K1)])
+        K3 = step(t + h / 3, [(1.0 / 6.0, K1), (1.0 / 6.0, K2)])
+        K4 = step(t + h / 2, [(1.0 / 8.0, K1), (3.0 / 8.0, K3)])
+        eps_blocks = step(t + h, [(0.5, K1), (-1.5, K3), (2.0, K4)],
+                          tail=True)
+        return carry, eps_blocks
+
+    def commit(self, carry_spec, accept: bool):
+        if accept:
+            carry_spec[1].bitwise_xor_(1)
+        return carry_spec
+
+    def unpack(self, carry) -> torch.Tensor:
+        y2, cur = carry
+        return y2[int(cur)]
+
+
+def make_fused_attempt(geom: GridGeometry, params: FreezingParams,
+                       calc_mode: int, *, plain: bool = False) -> FusedAttempt:
+    return FusedAttempt(geom, params, calc_mode, plain=plain)

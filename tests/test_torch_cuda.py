@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each kernel against its plain
-PyTorch version at a small odd shape, and a short solve whose launch
-counters show that every attempt went through both kernels.
+PyTorch version at a small odd shape, the double-buffered attempt against
+the fused_stage chain, and short solves whose launch counters show that
+every attempt went through the kernels.
 
 These tests need an NVIDIA GPU and nvcc; without them they skip.  The
 machine with the card has no JAX, so run them without the suite's
@@ -93,6 +94,45 @@ def test_kernels_match_plain(dev, mode):
             kk = list(zip(cs, ks))
             _close(st.delta_g(spec, h, D1, dDi, w, kk, stage5=s5),
                    st.delta_g_plain(spec, h, D1, dDi, w, kk, stage5=s5))
+        # K2': the emit="dy" tail
+        kk = list(zip([1.0, -1.5, 2.0], ks))
+        _close(st.delta_g(spec, h, D1, dDi, w, kk, stage5=True, emit="dy"),
+               st.delta_g_plain(spec, h, D1, dDi, w, kk, stage5=True,
+                                emit="dy"))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 10, 11])
+def test_fused_attempt_matches_plain_and_stage_chain(dev, mode):
+    """K4: one double-buffered attempt against the plain FusedAttempt
+    (K and y_spec to the tolerance of _close) and, bit for bit, against
+    the fused_stage kernel's stage-5 chain on the same state; accept and
+    reject, and gl in both slots."""
+    prm = _params()
+    geom = GridGeometry(0.03, 0.03, 0.06, SHAPE[2], SHAPE[1], SHAPE[0])
+    spec = st.StencilSpec.of(geom, prm, mode)
+    w, _ = _inputs(dev)
+    t, h = 100.0, 0.05
+    att, ref = st.FusedAttempt(geom, prm, mode), st.FusedAttempt(
+        geom, prm, mode, plain=True)
+    carry = att.pack(w)
+    spec_k, eps = att.attempt(t, h, carry)
+    carry_p = ref.pack(w)
+    spec_p, eps_p = ref.attempt(t, h, carry_p)
+    _close((carry[0][1, :2], eps), (carry_p[0][1, :2], eps_p))
+
+    K1 = st.fused_stage(spec, t, h, w, [])
+    K2 = st.fused_stage(spec, t + h / 3, h, w, [(1 / 3, K1)])
+    K3 = st.fused_stage(spec, t + h / 3, h, w, [(1 / 6, K1), (1 / 6, K2)])
+    K4 = st.fused_stage(spec, t + h / 2, h, w, [(1 / 8, K1), (3 / 8, K3)])
+    y_spec, eps_ref = st.fused_stage(spec, t + h, h, w,
+                                     [(0.5, K1), (-1.5, K3), (2.0, K4)],
+                                     stage5=True)
+    assert torch.equal(eps, eps_ref)
+    assert torch.equal(att.unpack(att.commit(spec_k, False)), w)
+    acc = att.unpack(att.commit(spec_k, True))
+    assert torch.equal(acc[:2], y_spec) and torch.equal(acc[2], w[2])
+    assert torch.equal(carry[0][0], w)           # the old slot is kept
     torch.cuda.synchronize()
 
 
@@ -123,4 +163,26 @@ def test_solve_goes_through_both_kernels(dev):
     assert state.steps_total == 25
     assert st.fused_stage.launches == 25
     assert st.delta_g.launches == 100
+    assert torch.isfinite(state.y).all()
+
+
+def test_solves_go_through_k2dy_and_k4(dev):
+    """The compensated attempt launches K1, three K2 and one K2' per
+    attempt; the double-buffered attempt five K4."""
+    prm = _params()
+    geom = GridGeometry(0.03, 0.03, 0.06, SHAPE[2], SHAPE[1], SHAPE[0])
+    w, _ = _inputs(dev)
+    w[0] = torch.linspace(-5, 5, SHAPE[2], device=dev)
+    params = MersonParams(delta=1e-3, max_steps=25, handle_nan=True)
+    st.fused_stage.launches = st.delta_g.launches = 0
+    st.delta_g.launches_dy = st.fused_attempt.launches = 0
+    state, _ = merson_solve(None, merson_init(w, 0.0, 1e-6), 1e9, params,
+                            attempt_fn=st.DeltaAttemptComp(geom, prm, 0))
+    assert state.steps_total == 25 and state.y.shape[0] == 5
+    assert (st.fused_stage.launches, st.delta_g.launches,
+            st.delta_g.launches_dy) == (25, 75, 25)
+    assert torch.isfinite(state.y).all()
+    state, _ = merson_solve(None, merson_init(w, 0.0, 1e-6), 1e9, params,
+                            attempt_fn=st.FusedAttempt(geom, prm, 0))
+    assert state.steps_total == 25 and st.fused_attempt.launches == 125
     assert torch.isfinite(state.y).all()

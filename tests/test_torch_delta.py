@@ -151,9 +151,9 @@ def test_plain_stage_matches_pallas(case):
 # attempt below
 @pytest.mark.parametrize("mode", [1])
 def test_plain_delta_g_matches_pallas(case, mode):
-    """The plain delta kernel (nk 1-3 and stage5) against JAX make_delta_g
-    in interpret mode, with the increment ghost of a step across the
-    phase switch."""
+    """The plain delta kernel (nk 1-3, and stage5 with emit "y" and "dy")
+    against JAX make_delta_g in interpret mode, with the increment ghost of
+    a step across the phase switch."""
     jprm, prm, jgeom, geom, w32, ks = _f32_case(case, shifted=True)
     jg = jst.make_delta_g(jgeom, jprm, mode, bz=2, interpret=True)
     spec = st.StencilSpec.of(geom, prm, mode)
@@ -170,10 +170,12 @@ def test_plain_delta_g_matches_pallas(case, mode):
         jks = list(zip(cs, kp))
         tks = list(zip(cs, k_t))
         if s5:
-            y_p, eps_p = jg(h, D1, dDi, wp, jks, stage5=True)
-            y, eps = st.delta_g(spec, h, D1, dDi, w_t, tks, stage5=True)
-            _close_k(y.numpy(), jst.unpad_state(y_p, jgeom))
-            _close_eps(float(eps.max()), float(jnp.max(eps_p)))
+            for emit in st.EMITS:
+                y_p, eps_p = jg(h, D1, dDi, wp, jks, stage5=True, emit=emit)
+                y, eps = st.delta_g(spec, h, D1, dDi, w_t, tks, stage5=True,
+                                    emit=emit)
+                _close_k(y.numpy(), jst.unpad_state(y_p, jgeom))
+                _close_eps(float(eps.max()), float(jnp.max(eps_p)))
         else:
             g = st.delta_g(spec, h, D1, dDi, w_t, tks)
             _close_k(g.numpy(), jst.unpad_state(jg(h, D1, dDi, wp, jks),
@@ -229,8 +231,25 @@ def test_wrappers_reject_bad_inputs(case):
         st.delta_g(spec, 0.1, 0.0, 0.0, w_t, [(1.0, k)], stage5=True)
     with pytest.raises(ValueError):
         st.fused_stage(spec, 0.0, 0.1, w_t, [(1.0, k.transpose(2, 3))])
+    ks3 = [(1.0, k), (-1.5, k), (2.0, k)]
+    with pytest.raises(ValueError):                     # dy is a tail
+        st.delta_g(spec, 0.1, 0.0, 0.0, w_t, ks3, emit="dy")
+    with pytest.raises(ValueError):
+        st.delta_g(spec, 0.1, 0.0, 0.0, w_t, ks3, stage5=True, emit="x")
+    y2 = torch.stack([w_t, w_t])
+    cur = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError):                     # not a 2-slot state
+        st.fused_attempt(spec, 0.0, 0.1, w_t, cur, [])
+    with pytest.raises(ValueError):
+        st.fused_attempt(spec, 0.0, 0.1, y2, cur.long(), [])
+    with pytest.raises(ValueError):
+        st.fused_attempt(spec, 0.0, 0.1, y2, cur, [(1.0, k)], tail=True)
     # the CPU path computes with the plain version and counts no launch
-    before = (st.fused_stage.launches, st.delta_g.launches)
+    counters = lambda: (st.fused_stage.launches, st.fused_attempt.launches,
+                        st.delta_g.launches, st.delta_g.launches_dy)
+    before = counters()
     st.fused_stage(spec, 0.0, 0.1, w_t, [])
+    st.fused_attempt(spec, 0.0, 0.1, y2, cur, [])
     st.delta_g(spec, 0.1, 0.0, 0.0, w_t, [(1.0, k)])
-    assert (st.fused_stage.launches, st.delta_g.launches) == before
+    st.delta_g(spec, 0.1, 0.0, 0.0, w_t, ks3, stage5=True, emit="dy")
+    assert counters() == before

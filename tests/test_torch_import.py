@@ -24,7 +24,8 @@ def test_port_imports_no_jax():
     interpreter loads neither jax nor porousfreezethaw_tpu."""
     names = [m.name for m in pkgutil.walk_packages(
         porousfreezethaw_tpu_torch.__path__, "porousfreezethaw_tpu_torch.")]
-    assert "porousfreezethaw_tpu_torch.apps.intertrack" in names
+    assert {"porousfreezethaw_tpu_torch.apps.intertrack",
+            "porousfreezethaw_tpu_torch.bench"} <= set(names)
     code = (
         "import importlib, sys\n"
         "import porousfreezethaw_tpu_torch.apps.intertrack\n"
