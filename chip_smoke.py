@@ -29,15 +29,31 @@ Run from the root of a checkout.  Phases, one JSON line each:
             showing that every attempt went through the kernels; then the
             LR Temp golden in f64 (the plain PyTorch path on the card),
             held to 1850/2256 (5%)
+7. mesh     the multi-device paths on virtual shards of the card (a mesh
+            whose device list repeats cuda:0): the shard kernels K1s
+            (fused_stage_shard), K3 (its interior/edge split,
+            fused_stage_split), K2s (delta_g_shard) and its emit="dy" tail
+            (delta_g_shard_dy) against their plain versions at MR shards;
+            sharded against single-device bit for bit at MR on z1, z2,
+            z4, z2,y2 and y2 (overlap on and off); their times; MR solves
+            of 100 attempts at z4 and z2,y2 against the single-device
+            paths (the same counts and state bits); the LR GradP golden
+            through run_iteration at z4 (plain and compensated) and
+            through the app with --mesh z1, each giving the counts and
+            snapshot bytes of the run without a mesh; the bench's MR mesh
+            rows
 
 and, only when asked for, ``profile``: torch.profiler over 100 attempts
-at LR and at MR, through DeltaAttempt and FusedAttempt (the device's busy
-share and the time by kernel).
+at LR and at MR, through DeltaAttempt and FusedAttempt, and at MR through
+ShardedDeltaAttempt on a z4 mesh of the card (the device's busy share and
+the time by kernel).
 
 The launches in the kernel summary come from the run that is each
 kernel's main path, with the counters set to 0 just before it: the plain
 golden for fused_stage and delta_g, the compensated golden for
-delta_g_dy, the bench's --fused attempt row for fused_attempt.
+delta_g_dy, the bench's --fused attempt row for fused_attempt, the golden
+at z4 for fused_stage_split and delta_g_shard, the compensated golden at
+z4 for delta_g_shard_dy, the bench's z1,y1 row for fused_stage_shard.
 
 It exits non-zero, before printing the final line, when CUDA is missing or
 any phase fails.  The last three lines are the card's name and power
@@ -47,6 +63,7 @@ limit (nvidia-smi), the kernel summary, and {"ok": true, "device": ...}.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -60,7 +77,7 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "build", "kernels", "solve", "bench", "app")
+PHASES = ("env", "build", "kernels", "solve", "bench", "app", "mesh")
 OPTIONAL_PHASES = ("profile",)
 SEED = 20251016
 # the increment form's golden (reference log, LR GradP snapshot 1) and the
@@ -272,6 +289,12 @@ def _check_fused_attempt(geom, prm, mode, t, h, w, stats):
     stats["n"] += 1
 
 
+TIMED_BY = ("; ms: CUDA events over back-to-back wrapper calls, device_ms: "
+            "the same calls queued behind a device-side wait (_queued_ms)")
+# the device-side wait of _queued_ms: about 25 ms at the H100's clocks
+QUEUE_CYCLES = 50_000_000
+
+
 def _time(fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -362,26 +385,30 @@ def phase_kernels(dev) -> dict:
                                False) for n in (0, 1, 2, 2)] + [
                         _call_cost(STAGE_OPS, w, s5, 2, True)]
     bounds["fused_attempt/attempt"] = tuple(map(sum, zip(*attempt_cost)))
+    # ms: CUDA events over back-to-back wrapper calls, two passes of 10
+    # after one warm-up; device_ms: the same calls queued behind a
+    # device-side wait (_queued_ms), which leaves out the host's share
     timing = {}
-    for impl in ("plain", "kernel", "kernel2", "plain2"):
+    for impl in ("plain", "kernel", "kernel_device", "kernel2", "plain2"):
         plain = impl.startswith("plain")
+        timer = _queued_ms if impl == "kernel_device" else _time
         f_stage = st.fused_stage_plain if plain else st.fused_stage
         f_delta = st.delta_g_plain if plain else st.delta_g
         att = atts["plain" if plain else "kernel"]
         row = {}
         for name, (cs, tail) in STAGE_CASES.items():
             kk = list(zip(cs, ks))
-            row[f"fused_stage/{name}"] = _time(
+            row[f"fused_stage/{name}"] = timer(
                 lambda: f_stage(spec, t, h, w, kk, stage5=tail), 10)
         for name, (cs, tail) in DELTA_CASES.items():
             kk = list(zip(cs, ks))
-            row[f"delta_g/{name}"] = _time(
+            row[f"delta_g/{name}"] = timer(
                 lambda: f_delta(spec, h, D1, 0.0, w, kk, stage5=tail), 10)
-        row["delta_g_dy/stage5"] = _time(
+        row["delta_g_dy/stage5"] = timer(
             lambda: f_delta(spec, h, D1, 0.0, w, s5, stage5=True, emit="dy"),
             10)
         # the five launches of one attempt (rejected, so the state stays)
-        row["fused_attempt/attempt"] = _time(
+        row["fused_attempt/attempt"] = timer(
             lambda: att.attempt(t, h, carry), 10)
         timing[impl] = row
         emit("kernel_times", impl=impl, shape=list(MR_SHAPE), ms=row)
@@ -395,9 +422,9 @@ def phase_kernels(dev) -> dict:
             ("delta_g", list(DELTA_CASES), ":1112", "delta_g.cu"),
             ("delta_g_dy", ["stage5"], ":1059", "delta_g.cu"),
             ("fused_attempt", ["attempt"], ":1504", "fused_attempt.cu")):
-        def avg(impl_a, impl_b):
+        def avg(*impls):
             return float(np.mean([timing[i][f"{kern}/{c}"]
-                                  for i in (impl_a, impl_b) for c in cases]))
+                                  for i in impls for c in cases]))
         costs = [bounds[f"{kern}/{c}"] for c in cases]
         nbytes = float(np.mean([b for b, _ in costs]))
         ops = float(np.mean([o for _, o in costs]))
@@ -412,10 +439,11 @@ def phase_kernels(dev) -> dict:
             ms=avg("kernel", "kernel2"), plain_ms=avg("plain", "plain2"),
             bound_ms=bound_ms, bound_by=bound_by,
             # no single PyTorch call computes the stencil right-hand side
-            library_ms=None,
+            library_ms=None, device_ms=avg("kernel_device"),
             timed=(f"{'+'.join(cases)} at {MR_SHAPE}"
                    + (", one attempt = 5 launches"
-                      if kern == "fused_attempt" else ", per launch")))
+                      if kern == "fused_attempt" else ", per launch")
+                   + TIMED_BY))
     return out
 
 
@@ -595,19 +623,31 @@ def phase_bench(dev) -> dict:
 def phase_profile(dev) -> None:
     """Optional (not in the default run): torch.profiler over a short
     window of attempts at LR (100 grid nodes) and MR, through DeltaAttempt
-    and FusedAttempt, for the device's busy share and the time by
-    kernel."""
+    and FusedAttempt, and at MR through ShardedDeltaAttempt on a z4 mesh of
+    virtual shards of the card, for the device's busy share and the time
+    by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from porousfreezethaw_tpu_torch.ops.cuda.stencil import (
         DeltaAttempt, FusedAttempt)
+    from porousfreezethaw_tpu_torch.parallel import (
+        make_mesh, shard_freezing_state)
+    from porousfreezethaw_tpu_torch.parallel.fused import ShardedDeltaAttempt
     from porousfreezethaw_tpu_torch.solvers.merson import (
         MersonParams, merson_init, merson_solve)
 
-    for grid_nodes, cls in ((100, DeltaAttempt), (200, DeltaAttempt),
-                            (100, FusedAttempt), (200, FusedAttempt)):
+    z4 = make_mesh("z4", [dev] * 4)
+    for grid_nodes, cls, mesh in ((100, DeltaAttempt, None),
+                                  (200, DeltaAttempt, None),
+                                  (100, FusedAttempt, None),
+                                  (200, FusedAttempt, None),
+                                  (200, ShardedDeltaAttempt, z4)):
         geom, prm, v, y0, h0 = _mr_state(dev, grid_nodes)
-        att = cls(geom, prm, 0)
+        if mesh is None:
+            att = cls(geom, prm, 0)
+        else:
+            att = cls(geom, prm, 0, mesh)
+            y0 = shard_freezing_state(y0, mesh)
         state, _ = merson_solve(None, merson_init(y0, 0.0, h0), 1e9,
                                 MersonParams(delta=v["delta"],
                                              handle_nan=True, max_steps=40),
@@ -636,6 +676,7 @@ def phase_profile(dev) -> None:
         device_us = sum(r[0] for r in rows)
         measured = bool(rows) and device_us > 0
         emit("profile", attempt=cls.__name__, grid=list(geom.shape),
+             mesh=None if mesh is None else "z4 on one card",
              attempts=n, wall_us=wall_us,
              device_us=device_us if measured else "not measured",
              device_busy_share=(device_us / wall_us if measured
@@ -649,7 +690,8 @@ def phase_profile(dev) -> None:
                                   max_steps=n), attempt_fn=att)
         torch.cuda.synchronize()
         emit("profile_off", attempt=cls.__name__, grid=list(geom.shape),
-             attempts=n, wall_us=1e6 * (time.perf_counter() - t0))
+             mesh=None if mesh is None else "z4 on one card", attempts=n,
+             wall_us=1e6 * (time.perf_counter() - t0))
 
 
 # --------------------------------------------------------------------------
@@ -751,6 +793,548 @@ def phase_app(dev) -> dict:
             "delta_g_dy": runs["compensated"]["delta_g_dy"]}
 
 
+# --------------------------------------------------------------------------
+# phase 7: the mesh paths, on virtual shards of the one card
+# --------------------------------------------------------------------------
+
+# (spec, shards) of the bitwise checks; the solves use z4 and z2,y2
+MESH_SPECS = (("z1", 1), ("z2", 2), ("z4", 4), ("z2,y2", 4), ("y2", 2))
+MESH_ATTEMPTS = 100
+MESH_KERNELS = ("fused_stage_shard", "fused_stage_split", "delta_g_shard",
+                "delta_g_shard_dy")
+
+
+def _mesh_counters(st) -> dict:
+    return {"fused_stage_shard": st.fused_stage_shard.launches,
+            "fused_stage_split": st.fused_stage_shard.launches_split,
+            "delta_g_shard": st.delta_g_shard.launches,
+            "delta_g_shard_dy": st.delta_g_shard.launches_dy}
+
+
+def _reset_mesh_counters(st) -> None:
+    st.fused_stage_shard.launches = st.fused_stage_shard.launches_split = 0
+    st.delta_g_shard.launches = st.delta_g_shard.launches_dy = 0
+
+
+def _all_counters(st) -> dict:
+    return {**_counters(st), **_mesh_counters(st)}
+
+
+def _reset_all(st) -> None:
+    _reset_counters(st)
+    _reset_mesh_counters(st)
+
+
+def _shard_case(w, ks, nk, planes, rows):
+    """One shard's inputs, planes [lo, hi) and input rows ``rows`` of the
+    whole-grid w and ks, with the ghost stacks of the planes around it
+    (the own edge planes at a chain end)."""
+    lo, hi = planes
+    below, above = max(lo - 1, 0), min(hi, w.shape[1] - 1)
+    ws = w[:, lo:hi, rows].contiguous()
+    kk = [K[:, lo:hi, rows].contiguous() for K in ks[:nk]]
+    g = tuple(torch.cat([w[:, p, rows]] + [K[:, p, rows] for K in ks[:nk]])
+              .contiguous() for p in (below, above))
+    return ws, kk, g
+
+
+def _shard_cost(base_ops, ws, nk, n_out_rows, tail):
+    """Bytes (each input plane, ghost planes included, read once; each
+    output written once) and operations of one shard launch."""
+    nv, zl, ye, x = ws.shape
+    gplanes = 3 + 2 * nk
+    nbytes = 4 * (gplanes * zl * ye * x + 2 * gplanes * ye * x
+                  + 2 * zl * n_out_rows * x)
+    cells = zl * n_out_rows * x
+    return nbytes, cells * (base_ops + OPS_PER_K * nk
+                            + (TAIL_OPS if tail else 0))
+
+
+def _mesh_kernels(dev):
+    """K1s, K3 and K2s against their plain versions at MR shards; returns
+    the error statistics by kernel."""
+    from porousfreezethaw_tpu_torch.core.grid import GridGeometry
+    from porousfreezethaw_tpu_torch.models.freezing import physics
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
+
+    _, prm = _mr_params()
+    rng = np.random.default_rng(SEED + 3)
+    h = 0.05
+    geom = GridGeometry(0.03, 0.03, 0.06, MR_SHAPE[2], MR_SHAPE[1],
+                        MR_SHAPE[0])
+    w, ks = _inputs(MR_SHAPE, dev, rng)
+    stats = {k: dict(ok=True, finite=True, n=0, max_abs_err=0.0,
+                     max_rel_err=0.0, max_eps_rel_err=0.0)
+             for k in MESH_KERNELS}
+    Z, half, zq = MR_SHAPE[0], MR_SHAPE[1] // 2, MR_SHAPE[0] // 4
+    # (planes, input rows, window): a z4 shard, and the two y-shards of a
+    # z2,y2 mesh (one at each y chain end)
+    shards = (((zq, 2 * zq), slice(None), (0, MR_SHAPE[1], 0)),
+              ((Z // 2, Z), slice(0, half + 1), (0, half, 0)),
+              ((0, Z // 2), slice(half - 1, None), (1, half, half)))
+    top = ((Z - zq, Z), slice(None), (0, MR_SHAPE[1], 0))
+    for mode in (0, 1, 2):
+        spec = st.StencilSpec.of(geom, prm, mode)
+        for t in (prm.phase_switch_time - 0.5 * h,
+                  prm.phase_switch_time + 1.0):
+            for planes, rows, window in shards:
+                for cs, s5 in STAGE_CASES.values():
+                    ws, kk, g = _shard_case(w, ks, len(cs), planes, rows)
+                    kk = list(zip(cs, kk))
+                    ref = st.fused_stage_shard_plain(spec, t, h, ws, kk, g,
+                                                     window=window, stage5=s5)
+                    got = st.fused_stage_shard(spec, t, h, ws, kk, g,
+                                               window=window, stage5=s5)
+                    _compare(got, ref, stats["fused_stage_shard"])
+                    prev = st.fused_stage_shard(
+                        spec, t, h, ws, kk, None, window=window, stage5=s5,
+                        part="interior")
+                    got = st.fused_stage_shard(
+                        spec, t, h, ws, kk, g, window=window, stage5=s5,
+                        part="edge", prev=prev if s5 else (prev,))
+                    _compare(got, ref, stats["fused_stage_split"])
+            D1 = physics.dirichlet_top(t, prm)
+            dDi = float(np.float32(physics.dirichlet_top(t + h, prm) - D1))
+            for (planes, rows, window), is_top in ((shards[0], False),
+                                                  (shards[2], False),
+                                                  (top, True)):
+                for cs, s5 in DELTA_CASES.values():
+                    for tail in (("y", "dy") if s5 else ("y",)):
+                        ws, kk, g = _shard_case(w, ks, len(cs), planes, rows)
+                        args = (spec, h, D1, dDi, ws, list(zip(cs, kk)), g)
+                        kw = dict(is_top=is_top, window=window, stage5=s5,
+                                  emit=tail)
+                        _compare(st.delta_g_shard(*args, **kw),
+                                 st.delta_g_shard_plain(*args, **kw),
+                                 stats["delta_g_shard_dy" if tail == "dy"
+                                       else "delta_g_shard"])
+    torch.cuda.synchronize()
+    for kern, s in stats.items():
+        emit("mesh_kernels", shape=list(MR_SHAPE), kernel=kern,
+             modes=[0, 1, 2], **s)
+        if not (s["ok"] and s["finite"]):
+            raise AssertionError(f"{kern} disagrees with its plain version: "
+                                 f"{s}")
+    return stats
+
+
+def _mesh_bitwise(dev):
+    """Sharded against single-device, bit for bit, at MR on virtual
+    shards: the delta attempt (overlap on and off), the compensated
+    attempt and the classic stage-5 tail, t across the phase switch."""
+    from porousfreezethaw_tpu_torch.core.grid import GridGeometry
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
+    from porousfreezethaw_tpu_torch.parallel import (
+        gather_freezing_state, make_mesh, shard_freezing_state)
+    from porousfreezethaw_tpu_torch.parallel.fused import (
+        ShardedDeltaAttempt, ShardedDeltaAttempt2D, make_sharded_fused_stage)
+
+    _, prm = _mr_params()
+    rng = np.random.default_rng(SEED + 4)
+    geom = GridGeometry(0.03, 0.03, 0.06, MR_SHAPE[2], MR_SHAPE[1],
+                        MR_SHAPE[0])
+    w, ks = _inputs(MR_SHAPE, dev, rng)
+    h = 0.05
+    combo = list(zip([0.5, -1.5, 2.0], ks))
+    results = []
+    for mode in (0, 1, 2):
+        for t in (prm.phase_switch_time - 0.01, 1000.0):
+            single = st.DeltaAttempt(geom, prm, mode)
+            (_, ys_a), eps_a = single.attempt(t, h, single.pack(w))
+            comp = st.DeltaAttemptComp(geom, prm, mode)
+            (_, dy_a), epsc_a = comp.attempt(t, h, comp.pack(w))
+            spec = st.StencilSpec.of(geom, prm, mode)
+            yc_a, ec_a = st.fused_stage(spec, t, h, w, combo, stage5=True)
+            for ms, n in MESH_SPECS:
+                mesh = make_mesh(ms, [dev] * n)
+                shards = shard_freezing_state(w, mesh)
+                combo_s = [(c, shard_freezing_state(k, mesh))
+                           for c, k in combo]
+                for overlap in ((True, False) if "y" not in ms
+                                else (False,)):
+                    if "y" in ms:
+                        att = ShardedDeltaAttempt2D(geom, prm, mode, mesh)
+                    else:
+                        att = ShardedDeltaAttempt(geom, prm, mode, mesh,
+                                                  overlap=overlap)
+                    (_, ys_b), eps_b = att.attempt(t, h, att.pack(shards))
+                    row = dict(mode=mode, t=t, mesh=ms, overlap=overlap,
+                               delta=(torch.equal(gather_freezing_state(
+                                   ys_b, mesh), ys_a)
+                                   and torch.equal(eps_b.max(),
+                                                   eps_a.max())))
+                    if "y" not in ms:
+                        attc = ShardedDeltaAttempt(
+                            geom, prm, mode, mesh, overlap=overlap,
+                            compensated=True)
+                        (_, dy_b), epsc_b = attc.attempt(t, h,
+                                                         attc.pack(shards))
+                        row["compensated"] = (
+                            torch.equal(gather_freezing_state(dy_b, mesh),
+                                        dy_a)
+                            and torch.equal(epsc_b.max(), epsc_a.max()))
+                        stage = make_sharded_fused_stage(
+                            geom, prm, mode, mesh, overlap=overlap)
+                        ys, e = stage.stage5(t, h, shards, combo_s)
+                        row["classic_stage5"] = (
+                            torch.equal(gather_freezing_state(ys, mesh),
+                                        yc_a)
+                            and torch.equal(e.max(), ec_a.max()))
+                    results.append(row)
+    torch.cuda.synchronize()
+    bad = [r for r in results
+           if not all(v for k, v in r.items() if k in (
+               "delta", "compensated", "classic_stage5"))]
+    emit("mesh_bitwise", shape=list(MR_SHAPE), cases=len(results),
+         failed=bad)
+    if bad:
+        raise AssertionError(f"sharded and single-device differ: {bad}")
+
+
+def _mesh_times(dev):
+    """Kernel and plain times of one z4 shard launch at MR (zl = 50), beside
+    the bytes bound of the launch; (ms, plain_ms, bound, bytes) by
+    kernel."""
+    from porousfreezethaw_tpu_torch.core.grid import GridGeometry
+    from porousfreezethaw_tpu_torch.models.freezing import physics
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
+
+    _, prm = _mr_params()
+    rng = np.random.default_rng(SEED + 5)
+    geom = GridGeometry(0.03, 0.03, 0.06, MR_SHAPE[2], MR_SHAPE[1],
+                        MR_SHAPE[0])
+    w, ks = _inputs(MR_SHAPE, dev, rng)
+    spec = st.StencilSpec.of(geom, prm, 0)
+    t, h = 1000.0, 0.05
+    D1 = physics.dirichlet_top(t, prm)
+    zq = MR_SHAPE[0] // 4
+    planes, rows, win = (zq, 2 * zq), slice(None), (0, MR_SHAPE[1], 0)
+    ny = MR_SHAPE[1]
+    cases = {}
+    ws0, _, g0 = _shard_case(w, ks, 0, planes, rows)
+    cases["fused_stage_shard"] = [(
+        lambda f: f(spec, t, h, ws0, [], g0, window=win),
+        _shard_cost(STAGE_OPS, ws0, 0, ny, False))]
+
+    def split(f):
+        prev = f(spec, t, h, ws0, [], None, window=win, part="interior")
+        return f(spec, t, h, ws0, [], g0, window=win, part="edge",
+                 prev=(prev,))
+    cases["fused_stage_split"] = [(split, _shard_cost(STAGE_OPS, ws0, 0, ny,
+                                                      False))]
+    cases["delta_g_shard"] = []
+    for cs, s5 in DELTA_CASES.values():
+        ws, kk, g = _shard_case(w, ks, len(cs), planes, rows)
+        kk = list(zip(cs, kk))
+        cases["delta_g_shard"].append((
+            lambda f, ws=ws, kk=kk, g=g, s5=s5: f(
+                spec, h, D1, 0.0, ws, kk, g, is_top=False, window=win,
+                stage5=s5),
+            _shard_cost(DELTA_OPS, ws, len(cs), ny, s5)))
+    ws3, kk3, g3 = _shard_case(w, ks, 3, planes, rows)
+    kk3 = list(zip(DELTA_CASES["stage5"][0], kk3))
+    cases["delta_g_shard_dy"] = [(
+        lambda f: f(spec, h, D1, 0.0, ws3, kk3, g3, is_top=False,
+                    window=win, stage5=True, emit="dy"),
+        _shard_cost(DELTA_OPS, ws3, 3, ny, True))]
+    funcs = {"fused_stage_shard": (st.fused_stage_shard,
+                                   st.fused_stage_shard_plain),
+             "fused_stage_split": (st.fused_stage_shard,
+                                   st.fused_stage_shard_plain),
+             "delta_g_shard": (st.delta_g_shard, st.delta_g_shard_plain),
+             "delta_g_shard_dy": (st.delta_g_shard, st.delta_g_shard_plain)}
+    # timed as phase_kernels times K1/K2 (ms and device_ms alike); a shard
+    # launch is short enough that the host's wrapper calls, not the card,
+    # set the pace of back-to-back launches, which device_ms leaves out
+    timing = {}
+    for impl in ("plain", "kernel", "kernel_device", "kernel2", "plain2"):
+        row = {}
+        for kern, calls in cases.items():
+            f = funcs[kern][1 if impl.startswith("plain") else 0]
+            timer = _queued_ms if impl == "kernel_device" else _time
+            row[kern] = float(np.mean([timer(lambda c=c: c(f), 10)
+                                       for c, _ in calls]))
+        timing[impl] = row
+        emit("mesh_kernel_times", impl=impl,
+             shard=[zq] + list(MR_SHAPE[1:]), ms=row)
+    out = {}
+    for kern, calls in cases.items():
+        nbytes = float(np.mean([b for _, (b, _) in calls]))
+        ops = float(np.mean([o for _, (_, o) in calls]))
+        out[kern] = (float(np.mean([timing["kernel"][kern],
+                                    timing["kernel2"][kern]])),
+                     float(np.mean([timing["plain"][kern],
+                                    timing["plain2"][kern]])),
+                     _bound(nbytes, ops), nbytes,
+                     timing["kernel_device"][kern])
+    return out
+
+
+def _queued_ms(fn, reps):
+    """Device time per call of ``fn``'s launches: CUDA events around
+    ``reps`` calls queued behind a device-side wait (torch.cuda._sleep),
+    so the card runs them back to back and the host's time per call is
+    hidden; raises if the host took longer to queue them than the wait
+    lasted."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(QUEUE_CYCLES)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ev[2].record()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    wait_ms = ev[0].elapsed_time(ev[1])
+    if host_ms >= 0.8 * wait_ms:
+        raise AssertionError(f"queueing {reps} calls took {host_ms} ms, "
+                             f"the device-side wait only {wait_ms} ms")
+    return ev[1].elapsed_time(ev[2]) / reps
+
+
+def _mesh_solves(dev):
+    """MR GradP f32, MESH_ATTEMPTS attempts from the bench's start state:
+    each sharded path against its single-device counterpart, the same
+    steps, attempts, t, h and final state bits."""
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
+    from porousfreezethaw_tpu_torch.parallel import (
+        gather_freezing_state, make_mesh, shard_freezing_state)
+    from porousfreezethaw_tpu_torch.parallel.fused import (
+        ShardedDeltaAttempt, ShardedDeltaAttempt2D, make_sharded_fused_stage)
+    from porousfreezethaw_tpu_torch.solvers.merson import (
+        MersonParams, merson_init, merson_solve)
+
+    geom, prm, v, y0, h0 = _mr_state(dev)
+    z4 = make_mesh("z4", [dev] * 4)
+    zy = make_mesh("z2,y2", [dev] * 4)
+    paths = (
+        ("delta_z4", z4, dict(attempt_fn=st.DeltaAttempt(geom, prm, 0)),
+         dict(attempt_fn=ShardedDeltaAttempt(geom, prm, 0, z4)), 0.0),
+        ("delta_z2,y2", zy, dict(attempt_fn=st.DeltaAttempt(geom, prm, 0)),
+         dict(attempt_fn=ShardedDeltaAttempt2D(geom, prm, 0, zy)), 0.0),
+        ("compensated_z4", z4,
+         dict(attempt_fn=st.DeltaAttemptComp(geom, prm, 0)),
+         dict(attempt_fn=ShardedDeltaAttempt(geom, prm, 0, z4,
+                                             compensated=True)), 0.0),
+        # the classic path with the bench's f32 noise-floor escape
+        ("classic_z4_overlap", z4,
+         dict(stage_fn=st.make_fused_stage(geom, prm, 0)),
+         dict(stage_fn=make_sharded_fused_stage(geom, prm, 0, z4)), 1.05))
+    results = {}
+    for name, mesh, single, sharded, growth in paths:
+        params = MersonParams(delta=v["delta"], h_min=v["tau_min"],
+                              handle_nan=True, max_steps=MESH_ATTEMPTS,
+                              accept_growth_min=growth)
+        rows = {}
+        for which, kw, y in (("single", single, y0),
+                             ("sharded", sharded,
+                              shard_freezing_state(y0, mesh))):
+            # a short warm-up from the same state, then the timed solve
+            merson_solve(None, merson_init(y, 0.0, h0), 1e9,
+                         dataclasses.replace(params, max_steps=5), **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = merson_solve(None, merson_init(y, 0.0, h0), 1e9,
+                                    params, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            yy = (gather_freezing_state(state.y, mesh) if which == "sharded"
+                  else state.y)
+            rows[which] = (state, yy, 1e3 * wall / state.steps_total)
+        (a, ya, ms_a), (b, yb, ms_b) = rows["single"], rows["sharded"]
+        same = ((a.steps, a.steps_total, a.t, a.h)
+                == (b.steps, b.steps_total, b.t, b.h)
+                and torch.equal(ya, yb))
+        results[name] = dict(steps=b.steps, attempts=b.steps_total, t=b.t,
+                             h=b.h, ms_per_attempt=ms_b,
+                             single_ms_per_attempt=ms_a, bitwise=same)
+        emit("mesh_solve", path=name, grid=list(geom.shape), **results[name])
+        if not same or b.steps_total != MESH_ATTEMPTS:
+            raise AssertionError(f"mesh solve {name}: sharded "
+                                 f"{b.steps}/{b.steps_total} t={b.t}, single "
+                                 f"{a.steps}/{a.steps_total} t={a.t}, "
+                                 f"state equal {torch.equal(ya, yb)}")
+    return results
+
+
+def _golden_run(dev, extra="", mesh_axes=None, mesh_devices=None,
+                cli=True):
+    """The LR GradP golden to snapshot 1: through the app's CLI (with
+    ``--mesh mesh_axes``), or through ``run_iteration`` with a mesh of
+    ``mesh_devices``; the counters are set to 0 just before and read just
+    after.  Returns (steps, attempts, snapshot-1 bytes, launches, log)."""
+    from porousfreezethaw_tpu_torch.apps.intertrack import main, run_iteration
+    from porousfreezethaw_tpu_torch.config import parse_param_file
+    from porousfreezethaw_tpu_torch.io.rklog import RunLog
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
+
+    text = open(os.path.join(REPO, "tests", "golden",
+                             "Params-LR-GradP")).read()
+    text = re.sub(r"final_time\s+\S+", "final_time 10*hours/99", text)
+    text = re.sub(r"saved_files\s+\S+", "saved_files 2", text)
+    text += ("\nset ball_positions_file = "
+             + os.path.join(REPO, "data", "spheres_positions.txt") + "\n"
+             + extra)
+    out = tempfile.mkdtemp(prefix="pft_chip_smoke_mesh_")
+    old = os.environ.get("OUTPUT")
+    try:
+        pfile = os.path.join(out, "Params")
+        with open(pfile, "w") as f:
+            f.write(text)
+        os.environ["OUTPUT"] = out
+        _reset_all(st)
+        t0 = time.perf_counter()
+        if cli:
+            rc = main([pfile, "--precision", "f32", "--device", str(dev)]
+                      + (["--mesh", mesh_axes] if mesh_axes else []))
+        else:
+            pf = parse_param_file(text)
+            log = RunLog(pf.setting("logfile"))
+            run_iteration(pf, log, device=dev, dtype=torch.float32,
+                          mesh_axes=mesh_axes, mesh_devices=mesh_devices)
+            log.close()
+            rc = 0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _all_counters(st)
+        log = open(os.path.join(out, "intertrack.log")).read()
+        snap = open(os.path.join(out, "image.001.ncd"), "rb").read()
+    finally:
+        if old is None:
+            os.environ.pop("OUTPUT", None)
+        else:
+            os.environ["OUTPUT"] = old
+        shutil.rmtree(out, ignore_errors=True)
+    m = re.search(r"Successful R-K steps: (\d+) of (\d+) total", log)
+    if rc != 0 or not m:
+        raise AssertionError(f"golden run failed (rc={rc}):\n{log[-2000:]}")
+    steps, attempts = int(m[1]), int(m[2])
+    emit("mesh_golden", extra=extra.strip(), mesh=mesh_axes,
+         shards=len(mesh_devices) if mesh_devices else None, cli=cli,
+         steps=steps, attempts=attempts, wall_s=wall,
+         ms_per_attempt=1e3 * wall / attempts, launches=launches)
+    return steps, attempts, snap, launches, log
+
+
+def _mesh_goldens(dev) -> dict:
+    """The LR GradP golden to snapshot 1 without a mesh, with --mesh z1
+    through the app, and through run_iteration on a z4 mesh of the card
+    (plain and compensated commit): the same counts and a byte-identical
+    snapshot 1.  Returns the main-path launches of K3 and K2s (the plain
+    z4 run) and K2s-dy (the compensated z4 run)."""
+    comp = "compensated_commit 1\n"
+    bases = {"": _golden_run(dev), comp: _golden_run(dev, comp)}
+    launches = {}
+    for extra, mesh_axes, shards, cli in (("", "z1", 1, True),
+                                          ("", "z4", 4, False),
+                                          (comp, "z4", 4, False)):
+        base = bases[extra]
+        run = _golden_run(dev, extra, mesh_axes,
+                          None if cli else [dev] * shards, cli)
+        n = base[1]
+        want = {"fused_stage_split": 2 * shards * n,
+                "delta_g_shard": (3 if extra else 4) * shards * n,
+                "delta_g_shard_dy": shards * n if extra else 0}
+        want = {k: want.get(k, 0) for k in run[3]}
+        if run[:2] != base[:2] or run[2] != base[2]:
+            raise AssertionError(
+                f"golden {extra.strip()} --mesh {mesh_axes}: {run[:2]} "
+                f"against {base[:2]} without a mesh, snapshot equal "
+                f"{run[2] == base[2]}")
+        if run[3] != want:
+            raise AssertionError(f"golden {extra.strip()} --mesh "
+                                 f"{mesh_axes}: launches {run[3]}, want "
+                                 f"{want}")
+        if mesh_axes == "z4" and not extra:
+            launches["fused_stage_split"] = run[3]["fused_stage_split"]
+            launches["delta_g_shard"] = run[3]["delta_g_shard"]
+        elif mesh_axes == "z4":
+            launches["delta_g_shard_dy"] = run[3]["delta_g_shard_dy"]
+    return launches
+
+
+def _mesh_bench(dev) -> int:
+    """The bench's MR mesh rows (bench.py's freezing_200_0_sharded and
+    _sharded_2d); returns the K1s launches of the z1,y1 row, its main
+    path."""
+    from porousfreezethaw_tpu_torch import bench
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
+
+    k1s = 0
+    for mesh in ("z1", "z1,y1"):
+        args = bench.parse_args([
+            "--grid-nodes", "200", "--steps", "200", "--warm-steps", "200",
+            "--device", str(dev), "--mesh", mesh])
+        _reset_all(st)
+        rec = bench.bench_freezing(args)
+        torch.cuda.synchronize()
+        launches = _all_counters(st)
+        emit("mesh_bench", **rec, launches=launches)
+        n = rec["attempts"] + rec["warm_attempts"]
+        want = ({"fused_stage_split": 10 * n} if mesh == "z1" else
+                {"fused_stage_shard": n, "delta_g_shard": 4 * n})
+        want = {k: want.get(k, 0) for k in launches}
+        if not (rec["value"] > 0
+                and rec["metric"] == bench.HEADLINE + "_sharded_" + mesh):
+            raise AssertionError(f"mesh bench row {mesh}: {rec}")
+        if launches != want:
+            raise AssertionError(f"mesh bench row {mesh}: launches "
+                                 f"{launches}, want {want}")
+        if mesh == "z1,y1":
+            k1s = launches["fused_stage_shard"]
+    return k1s
+
+
+def phase_mesh(dev):
+    """The multi-device freezing paths on virtual shards of the card:
+    the shard kernels against their plain versions and their times, the
+    sharded paths against the single-device ones bit for bit, MR solves,
+    the LR golden and the bench's mesh rows.  Returns the kernel summary
+    rows of K1s, K3, K2s and K2s-dy and their main-path launches."""
+    from porousfreezethaw_tpu_torch.core.grid import GridGeometry
+    from porousfreezethaw_tpu_torch.parallel.fused import (
+        halo_bytes_per_attempt)
+
+    stats = _mesh_kernels(dev)
+    _mesh_bitwise(dev)
+    times = _mesh_times(dev)
+    _mesh_solves(dev)
+    launches = _mesh_goldens(dev)
+    launches["fused_stage_shard"] = _mesh_bench(dev)
+    geom = GridGeometry(0.03, 0.03, 0.06, MR_SHAPE[2], MR_SHAPE[1],
+                        MR_SHAPE[0])
+    emit("mesh_halo", grid=list(MR_SHAPE),
+         bytes_per_attempt_per_shard={
+             "classic_z4": halo_bytes_per_attempt(geom, 4),
+             "delta_z4": halo_bytes_per_attempt(geom, 4, delta=True),
+             "delta_z2,y2": halo_bytes_per_attempt(geom, 2, 2, delta=True)})
+    out = {}
+    for kern, replaces, timed in (
+            ("fused_stage_shard", ":737", "nk0, part all"),
+            ("fused_stage_split", ":642", "nk0, interior + edge"),
+            ("delta_g_shard", ":1112", "nk1+nk2+nk3+stage5"),
+            ("delta_g_shard_dy", ":1059", "stage5 emit=dy")):
+        ms, plain_ms, (bound_ms, bound_by), nbytes, device_ms = times[kern]
+        src = ("delta_g.cu" if kern.startswith("delta")
+               else "fused_stage.cu")
+        out[kern] = dict(
+            name=kern, route="cuda",
+            source=f"porousfreezethaw_tpu_torch/csrc/{src}",
+            replaces=f"porousfreezethaw_tpu/ops/pallas/stencil.py{replaces}",
+            launches=launches.get(kern, 0),
+            max_abs_err=stats[kern]["max_abs_err"],
+            max_rel_err=stats[kern]["max_rel_err"],
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, device_ms=device_ms,
+            timed=f"{timed} on one z4 shard of {MR_SHAPE} "
+                  f"({MR_SHAPE[0] // 4} planes), {nbytes / 1e6:.1f} MB per "
+                  f"launch{TIMED_BY}")
+    return out, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -771,31 +1355,37 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    kernels = None
+    kernels = {}
     launches = {}
     if "env" in phases:
         phase_env()
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
-        kernels = phase_kernels(dev)
+        kernels.update(phase_kernels(dev))
     if "solve" in phases:
         phase_solve(dev)
     if "bench" in phases:
         launches["fused_attempt"] = phase_bench(dev)["fused_attempt"]
     if "app" in phases:
         launches.update(phase_app(dev))
+    if "mesh" in phases:
+        mesh_kernels, mesh_launches = phase_mesh(dev)
+        kernels.update(mesh_kernels)
+        launches.update(mesh_launches)
     if "profile" in phases:
         phase_profile(dev)
 
-    if kernels is not None and set(launches) == set(kernels):
-        for name, n in launches.items():
-            kernels[name]["launches"] = n
-            if n <= 0:
-                raise AssertionError(f"{name} was not launched on the main "
-                                     "path")
+    for name in set(kernels) & set(launches):
+        kernels[name]["launches"] = launches[name]
     if phases != list(PHASES):
         return 0               # partial runs print no result line
+    if set(launches) != set(kernels):
+        raise AssertionError(f"main-path launches for {sorted(launches)}, "
+                             f"kernels {sorted(kernels)}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the main path")
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

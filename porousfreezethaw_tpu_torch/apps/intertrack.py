@@ -10,9 +10,9 @@ mnemonics and ``continue_if``, the RK debug log, on-demand snapshots via a
 trigger file, and post-processing script execution.
 
 CLI:  ``python -m porousfreezethaw_tpu_torch.apps.intertrack param_file
-[master_rank] [ubound_list] [--precision f32|f64] [--device cuda|cpu]``
-(``intertrack.c:1304``; master_rank is accepted for command-line
-compatibility and ignored).
+[master_rank] [ubound_list] [--precision f32|f64] [--device cuda|cpu]
+[--mesh SPEC]`` (``intertrack.c:1304``; master_rank is accepted for
+command-line compatibility and ignored).
 
 Solver paths: f64 integrates the plain PyTorch right-hand side; f32 without
 a noise field runs the increment-form attempt through the CUDA kernels
@@ -20,6 +20,14 @@ a noise field runs the increment-form attempt through the CUDA kernels
 double-f32 commit variant) or the classic fused stage kernel
 (``increment_form 0``).  On ``--device cpu`` the kernel wrappers compute
 with their plain PyTorch versions.
+
+``--mesh`` (``'z'``, ``'z4'``, ``'z2,y2'``, over the visible devices of
+``--device``) shards the f32 solve: a z mesh runs ``ShardedDeltaAttempt``
+(or, under ``increment_form 0``, the sharded classic stage), a z,y mesh
+``ShardedDeltaAttempt2D``, which ignores ``compensated_commit`` as the JAX
+app does.  Snapshots are then written shard by shard.  The JAX app's other
+mesh branch (f64, a noise field, or a mesh the grid does not divide) is
+not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ import os
 import subprocess
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,13 +47,18 @@ from ..config.params import (
 from ..core.device import field_dtype, numpy_dtype, resolve_device
 from ..core.grid import GridGeometry
 from ..io.rklog import RKDebugLog, RunLog, format_date, format_time
-from ..io.snapshots import load_checkpoint, write_snapshot
+from ..io.snapshots import (
+    load_checkpoint, write_snapshot, write_snapshot_sharded)
 from ..models.freezing.equation import make_noise_field, make_rhs
 from ..models.freezing.glass import build_glass_field, read_ball_positions
 from ..models.freezing.icond import build_initial_conditions
 from ..models.freezing.parameters import (
     PARAM_INFO, FreezingParams, shift_temperature_origin)
 from ..ops.cuda.stencil import DeltaAttempt, DeltaAttemptComp, make_fused_stage
+from ..parallel.fused import (
+    ShardedDeltaAttempt, ShardedDeltaAttempt2D, make_sharded_fused_stage)
+from ..parallel.sharding import (
+    gather_freezing_state, make_mesh, shard_freezing_state)
 from ..solvers.merson import (
     INTERRUPTED, MersonParams, merson_init, merson_solve)
 
@@ -83,8 +96,14 @@ def run_iteration(
     loop_values: Optional[List[int]] = None,
     loop_ubounds: Optional[List[int]] = None,
     debug_log: Optional[RKDebugLog] = None,
+    mesh_axes: Optional[str] = None,
+    mesh_devices: Optional[Sequence] = None,
 ) -> Dict[str, float]:
-    """One full simulation (one batch iteration).  Returns run stats."""
+    """One full simulation (one batch iteration).  Returns run stats.
+
+    ``mesh_axes`` shards the solve over ``make_mesh(mesh_axes,
+    mesh_devices)``; ``mesh_devices`` defaults to the visible devices of
+    ``device`` and may repeat a device."""
     np_dtype = numpy_dtype(dtype)
 
     # ---------- parameters setting (intertrack.c:1489-1577) ----------
@@ -221,7 +240,37 @@ def run_iteration(
     # compensated (double-f32) commit, off by default: the JAX package's
     # round-5 A/B found it does not reduce the f32 step inflation
     use_comp = bool(pf.vars.get("compensated_commit", 0.0))
-    if f32 and noise is None:
+    mesh = None
+    if mesh_axes:
+        mesh = make_mesh(mesh_axes, mesh_devices, device=device)
+        log("Device mesh: %s\n", mesh.shape)
+        nz, ny = mesh.shape.get("z", 1), mesh.shape.get("y", 1)
+        axes = set(mesh.axis_names)
+        fits = (total_n3 % nz == 0 and total_n3 // nz >= 2
+                and n2 % ny == 0)
+        if not (f32 and noise is None and fits
+                and (axes == {"z"} or (axes == {"z", "y"} and use_delta))):
+            # the JAX app's GSPMD fallback over the plain right-hand side
+            raise NotImplementedError(
+                "--mesh: this mesh path (f64, a noise field, a mesh the grid "
+                "does not divide, or the classic stage on a z,y mesh) is not "
+                "ported yet")
+        if axes == {"z"} and use_delta:
+            attempt_fn = ShardedDeltaAttempt(geom, solver_params, calc_mode,
+                                             mesh, compensated=use_comp)
+            log("Increment-form (delta) attempt kernels: ON%s (sharded over "
+                "z=%d)\n", " (compensated commit)" if use_comp else "", nz)
+        elif axes == {"z"}:
+            stage_fn = make_sharded_fused_stage(geom, solver_params,
+                                                calc_mode, mesh)
+            log("Fused stage kernel: ON (sharded over z=%d)\n", nz)
+        else:
+            attempt_fn = ShardedDeltaAttempt2D(geom, solver_params,
+                                               calc_mode, mesh)
+            log("Increment-form (delta) attempt kernels: ON (sharded over "
+                "z=%d, y=%d)\n", nz, ny)
+        y0 = shard_freezing_state(y0, mesh)
+    elif f32 and noise is None:
         if use_delta:
             cls = DeltaAttemptComp if use_comp else DeltaAttempt
             attempt_fn = cls(geom, solver_params, calc_mode)
@@ -328,14 +377,22 @@ def run_iteration(
         if not is_on_demand:
             on_demand_counter = 0
 
-        write_snapshot(
-            filename, geom, params,
-            # [:3] strips the compensated commit's lo planes when present
-            _unshift(state.y[:3].cpu().numpy(), u_shift),
-            grid_mode=pf.grid_io_mode, calc_mode=calc_mode, delta=delta,
-            tau=state.h, t=state.t, final_time=final_time,
+        snap_kw = dict(
+            calc_mode=calc_mode, delta=delta, tau=state.h, t=state.t,
+            final_time=final_time,
             snapshot=snapshot - 1 if is_on_demand else snapshot,
             total_snapshots=total_snapshots, comment=comment)
+        if mesh is not None and pf.grid_io_mode == "inner":
+            # gather-free: each shard writes its own block
+            write_snapshot_sharded(filename, geom, params, state.y, mesh,
+                                   u_shift=u_shift, **snap_kw)
+        else:
+            y_out = (gather_freezing_state(state.y, mesh)
+                     if mesh is not None else state.y)
+            # [:3] strips the compensated commit's lo planes when present
+            write_snapshot(filename, geom, params,
+                           _unshift(y_out[:3].cpu().numpy(), u_shift),
+                           grid_mode=pf.grid_io_mode, **snap_kw)
         log("OK]\n")
         log.commit()
 
@@ -406,12 +463,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default, raises without a GPU) or 'cpu'")
     ap.add_argument("--mesh", default=None,
-                    help="device mesh spec (not ported yet)")
+                    help="device mesh spec over the visible devices of "
+                         "--device, e.g. 'z', 'z4' or 'z2,y2' (f32)")
     args = ap.parse_args(argv)
 
-    if args.mesh:
-        raise NotImplementedError("--mesh: the multi-device paths are not "
-                                  "ported yet")
     device = resolve_device(args.device)
     dtype = field_dtype(args.precision)
 
@@ -468,7 +523,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             run_iteration(
                 pf, log, device=device, dtype=dtype, loop_iter=loop_iter,
                 loop_values=loop_values, loop_ubounds=ubounds or None,
-                debug_log=debug_log)
+                debug_log=debug_log, mesh_axes=args.mesh)
             out_dir_arg = (pf.setting("out_file")
                            + (loop_suffix(loop_values, ubounds, pf.mnemonics)
                               if ubounds else ""))

@@ -3,6 +3,7 @@
     python -m porousfreezethaw_tpu_torch.bench [--fused stage|delta|attempt|off]
         [--dtype f32|f64] [--grid-nodes 200] [--calc-mode 0] [--steps N]
         [--warm-steps N] [--device cuda|cpu] [--profile-dir DIR]
+        [--mesh SPEC [--no-overlap]]
     python -m porousfreezethaw_tpu_torch.bench --matrix [--out FILE]
 
 The counterpart of the JAX package's ``bench.py`` freezing suite: the
@@ -25,11 +26,17 @@ right-hand side (the f64 path); ``auto`` is ``stage`` for f32 on the GPU
 and ``off`` otherwise.  ``--device cuda`` is the default and raises
 without a GPU; nothing falls back to the CPU.
 
-``--matrix`` runs the LR/MR/HR x GradP/SigmaP1-P/Temp rows and the MR
-GradP delta row, each in its own process, and prints one JSON line per row
-and the MR GradP row again as the last line.  The matrix's DEM and mesh
-rows, ``--suite dem`` and ``--mesh`` are not ported yet and raise.  The
-matrix writes a file only where ``--out`` names one.
+``--mesh`` benches the sharded paths over a mesh of the visible devices of
+``--device``, as ``bench.py`` does: a z mesh the classic stage kernels
+(``make_sharded_fused_stage``, with the interior/edge overlap split unless
+``--no-overlap``), a mesh with a y axis the 2-D increment-form attempt
+(``ShardedDeltaAttempt2D``); the metric gets ``_sharded_<spec>``.
+
+``--matrix`` runs the LR/MR/HR x GradP/SigmaP1-P/Temp rows, the MR GradP
+delta row and the MR GradP mesh rows (``z1`` and ``z1,y1``), each in its
+own process, and prints one JSON line per row and the MR GradP row again as
+the last line.  The matrix's DEM rows and ``--suite dem`` are not ported
+yet and raise.  The matrix writes a file only where ``--out`` names one.
 """
 
 from __future__ import annotations
@@ -55,6 +62,8 @@ from .models.freezing import (
     FreezingParams, build_glass_field, build_initial_conditions, make_rhs,
     read_ball_positions, shift_temperature_origin)
 from .ops.cuda.stencil import DeltaAttempt, FusedAttempt, make_fused_stage
+from .parallel.fused import ShardedDeltaAttempt2D, make_sharded_fused_stage
+from .parallel.sharding import make_mesh, shard_freezing_state
 from .solvers.merson import MersonParams, merson_init, merson_solve
 
 # the C reference's sustained throughput per case, cells x attempted steps
@@ -164,6 +173,9 @@ def bench_freezing(args, grid_nodes=None, calc_mode=None) -> dict:
     device = resolve_device(args.device)
     dtype = field_dtype(args.dtype)
     path = solver_path(args.fused, dtype, device)
+    if args.mesh and path not in KERNEL_PATHS:
+        raise ValueError("--mesh benches the f32 kernel paths (--fused "
+                         "stage, delta or attempt; 'auto' on the GPU)")
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     log(f"device: {device} ({name})")
@@ -174,8 +186,19 @@ def bench_freezing(args, grid_nodes=None, calc_mode=None) -> dict:
         f"({geom.num_cells/1e6:.2f} M cells), calc_mode {calc_mode}, "
         f"dtype {args.dtype}, path {path}")
     rhs = make_rhs(geom, prm, calc_mode, device)
-    stage_fn = attempt_fn = None
-    if path == "stage":
+    stage_fn = attempt_fn = mesh = None
+    if args.mesh:
+        mesh = make_mesh(args.mesh, device=device)
+        if "y" in mesh.axis_names:
+            attempt_fn = ShardedDeltaAttempt2D(geom, prm, calc_mode, mesh)
+            path = "delta_2d"
+        else:
+            stage_fn = make_sharded_fused_stage(
+                geom, prm, calc_mode, mesh, overlap=not args.no_overlap)
+            path = "stage_sharded"
+        log(f"mesh {mesh.shape}, overlap "
+            f"{'off' if args.no_overlap else 'on'}")
+    elif path == "stage":
         stage_fn = make_fused_stage(geom, prm, calc_mode)
     elif path == "delta":
         attempt_fn = DeltaAttempt(geom, prm, calc_mode)
@@ -198,8 +221,9 @@ def bench_freezing(args, grid_nodes=None, calc_mode=None) -> dict:
         return merson_solve(rhs, st, 1e9, params, stage_fn=stage_fn,
                             attempt_fn=attempt_fn)[0]
 
-    state = merson_init(torch.from_numpy(w0).to(device), 0.0,
-                        min(v["tau"], 1e-4))
+    y0 = torch.from_numpy(w0).to(device)
+    state = merson_init(y0 if mesh is None else shard_freezing_state(y0, mesh),
+                        0.0, min(v["tau"], 1e-4))
     log(f"warming >= {warm} attempted steps ({steps} per solver call)...")
     t0 = time.perf_counter()
     for _ in range(max(1, -(-warm // steps))):
@@ -220,11 +244,13 @@ def bench_freezing(args, grid_nodes=None, calc_mode=None) -> dict:
     value = 5.0 * geom.num_cells * done / wall
     log(f"{done} attempted steps, t={state.t:.4f}s sim, {wall:.3f}s wall "
         f"-> {value:.3e} cell*RHS-evals/s")
-    if not bool(torch.isfinite(state.y).all()):
+    ys = state.y if mesh is not None else [state.y]
+    if not all(bool(torch.isfinite(y).all()) for y in ys):
         raise RuntimeError("the benchmark solve produced a non-finite state")
     base = BASELINES.get((grid_nodes, calc_mode))
     return {
-        "metric": metric_name(grid_nodes, calc_mode),
+        "metric": metric_name(grid_nodes, calc_mode) + (
+            f"_sharded_{args.mesh}" if args.mesh else ""),
         "value": value,
         "unit": UNIT,
         "vs_baseline": (value / base) if base else None,
@@ -236,6 +262,7 @@ def bench_freezing(args, grid_nodes=None, calc_mode=None) -> dict:
         "attempts": done,
         "accepted": state.steps - before_ok,
         "warm_attempts": before,
+        "mesh": mesh.shape if mesh is not None else None,
     }
 
 
@@ -245,7 +272,7 @@ def bench_freezing(args, grid_nodes=None, calc_mode=None) -> dict:
 
 def matrix_specs():
     """(row spec, label) of bench.py's matrix; each row runs in its own
-    process.  The DEM and mesh rows are not ported yet."""
+    process.  The DEM rows are not ported yet."""
     specs = [(f"freezing:{gn}:{cm}", f"freezing_{gn}_{cm}")
              for gn in (100, 200, 400) for cm in (0, 1, 2)]
     specs.append(("freezing:200:0:delta", "freezing_200_0_delta"))
@@ -267,14 +294,13 @@ def bench_row(args, spec: str) -> dict:
         raise NotPortedError(f"matrix row {spec}: the DEM suite is not "
                              "ported yet")
     extra = parts[3] if len(parts) > 3 else ""
-    if extra.startswith("mesh="):
-        raise NotPortedError(f"matrix row {spec}: the mesh paths are not "
-                             "ported yet")
     if extra == "delta":
         args.fused = "delta"
+    elif extra.startswith("mesh="):
+        args.mesh = extra[5:]
     rec = bench_freezing(args, grid_nodes=int(parts[1]),
                          calc_mode=int(parts[2]))
-    if extra:
+    if extra == "delta":
         rec["metric"] += "_delta"
     return rec
 
@@ -354,7 +380,10 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default, raises without a GPU) or 'cpu'")
     ap.add_argument("--mesh", default=None,
-                    help="device mesh spec (not ported yet)")
+                    help="bench the sharded kernel paths over a device mesh "
+                         "spec (e.g. 'z', 'z1,y1')")
+    ap.add_argument("--no-overlap", action="store_true",
+                    help="disable the interior/edge halo-overlap split")
     ap.add_argument("--ball-positions", default=None)
     ap.add_argument("--profile-dir", default=None,
                     help="write a torch.profiler trace of the timed section "
@@ -376,8 +405,6 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     if args.suite == "dem":
         raise NotPortedError("--suite dem: the DEM suite is not ported yet")
-    if args.mesh:
-        raise NotPortedError("--mesh: the mesh paths are not ported yet")
     if args.row:
         print(json.dumps(bench_row(args, args.row)), flush=True)
         return 0

@@ -92,6 +92,54 @@ inline dim3 launch_grid(int Z, int Y, int X) {
                 (Z + ZCHUNK - 1) / ZCHUNK);
 }
 
+// The shard options of the stage and delta kernels (SHARD in stage.cuh and
+// delta_g.cu): ghost stacks, the z range and the y window.
+struct ShardArgs {
+    const float* glo;      // ghost stack below plane 0, (3 + 2 nk, Y, X):
+    const float* ghi;      // w's 3 planes, then each K's (u, p); above Z-1
+    int part;              // planes: 0 all, 1 interior [1, Z-1), 2 edge 0, Z-1
+    int r0, Yl;            // own rows [r0, r0 + Yl) of the Y input rows
+    int y0, Yg;            // global row of own row 0, global Y
+    int is_top;            // delta_g.cu: the shard holds the global top
+};
+
+constexpr int PART_ALL = 0, PART_INTERIOR = 1, PART_EDGE = 2;
+
+// The planes [z_begin, z_end) of block z-index bz for a launch over part;
+// the edge part has two blocks in z, plane 0 and plane Z-1.
+__device__ __forceinline__ void part_planes(int part, int Z, int bz,
+                                            int& z_begin, int& z_end) {
+    if (part == PART_EDGE) {
+        z_begin = bz == 0 ? 0 : Z - 1;
+        z_end = z_begin + 1;
+        return;
+    }
+    const int lo = part == PART_INTERIOR ? 1 : 0;
+    const int hi = part == PART_INTERIOR ? Z - 1 : Z;
+    z_begin = lo + bz * ZCHUNK;
+    z_end = min(z_begin + ZCHUNK, hi);
+}
+
+inline dim3 shard_grid(int part, int Z, int Yl, int X) {
+    dim3 g = launch_grid(part == PART_INTERIOR ? Z - 2 : Z, Yl, X);
+    if (part == PART_EDGE) g.z = 2;
+    return g;
+}
+
+// Checks the shard options against the input shape (Z, Y, X); returns 0 or
+// 1000 + n.
+inline int shard_check(const ShardArgs& s, int Z, int Y) {
+    if (s.part < PART_ALL || s.part > PART_EDGE) return 1006;
+    if (s.part != PART_ALL && Z < 3) return 1007;
+    if (s.part != PART_INTERIOR && (!s.glo || !s.ghi)) return 1008;
+    if (s.Yl < 1 || s.r0 < 0 || s.r0 + s.Yl > Y) return 1009;
+    // a row that is not a global edge needs its neighbour row in the input
+    if ((s.y0 > 0 && s.r0 < 1) || (s.y0 + s.Yl < s.Yg && s.r0 + s.Yl >= Y))
+        return 1010;
+    if (s.y0 < 0 || s.y0 + s.Yl > s.Yg) return 1011;
+    return 0;
+}
+
 // NaN-propagating max over the block; thread 0 writes it to out[block].
 __device__ __forceinline__ void block_max_store(float m, float* out) {
     __shared__ float warp_max[BX * BY / 32];

@@ -14,6 +14,17 @@
 // y_spec = w + (h/3)(0.5(K1 + K5) + 2 K4) and one NaN-propagating partial
 // max of |0.2 K1 - 0.9 K3 + 0.8 K4 - 0.1 K5| per block (the host takes the
 // max over the partials).
+//
+// With SHARD the body runs on one shard of a device mesh (K1s and K3 of
+// fused_stage.cu, parallel/fused.py): the z neighbours below plane 0 and
+// above plane Z-1 come from caller-supplied ghost stacks of raw edge planes,
+// one per input, combined with the same arithmetic as the shard's own planes
+// (so a sharded stage equals the single-device stage bit for bit); the
+// chain-end boundaries, the Dirichlet top included, are in the ghost
+// content.  The inputs may carry ghost rows in y: the shard's own rows are
+// [r0, r0 + Yl) and the y mirror is decided on the global row y0 + row of
+// the global Y, so a chain-end ghost row is never read.  The output and the
+// eps partials cover the own rows only, over the planes of ``part``.
 #pragma once
 
 #include "freezing.cuh"
@@ -33,18 +44,35 @@ struct StageArgs {
     Grid g;
 };
 
-// aux at (z, y, x): w + sum_a (h c_a) K_a, accumulated in the Pallas order
-__device__ __forceinline__ Pt aux_at(const StageArgs& a, int64_t i) {
-    const int64_t V = a.g.var();
-    float u = a.w[i], p = a.w[V + i];
+// w + sum_a (h c_a) K_a at element i of the planes w (variable stride wV)
+// and k0..k2 (stride kV), accumulated in the Pallas order
+__device__ __forceinline__ Pt aux_of(const StageArgs& a, const float* w,
+                                     int64_t wV, const float* k0,
+                                     const float* k1, const float* k2,
+                                     int64_t kV, int64_t i) {
+    const float* k[3] = {k0, k1, k2};
+    float u = w[i], p = w[wV + i];
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
         if (q < a.nk) {
-            u = u + a.hc[q] * a.k[q][i];
-            p = p + a.hc[q] * a.k[q][V + i];
+            u = u + a.hc[q] * k[q][i];
+            p = p + a.hc[q] * k[q][kV + i];
         }
     }
-    return Pt{u, p, a.w[2 * V + i]};
+    return Pt{u, p, w[2 * wV + i]};
+}
+
+// aux at (z, y, x) of the state
+__device__ __forceinline__ Pt aux_at(const StageArgs& a, int64_t i) {
+    const int64_t V = a.g.var();
+    return aux_of(a, a.w, V, a.k[0], a.k[1], a.k[2], V, i);
+}
+
+// aux at column col of a ghost stack: the same combination of raw planes
+__device__ __forceinline__ Pt aux_ghost(const StageArgs& a, const float* g,
+                                        int64_t col) {
+    const int64_t P = a.g.plane();
+    return aux_of(a, g, P, g + 3 * P, g + 5 * P, g + 7 * P, P, col);
 }
 
 __device__ __forceinline__ float face(const Consts& c, const Pt& n,
@@ -102,27 +130,52 @@ __device__ __forceinline__ void rhs_point(const Consts& c, const Pt& o,
 
 // The whole stage for the (x, y) column of this thread over its ZCHUNK
 // planes; the kernels are this body with their own pointer set-up.
-template <int MODE, bool STAGE5>
+template <int MODE, bool STAGE5, bool SHARD = false>
 __device__ __forceinline__ void stage_body(const Consts& c,
-                                           const StageArgs& a) {
+                                           const StageArgs& a,
+                                           const ShardArgs& s = ShardArgs{}) {
     const int x = blockIdx.x * BX + threadIdx.x;
-    const int y = blockIdx.y * BY + threadIdx.y;
-    const int z0 = blockIdx.z * ZCHUNK;
+    const int yo = blockIdx.y * BY + threadIdx.y;   // own row
     const int X = a.g.X, Y = a.g.Y, Z = a.g.Z;
     const int64_t P = a.g.plane(), V = a.g.var();
+    int z0, z1;
+    if (SHARD) {
+        part_planes(s.part, Z, blockIdx.z, z0, z1);
+    } else {
+        z0 = blockIdx.z * ZCHUNK;
+        z1 = min(z0 + ZCHUNK, Z);
+    }
+    const int Yo = SHARD ? s.Yl : Y;
+    // the output's plane and variable strides (own rows only)
+    const int64_t oP = (int64_t)Yo * X, oV = (int64_t)Z * oP;
     float m = 0.0f;
-    if (x < X && y < Y) {
+    if (x < X && yo < Yo) {
         const int xm = x > 0 ? x - 1 : x, xp = x < X - 1 ? x + 1 : x;
-        const int ym = y > 0 ? y - 1 : y, yp = y < Y - 1 ? y + 1 : y;
+        int y, ym, yp;
+        if (SHARD) {
+            const int gy = s.y0 + yo;
+            y = s.r0 + yo;
+            ym = gy > 0 ? y - 1 : y;
+            yp = gy < s.Yg - 1 ? y + 1 : y;
+        } else {
+            y = yo;
+            ym = y > 0 ? y - 1 : y;
+            yp = y < Y - 1 ? y + 1 : y;
+        }
         const float D = a.t < c.phase_switch_time ? c.top_temp1 : c.top_temp2;
         const int64_t col = (int64_t)y * X + x;
-        Pt below = aux_at(a, (int64_t)(z0 > 0 ? z0 - 1 : 0) * P + col);
+        Pt below = (SHARD && z0 == 0)
+            ? aux_ghost(a, s.glo, col)
+            : aux_at(a, (int64_t)(z0 > 0 ? z0 - 1 : 0) * P + col);
         Pt cur = aux_at(a, (int64_t)z0 * P + col);
-        const int z1 = min(z0 + ZCHUNK, Z);
         for (int z = z0; z < z1; ++z) {
             const int64_t i = (int64_t)z * P + col;
-            // mirror for p and gl, Dirichlet ghost for u at the top
-            Pt above = z + 1 < Z ? aux_at(a, i + P) : Pt{D, cur.p, cur.gl};
+            const int64_t o = (int64_t)z * oP + (int64_t)yo * X + x;
+            // mirror for p and gl, Dirichlet ghost for u at the top; a
+            // shard reads its ghost stack instead
+            Pt above = z + 1 < Z ? aux_at(a, i + P)
+                       : (SHARD ? aux_ghost(a, s.ghi, col)
+                                : Pt{D, cur.p, cur.gl});
             const int64_t row = (int64_t)z * P;
             Pt nxm = aux_at(a, row + (int64_t)y * X + xm);
             Pt nxp = aux_at(a, row + (int64_t)y * X + xp);
@@ -131,8 +184,8 @@ __device__ __forceinline__ void stage_body(const Consts& c,
             float du, dp;
             rhs_point<MODE>(c, cur, nxm, nxp, nym, nyp, below, above, du, dp);
             if (!STAGE5) {
-                a.out[i] = du;
-                a.out[V + i] = dp;
+                a.out[o] = du;
+                a.out[oV + o] = dp;
             } else {
                 // k[0], k[1], k[2] are K1, K3, K4 of the stage-5 combination
                 const float h3 = a.h / 3.0f;
@@ -144,7 +197,8 @@ __device__ __forceinline__ void stage_body(const Consts& c,
                     float err = 0.2f * k1 - 0.9f * k3 + 0.8f * k4
                                 - 0.1f * k5[v];
                     m = nan_max(m, fabsf(err));
-                    a.out[j] = a.w[j] + h3 * (0.5f * (k1 + k5[v]) + 2.0f * k4);
+                    a.out[v * oV + o] =
+                        a.w[j] + h3 * (0.5f * (k1 + k5[v]) + 2.0f * k4);
                 }
             }
             below = cur;

@@ -27,7 +27,8 @@ import numpy as np
 
 from ..core.grid import GridGeometry
 from ..models.freezing.parameters import FreezingParams, PARAM_NAMES, VARIABLES
-from .netcdf3 import read_netcdf, write_netcdf
+from .netcdf3 import (NC_DOUBLE, create_netcdf, read_netcdf, write_block,
+                      write_netcdf)
 
 
 def snapshot_filename(out_file: str, snapshot: int, suffix: str,
@@ -107,6 +108,58 @@ def _snapshot_attrs(geom, params, *, calc_mode, delta, tau, t, final_time,
     attrs["total_snapshots"] = int(total_snapshots)
     attrs["title"] = f"Intertrack simulation ({comment}). Time: {t:g}"
     return attrs
+
+
+def write_snapshot_sharded(
+    path: str,
+    geom: GridGeometry,
+    params: FreezingParams,
+    shards,                         # per-shard (3, zl, Yl, n1) tensors
+    mesh,                           # parallel.sharding.Mesh
+    *,
+    calc_mode: int,
+    delta: float,
+    tau: float,
+    t: float,
+    final_time: float,
+    snapshot: int,
+    total_snapshots: int,
+    comment: str = "",
+    u_shift: float = 0.0,
+) -> None:
+    """Gather-free snapshot write (inner grid): the contract of
+    :func:`write_snapshot`, but each shard's (zl, Yl, n1) block is written
+    into its hyperslab of the file at (z0, y0, 0), the counterpart of the
+    JAX package's ``write_snapshot_sharded`` and of the reference's
+    gather-to-master + nc_put_vara loop (``intertrack.c:2459-2546``).
+    ``u_shift`` is added to the temperature per shard in the state's own
+    dtype, as the gathered path's unshift does, so the file is byte for
+    byte the gathered one.  Replicated shards (mesh axes other than z and
+    y) write the same block."""
+    from ..parallel.sharding import shard_block
+
+    n3, n2, n1 = geom.shape
+    dims = {"n3": n3, "n2": n2, "n1": n1}
+    var_specs = [("n3", ("n3",), NC_DOUBLE), ("n2", ("n2",), NC_DOUBLE),
+                 ("n1", ("n1",), NC_DOUBLE)]
+    var_specs += [(name, ("n3", "n2", "n1"), NC_DOUBLE) for name in VARIABLES]
+    attrs = _snapshot_attrs(
+        geom, params, calc_mode=calc_mode, delta=delta, tau=tau, t=t,
+        final_time=final_time, snapshot=snapshot,
+        total_snapshots=total_snapshots, comment=comment)
+    layouts = create_netcdf(path, dims, var_specs, attrs)
+    z, y, x = geom.cell_centers()
+    write_block(path, layouts["n3"], z, (0,))
+    write_block(path, layouts["n2"], y, (0,))
+    write_block(path, layouts["n1"], x, (0,))
+    for i, shard in enumerate(shards):
+        block = np.array(shard[:len(VARIABLES)].cpu().numpy(), copy=True)
+        if u_shift:
+            block[0] += block.dtype.type(u_shift)
+        zs, ys = shard_block(mesh, i, geom.shape)
+        for q, name in enumerate(VARIABLES):
+            write_block(path, layouts[name], block[q].astype(np.float64),
+                        (zs.start, ys.start, 0))
 
 
 @dataclasses.dataclass

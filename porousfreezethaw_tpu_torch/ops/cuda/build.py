@@ -131,6 +131,15 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pft_delta_g.argtypes = [vp, ci, ci, ci, cf, cf, cf, vp, vp, vp, vp,
                                 vp, vp, vp, ci, ci, ci, vp]
     lib.pft_delta_g.restype = ci
+    # the shard entries: the arguments of their single-device entry, then
+    # glo, ghi, part (stage) or is_top (delta), r0, Yl, y0, Yg
+    shard = [vp, vp, ci, ci, ci, ci, ci]
+    lib.pft_fused_stage_shard.argtypes = lib.pft_fused_stage.argtypes + shard
+    lib.pft_fused_stage_shard.restype = ci
+    lib.pft_delta_g_shard.argtypes = lib.pft_delta_g.argtypes + shard
+    lib.pft_delta_g_shard.restype = ci
+    lib.pft_shard_eps_blocks.argtypes = [ci, ci, ci, ci]
+    lib.pft_shard_eps_blocks.restype = ctypes.c_longlong
     return lib
 
 

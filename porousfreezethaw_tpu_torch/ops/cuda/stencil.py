@@ -3,7 +3,7 @@ versions and the increment-form attempt.
 
 The counterpart of ``porousfreezethaw_tpu/ops/pallas/stencil.py`` on the
 unpadded ``(3, n3, n2, n1)`` layout.  Three CUDA kernels (``csrc/``) carry
-the f32 attempts:
+the f32 attempts, two of them with shard entries:
 
 * ``fused_stage`` (csrc/fused_stage.cu): one classic Merson stage
   ``K = f(t_s, w + h*sum(c_i K_i))`` over (u, p) with the 7-point FVM
@@ -18,6 +18,10 @@ the f32 attempts:
   models/freezing/delta.py; with ``stage5`` the increment-form tail, which
   emits y_spec (``emit="y"``) or the bare increment dy (``emit="dy"``, the
   compensated commit's input, ``DeltaAttemptComp``).
+* ``fused_stage_shard`` and ``delta_g_shard``: the stage and delta
+  kernels on one shard of a device mesh (parallel/fused.py), with ghost
+  planes from the z-neighbours and a y window; the stage's ``part``
+  option splits a shard into the interior pass and the edge pass.
 
 Each wrapper checks device, dtype (float32), shapes and contiguity.  For a
 tensor on the CPU it computes with the kernel's plain PyTorch version
@@ -26,7 +30,9 @@ tensor it launches the kernel or raises — it never falls back.  Each
 wrapper counts its kernel launches in a plain int attribute
 (``fused_stage.launches``, ``fused_attempt.launches``,
 ``delta_g.launches`` and, for the ``emit="dy"`` tail, a kernel of its
-own, ``delta_g.launches_dy``).
+own, ``delta_g.launches_dy``; ``fused_stage_shard.launches`` for whole
+shards, ``fused_stage_shard.launches_split`` for the interior and edge
+passes, ``delta_g_shard.launches`` and ``delta_g_shard.launches_dy``).
 
 Scalars follow the JAX package exactly: t_stage and h reach the stage
 kernel as float32 (the Dirichlet phase switch of the stage kernel is
@@ -148,8 +154,14 @@ def fused_stage_plain(spec: StencilSpec, t: float, h: float,
     k_out = rhs(t, torch.stack([aux_u, aux_p, w[2]]))[:K_VARS]
     if not stage5:
         return k_out
-    # ks are K1, K3, K4 of the stage-5 combination
-    k1c, k3c, k4c = (K for _, K in ks)
+    return _stage5_tail(h, w, [K for _, K in ks], k_out)
+
+
+def _stage5_tail(h: float, w: torch.Tensor, ks, k_out: torch.Tensor):
+    """The classic Merson tail on K1, K3, K4 (``ks``) and K5 (``k_out``):
+    ``(y_spec, eps)``."""
+    h32 = np.float32(h)
+    k1c, k3c, k4c = ks
     err = 0.2 * k1c - 0.9 * k3c + 0.8 * k4c - 0.1 * k_out
     h3 = float(h32 / np.float32(3.0))
     y_out = w[:K_VARS] + h3 * (0.5 * (k1c + k_out) + 2.0 * k4c)
@@ -173,8 +185,15 @@ def delta_g_plain(spec: StencilSpec, h: float, D1: float, dDi: float,
                   D1, dDi)
     if not stage5:
         return g_out
-    # ks are K1, G3, G4 of the stage-5 combination
-    k1c, g3c, g4c = (K for _, K in ks)
+    return _delta_tail(h, w, [K for _, K in ks], g_out, emit)
+
+
+def _delta_tail(h: float, w: torch.Tensor, ks, g_out: torch.Tensor,
+                emit: str):
+    """The increment-form tail on K1, G3, G4 (``ks``) and G5 (``g_out``):
+    ``(y_spec or dy, eps)``."""
+    h32 = np.float32(h)
+    k1c, g3c, g4c = ks
     err = -0.9 * g3c + 0.8 * g4c - 0.1 * g_out
     eps = torch.amax(torch.abs(err)).reshape(1)
     h3 = float(h32 / np.float32(3.0))
@@ -207,7 +226,7 @@ def fused_attempt_plain(spec: StencilSpec, t: float, h: float,
 # ---------------------------------------------------------------------------
 
 def _check(spec: StencilSpec, name: str, w: torch.Tensor, ks: Ks,
-           stage5: bool, nk_min: int, w_shape=None) -> None:
+           stage5: bool, nk_min: int, w_shape=None, k_shape=None) -> None:
     if w.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {w.device}")
     nk = len(ks)
@@ -216,16 +235,20 @@ def _check(spec: StencilSpec, name: str, w: torch.Tensor, ks: Ks,
     if stage5 and nk != 3:
         raise ValueError(f"{name}: stage5 takes the 3-term combination")
     for t_, want in [(w, w_shape or spec.state_shape)] + [
-            (K, spec.k_shape) for _, K in ks]:
-        if tuple(t_.shape) != want:
-            raise ValueError(f"{name}: expected shape {want}, got "
-                             f"{tuple(t_.shape)}")
-        if t_.dtype != torch.float32:
-            raise TypeError(f"{name}: float32 only, got {t_.dtype}")
-        if t_.device != w.device:
-            raise ValueError(f"{name}: inputs on {t_.device} and {w.device}")
-        if not t_.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous")
+            (K, k_shape or spec.k_shape) for _, K in ks]:
+        _check_tensor(name, t_, want, w.device)
+
+
+def _check_tensor(name: str, t_: torch.Tensor, shape, device) -> None:
+    if tuple(t_.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t_.shape)}")
+    if t_.dtype != torch.float32:
+        raise TypeError(f"{name}: float32 only, got {t_.dtype}")
+    if t_.device != device:
+        raise ValueError(f"{name}: inputs on {t_.device} and {device}")
+    if not t_.is_contiguous():
+        raise ValueError(f"{name}: inputs must be contiguous")
 
 
 @functools.lru_cache(maxsize=None)
@@ -242,15 +265,19 @@ def _library():
 
 
 def _kernel_call(fn_name: str, spec: StencilSpec, scalars, state_ptrs,
-                 device: torch.device, ks: Ks, tail: int, out):
+                 device: torch.device, ks: Ks, tail: int, out, *,
+                 dims=None, eps=None, extra=()):
     """Launch ``fn_name`` of the kernel library on ``device``'s current
     stream, writing K/G/y_spec/dy into ``out`` (None where the kernel
     writes its state instead); returns the eps partials of a tail
-    (``tail`` > 0), else None."""
+    (``tail`` > 0), else None.  ``dims`` is the (Z, Y, X) of the inputs
+    (the grid's by default), ``eps`` a given buffer for the partials and
+    ``extra`` the arguments after the stream (the shard entries')."""
     lib = _library()
-    Z, Y, X = spec.geom.shape
-    eps = (torch.empty((lib.pft_eps_blocks(Z, Y, X),), dtype=torch.float32,
-                       device=device) if tail else None)
+    Z, Y, X = dims or spec.geom.shape
+    if tail and eps is None:
+        eps = torch.empty((lib.pft_eps_blocks(Z, Y, X),),
+                          dtype=torch.float32, device=device)
     nk = len(ks)
     coefs = np.zeros(3, dtype=np.float32)
     coefs[:nk] = [c for c, _ in ks]
@@ -261,7 +288,8 @@ def _kernel_call(fn_name: str, spec: StencilSpec, scalars, state_ptrs,
             spec.packed.ctypes.data, int(spec.mode), nk, tail,
             *scalars, coefs.ctypes.data, *state_ptrs, *kptrs,
             None if out is None else out.data_ptr(),
-            None if eps is None else eps.data_ptr(), Z, Y, X, stream)
+            None if eps is None else eps.data_ptr(), Z, Y, X, stream,
+            *extra)
     if rc != 0:
         msg = (lib.pft_error_string(rc).decode() if rc < 1000
                else "invalid arguments")
@@ -346,6 +374,249 @@ def delta_g(spec: StencilSpec, h: float, D1: float, dDi: float,
 
 delta_g.launches = 0
 delta_g.launches_dy = 0
+
+
+# ---------------------------------------------------------------------------
+# shard variants: one shard of a device mesh (parallel/fused.py)
+# ---------------------------------------------------------------------------
+#
+# A shard holds planes [z0, z0 + zl) and rows [y0, y0 + Yl) of the grid.
+# Its inputs are (nv, zl, Ye, X) with the own rows at [r0, r0 + Yl) of the
+# Ye rows (Ye = Yl + 2 on a 2-D mesh: one ghost row per side), and ``window``
+# is (r0, Yl, y0).  ``ghosts`` is a pair of (3 + 2 nk, Ye, X) stacks of
+# raw edge planes below plane 0 and above plane zl - 1: w's three planes,
+# then each K's (u, p).  Outputs cover the own rows.  The kernels
+# (pft_fused_stage_shard, pft_delta_g_shard) read the ghost planes with
+# their own combination arithmetic, so a sharded stage equals the
+# single-device stage bit for bit; the plain versions do the same by
+# assembling each input's (zl + 2)-plane block and running the
+# single-device plain arithmetic on it.
+
+PARTS = ("all", "interior", "edge")
+
+
+def _window(w: torch.Tensor, window):
+    return (0, w.shape[2], 0) if window is None else tuple(window)
+
+
+def _ghost_block(arr: torch.Tensor, ghosts, entry: int) -> torch.Tensor:
+    """``arr`` (input ``entry``: 0 for w, q + 1 for the q-th K) between its
+    ghost planes: (nv, zl + 2, Ye, X); the own edge planes where there are
+    no ghosts."""
+    nv = arr.shape[0]
+    if ghosts is None:
+        lo, hi = arr[:, :1], arr[:, -1:]
+    else:
+        first = 0 if entry == 0 else N_VARS + K_VARS * (entry - 1)
+        lo, hi = (g[first:first + nv, None] for g in ghosts)
+    return torch.cat([lo, arr, hi], dim=1)
+
+
+def ghost_planes(nk: int) -> int:
+    """Planes of one ghost stack of a stage with ``nk`` K inputs."""
+    return N_VARS + K_VARS * nk
+
+
+def _plain_rows(spec: StencilSpec, window):
+    """The rows the plain versions compute on: the own rows with those
+    neighbour rows that exist in the grid (so the block's edge is the
+    grid's edge where it mirrors), and the own rows' offset in them."""
+    r0, Yl, y0 = window
+    lo = r0 - 1 if y0 > 0 else r0
+    hi = r0 + Yl + 1 if y0 + Yl < spec.geom.n2 else r0 + Yl
+    return slice(lo, hi), r0 - lo
+
+
+def _planes(part: str, zl: int):
+    return {"all": slice(0, zl), "interior": slice(1, zl - 1),
+            "edge": [0, zl - 1]}[part]
+
+
+def fused_stage_shard_plain(spec: StencilSpec, t: float, h: float,
+                            w: torch.Tensor, ks: Ks, ghosts=None, *,
+                            window=None, stage5: bool = False,
+                            part: str = "all", prev=()):
+    """Plain version of the ``fused_stage_shard`` kernel (any device)."""
+    r0, Yl, y0 = window = _window(w, window)
+    zl, X = w.shape[1], w.shape[3]
+    rows, off = _plain_rows(spec, window)
+    wb = _ghost_block(w, ghosts, 0)[:, :, rows]
+    kb = [(c, _ghost_block(K, ghosts, q + 1)[:, :, rows])
+          for q, (c, K) in enumerate(ks)]
+    zs, own = _planes(part, zl), slice(r0, r0 + Yl)
+    k_out = fused_stage_plain(spec, t, h, wb, kb)[:, 1:-1, off:off + Yl]
+    if part == "edge":
+        out, eps = (tuple(prev) + (None,))[:2]
+    else:
+        out = torch.zeros((K_VARS, zl, Yl, X), dtype=w.dtype,
+                          device=w.device)
+        eps = (torch.zeros((1 if part == "all" else 2,), dtype=w.dtype,
+                           device=w.device) if stage5 else None)
+    if not stage5:
+        out[:, zs] = k_out[:, zs]
+        return out
+    y_out, e = _stage5_tail(h, w[:, zs, own], [K[:, zs, own] for _, K in ks],
+                            k_out[:, zs])
+    out[:, zs] = y_out
+    eps[int(part == "edge")] = e[0]
+    return out, eps
+
+
+def delta_g_shard_plain(spec: StencilSpec, h: float, D1: float, dDi: float,
+                        w: torch.Tensor, ks: Ks, ghosts, *, is_top: bool,
+                        window=None, stage5: bool = False, emit: str = "y"):
+    """Plain version of the ``delta_g_shard`` kernel (any device)."""
+    r0, Yl, y0 = window = _window(w, window)
+    rows, off = _plain_rows(spec, window)
+    wb = _ghost_block(w, ghosts, 0)[:, :, rows]
+    kb = [_ghost_block(K, ghosts, q + 1)[:, :, rows]
+          for q, (_, K) in enumerate(ks)]
+    h32 = np.float32(h)
+    hc0 = _hc(h32, ks[0][0])
+    a, b = hc0 * kb[0][0], hc0 * kb[0][1]
+    for (c, _), K in zip(ks[1:], kb[1:]):
+        hc = _hc(h32, c)
+        a = a + hc * K[0]
+        b = b + hc * K[1]
+    if is_top:
+        # the Dirichlet overwrites of the top ghost: old u := D1, the
+        # increment := dDi (rounded to float32 as they fill the planes)
+        wb[0, -1] = D1
+        a[-1] = dDi
+    g_out = g_rhs(spec.mode, spec.params, spec.coeffs, spec.geom, wb,
+                  (a, b), D1, dDi)[:, 1:-1, off:off + Yl].contiguous()
+    if not stage5:
+        return g_out
+    own = slice(r0, r0 + Yl)
+    return _delta_tail(h, w[:, :, own], [K[:, :, own] for _, K in ks],
+                       g_out, emit)
+
+
+def _check_shard(spec: StencilSpec, name: str, w: torch.Tensor, ks: Ks,
+                 ghosts, window, stage5: bool, nk_min: int,
+                 part: str = "all", prev=()) -> None:
+    zl, Ye, X = w.shape[1:] if w.dim() == 4 else (0, 0, 0)
+    _check(spec, name, w, ks, stage5, nk_min, w_shape=(N_VARS, zl, Ye, X),
+           k_shape=(K_VARS, zl, Ye, X))
+    r0, Yl, y0 = _window(w, window)
+    if X != spec.geom.n1 or zl < 1:
+        raise ValueError(f"{name}: a shard of the grid {spec.geom.shape} "
+                         f"cannot have the shape {tuple(w.shape)}")
+    if part not in PARTS:
+        raise ValueError(f"{name}: part must be one of {PARTS}, got {part!r}")
+    if part != "all" and zl < 3:
+        raise ValueError(f"{name}: the {part} part needs >= 3 planes, "
+                         f"got {zl}")
+    n2 = spec.geom.n2
+    if not (0 <= r0 and 1 <= Yl and r0 + Yl <= Ye and 0 <= y0
+            and y0 + Yl <= n2 and (y0 == 0 or r0 >= 1)
+            and (y0 + Yl == n2 or r0 + Yl < Ye)):
+        raise ValueError(f"{name}: window (r0, Yl, y0) = {(r0, Yl, y0)} "
+                         f"does not fit {Ye} input rows of a grid of {n2}")
+    if part == "interior" and ghosts is not None:
+        raise ValueError(f"{name}: the interior part reads no ghosts")
+    if part != "interior":
+        if ghosts is None or len(ghosts) != 2:
+            raise ValueError(f"{name}: takes two ghost stacks")
+        for g in ghosts:
+            _check_tensor(name, g, (ghost_planes(len(ks)), Ye, X), w.device)
+    if part == "edge":
+        if len(prev) != 1 + int(stage5):
+            raise ValueError(f"{name}: the edge part takes the interior "
+                             "part's outputs")
+        _check_tensor(name, prev[0], (K_VARS, zl, Yl, X), w.device)
+
+
+def _ghost_ptrs(ghosts):
+    return (None, None) if ghosts is None else tuple(
+        g.data_ptr() for g in ghosts)
+
+
+def fused_stage_shard(spec: StencilSpec, t: float, h: float,
+                      w: torch.Tensor, ks: Ks, ghosts=None, *, window=None,
+                      stage5: bool = False, part: str = "all", prev=()):
+    """One classic Merson stage on one shard (K1s; K3 for the parts).
+
+    ``part="all"`` returns K of shape (2, zl, Yl, X), or ``(y_spec,
+    eps_blocks)`` with ``stage5``.  ``part="interior"`` computes planes
+    [1, zl - 1), which read no ghost (pass ``ghosts=None``), and returns
+    the same objects with the edge planes and the edge's eps slots still
+    to be written; ``part="edge"`` writes planes 0 and zl - 1 into
+    ``prev``, the interior part's return value (``(K,)`` or ``(y_spec,
+    eps_blocks)``), and returns it."""
+    _check_shard(spec, "fused_stage_shard", w, ks, ghosts, window, stage5,
+                 0, part, prev)
+    if w.device.type == "cpu":
+        return fused_stage_shard_plain(spec, t, h, w, ks, ghosts,
+                                       window=window, stage5=stage5,
+                                       part=part, prev=prev)
+    lib = _library()
+    r0, Yl, y0 = _window(w, window)
+    zl, Ye, X = w.shape[1:]
+    n_int = lib.pft_shard_eps_blocks(1, zl, Yl, X)
+    if part == "edge":
+        out, eps = (tuple(prev) + (None,))[:2]
+        view = eps[n_int:] if stage5 else None
+    else:
+        out = torch.empty((K_VARS, zl, Yl, X), dtype=torch.float32,
+                          device=w.device)
+        n_eps = (lib.pft_shard_eps_blocks(0, zl, Yl, X) if part == "all"
+                 else n_int + lib.pft_shard_eps_blocks(2, zl, Yl, X))
+        eps = view = (torch.empty((n_eps,), dtype=torch.float32,
+                                  device=w.device) if stage5 else None)
+    scalars = (float(np.float32(t)), float(np.float32(h)))
+    _kernel_call("pft_fused_stage_shard", spec, scalars, (w.data_ptr(),),
+                 w.device, ks, int(stage5), out, dims=(zl, Ye, X), eps=view,
+                 extra=_ghost_ptrs(ghosts) + (
+                     PARTS.index(part), r0, Yl, y0, spec.geom.n2))
+    if part == "all":
+        fused_stage_shard.launches += 1
+    else:
+        fused_stage_shard.launches_split += 1
+    return (out, eps) if stage5 else out
+
+
+fused_stage_shard.launches = 0         # K1s: part "all"
+fused_stage_shard.launches_split = 0   # K3: parts "interior" and "edge"
+
+
+def delta_g_shard(spec: StencilSpec, h: float, D1: float, dDi: float,
+                  w: torch.Tensor, ks: Ks, ghosts, *, is_top: bool,
+                  window=None, stage5: bool = False, emit: str = "y"):
+    """One increment-form stage on one shard (K2s; with ``emit="dy"`` the
+    compensated tail).  Returns G of shape (2, zl, Yl, X), or with
+    ``stage5`` ``(y_spec or dy, eps_blocks)``.  ``is_top`` applies the
+    Dirichlet overwrites of the top ghost (the global top shard only)."""
+    _check_shard(spec, "delta_g_shard", w, ks, ghosts, window, stage5, 1)
+    if emit not in EMITS or (emit == "dy" and not stage5):
+        raise ValueError(f"delta_g_shard: emit must be one of {EMITS}, and "
+                         f"'dy' needs stage5; got {emit!r}")
+    if w.device.type == "cpu":
+        return delta_g_shard_plain(spec, h, D1, dDi, w, ks, ghosts,
+                                   is_top=is_top, window=window,
+                                   stage5=stage5, emit=emit)
+    r0, Yl, y0 = _window(w, window)
+    zl, Ye, X = w.shape[1:]
+    out = torch.empty((K_VARS, zl, Yl, X), dtype=torch.float32,
+                      device=w.device)
+    eps = (torch.empty((_library().pft_shard_eps_blocks(0, zl, Yl, X),),
+                       dtype=torch.float32, device=w.device)
+           if stage5 else None)
+    scalars = tuple(float(np.float32(v)) for v in (h, D1, dDi))
+    tail = 2 if emit == "dy" else int(stage5)
+    _kernel_call("pft_delta_g_shard", spec, scalars, (w.data_ptr(),),
+                 w.device, ks, tail, out, dims=(zl, Ye, X), eps=eps,
+                 extra=_ghost_ptrs(ghosts) + (
+                     int(is_top), r0, Yl, y0, spec.geom.n2))
+    if emit == "dy":
+        delta_g_shard.launches_dy += 1
+    else:
+        delta_g_shard.launches += 1
+    return (out, eps) if stage5 else out
+
+
+delta_g_shard.launches = 0
+delta_g_shard.launches_dy = 0
 
 
 # ---------------------------------------------------------------------------

@@ -157,7 +157,9 @@ def merson_solve(
     if attempt_fn is not None:
         y = attempt_fn.pack(state.y)
     elif commit_fn is not None:
-        y = state.y.clone()      # commit_fn updates the state in place
+        # commit_fn updates the state in place; a list is a sharded state
+        y = ([s.clone() for s in state.y] if isinstance(state.y, list)
+             else state.y.clone())
     else:
         y = state.y
     steps, steps_total = int(state.steps), int(state.steps_total)

@@ -1,7 +1,7 @@
 """The port's bench entry point (``python -m porousfreezethaw_tpu_torch.bench``)
 on the CPU at a tiny grid: its one-JSON-line contract and metric names
 against the JAX package's ``bench.py``, the Merson parameters of each
-path, and what it refuses (the DEM suite and the mesh paths, which are not
+path, and what it refuses (the DEM suite, which is not
 ported yet, and a GPU it does not have).  ``--matrix`` prints its rows and
 writes no BENCH_MATRIX.json."""
 
@@ -88,13 +88,15 @@ def test_metric_names_follow_bench_py():
 
 
 def test_not_ported_yet():
+    """The DEM suite and its matrix rows raise; the mesh rows run (their
+    f64 form is refused: the mesh paths are the f32 kernels')."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
         bench.main(["--suite", "dem", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        bench.main(["--mesh", "z", "--device", "cpu"])
+    with pytest.raises(ValueError, match="f32 kernel paths"):
+        bench.main(["--mesh", "z", "--device", "cpu", "--dtype", "f64"])
     args = bench.parse_args(TINY)
     for spec, _ in bench.matrix_specs():
-        if spec.startswith("dem:") or "mesh=" in spec:
+        if spec.startswith("dem:"):
             with pytest.raises(NotImplementedError, match="not ported yet"):
                 bench.bench_row(args, spec)
 
@@ -102,7 +104,7 @@ def test_not_ported_yet():
 def test_not_ported_row_in_its_own_process():
     """A matrix row runs in a process of its own; an unported one exits
     non-zero and becomes an error record."""
-    rec = bench.run_row("freezing:200:0:mesh=z1", "freezing_200_0_sharded",
+    rec = bench.run_row("dem:200:dense:512", "dem_200_dense",
                         bench.parse_args(TINY))
     assert rec["value"] is None and rec["rc"] != 0
     assert "not ported yet" in rec["error"]
@@ -126,7 +128,7 @@ def test_matrix_writes_only_where_asked(tmp_path, monkeypatch, capsys):
 
     def fake_row(spec, label, args):
         ran.append(spec)
-        if spec.startswith("dem:") or "mesh=" in spec:
+        if spec.startswith("dem:"):
             return {"metric": label, "value": None, "unit": None,
                     "vs_baseline": None, "error": "not ported yet", "rc": 1}
         gn, cm = (int(x) for x in spec.split(":")[1:3])
@@ -143,7 +145,7 @@ def test_matrix_writes_only_where_asked(tmp_path, monkeypatch, capsys):
     assert ran == specs and len(specs) == 20
     assert len(lines) == len(specs) + 1
     assert json.loads(lines[-1])["metric"] == bench.HEADLINE
-    assert sum(1 for ln in lines[:-1] if json.loads(ln)["value"]) == 10
+    assert sum(1 for ln in lines[:-1] if json.loads(ln)["value"]) == 12
     assert os.listdir(tmp_path) == []
     assert open(tracked, "rb").read() == before
 

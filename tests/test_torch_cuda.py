@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 PyTorch version at a small odd shape, the double-buffered attempt against
-the fused_stage chain, and short solves whose launch counters show that
-every attempt went through the kernels.
+the fused_stage chain, short solves whose launch counters show that every
+attempt went through the kernels, and the shard kernels (K1s, K3, K2s):
+against their plain versions, and the mesh paths on virtual shards of the
+card against the single-device paths bit for bit.
 
 These tests need an NVIDIA GPU and nvcc; without them they skip.  The
 machine with the card has no JAX, so run them without the suite's
@@ -186,3 +188,121 @@ def test_solves_go_through_k2dy_and_k4(dev):
                             attempt_fn=st.FusedAttempt(geom, prm, 0))
     assert state.steps_total == 25 and st.fused_attempt.launches == 125
     assert torch.isfinite(state.y).all()
+
+
+# --------------------------------------------------------------------------
+# the shard kernels (K1s, K3, K2s) and the mesh paths on virtual shards
+# --------------------------------------------------------------------------
+
+def _shard_inputs(w, ks, nk, lo, hi, rows):
+    """One shard's planes [lo, hi) and rows ``rows`` of w and ks, and its
+    ghost stacks from the planes around it (own edge planes at the ends)."""
+    Z = w.shape[1]
+    below, above = max(lo - 1, 0), min(hi, Z - 1)
+    ws = w[:, lo:hi, rows].contiguous()
+    kk = [K[:, lo:hi, rows].contiguous() for K in ks[:nk]]
+    g = [torch.cat([w[:, p, rows]] + [K[:, p, rows] for K in ks[:nk]])
+         .contiguous() for p in (below, above)]
+    return ws, kk, g
+
+
+@pytest.mark.parametrize("mode", [0, 2])
+def test_shard_kernels_match_plain(dev, mode):
+    """K1s (part all), K3 (interior + edge) and K2s (G, y_spec and dy) on
+    one interior shard with a y window, against their plain versions
+    (the tolerance of _close)."""
+    prm = _params()
+    geom = GridGeometry(0.03, 0.03, 0.06, SHAPE[2], SHAPE[1], SHAPE[0])
+    spec = st.StencilSpec.of(geom, prm, mode)
+    w, ks = _inputs(dev)
+    t, h = 100.0, 0.05
+    rows, window = slice(4, 14), (1, 8, 5)      # own rows 5..12 of 23
+    for nk, cs, s5 in ((0, [], False), (2, [0.5, 0.5], False),
+                       (3, [0.5, -1.5, 2.0], True)):
+        ws, kk, g = _shard_inputs(w, ks, nk, 6, 13, rows)
+        kk = list(zip(cs, kk))
+        ref = st.fused_stage_shard_plain(spec, t, h, ws, kk, g,
+                                         window=window, stage5=s5)
+        _close(st.fused_stage_shard(spec, t, h, ws, kk, g, window=window,
+                                    stage5=s5), ref)
+        prev = st.fused_stage_shard(spec, t, h, ws, kk, None,
+                                    window=window, stage5=s5,
+                                    part="interior")
+        got = st.fused_stage_shard(spec, t, h, ws, kk, g, window=window,
+                                   stage5=s5, part="edge",
+                                   prev=prev if s5 else (prev,))
+        _close(got, ref)
+    for nk, cs, s5, emit in ((1, [1 / 3], False, "y"),
+                             (3, [1.0, -1.5, 2.0], True, "y"),
+                             (3, [1.0, -1.5, 2.0], True, "dy")):
+        ws, kk, g = _shard_inputs(w, ks, nk, 12, 19, rows)   # the top
+        kk = list(zip(cs, kk))
+        for is_top in (True, False):
+            args = (spec, h, -20.0, 1.5, ws, kk, g)
+            kw = dict(is_top=is_top, window=window, stage5=s5, emit=emit)
+            _close(st.delta_g_shard(*args, **kw),
+                   st.delta_g_shard_plain(*args, **kw))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 10, 11])
+def test_mesh_paths_bitwise_on_virtual_shards(dev, mode):
+    """Sharded equals single-device bit for bit on virtual shards of one
+    card: the delta attempt at z1, z2, z4 (overlap on and off), z2,y2 and
+    y2, the compensated attempt and the classic stage-5 tail; and the
+    counters show the shard kernels ran."""
+    from porousfreezethaw_tpu_torch.parallel import (
+        gather_freezing_state, make_mesh, shard_freezing_state)
+    from porousfreezethaw_tpu_torch.parallel.fused import (
+        ShardedDeltaAttempt, ShardedDeltaAttempt2D, make_sharded_fused_stage)
+    prm = _params()
+    shape = (20, 18, 37)
+    geom = GridGeometry(0.03, 0.03, 0.06, shape[2], shape[1], shape[0])
+    rng = np.random.default_rng(4)
+    w = torch.from_numpy(np.stack([
+        rng.uniform(-10, 10, shape), rng.uniform(0, 1, shape),
+        rng.uniform(0, 0.6, shape)]).astype(np.float32)).to(dev)
+    t, h = prm.phase_switch_time - 0.01, 0.05
+    single = st.DeltaAttempt(geom, prm, mode)
+    (_, ys_a), eps_a = single.attempt(t, h, single.pack(w))
+    comp = st.DeltaAttemptComp(geom, prm, mode)
+    (_, dy_a), epsc_a = comp.attempt(t, h, comp.pack(w))
+    spec = st.StencilSpec.of(geom, prm, mode)
+    ks = [torch.randn((2,) + shape, generator=torch.Generator().manual_seed(q)
+                      ).to(dev) for q in range(3)]
+    combo = list(zip([0.5, -1.5, 2.0], ks))
+    yc_a, ec_a = st.fused_stage(spec, t, h, w, combo, stage5=True)
+    counts = [st.fused_stage_shard.launches,
+              st.fused_stage_shard.launches_split,
+              st.delta_g_shard.launches, st.delta_g_shard.launches_dy]
+    for ms, n in (("z1", 1), ("z2", 2), ("z4", 4), ("z2,y2", 4), ("y2", 2)):
+        mesh = make_mesh(ms, [dev] * n)
+        shards = shard_freezing_state(w, mesh)
+        for overlap in ((True, False) if "y" not in ms else (False,)):
+            for _ in range(3):          # stream-ordering faults are rare
+                if "y" in ms:
+                    att = ShardedDeltaAttempt2D(geom, prm, mode, mesh)
+                else:
+                    att = ShardedDeltaAttempt(geom, prm, mode, mesh,
+                                              overlap=overlap)
+                (_, ys_b), eps_b = att.attempt(t, h, att.pack(shards))
+                assert torch.equal(gather_freezing_state(ys_b, mesh), ys_a)
+                assert torch.equal(eps_b.max(), eps_a.max())
+            if "y" in ms:
+                continue
+            attc = ShardedDeltaAttempt(geom, prm, mode, mesh,
+                                       overlap=overlap, compensated=True)
+            (_, dy_b), epsc_b = attc.attempt(t, h, attc.pack(shards))
+            assert torch.equal(gather_freezing_state(dy_b, mesh), dy_a)
+            assert torch.equal(epsc_b.max(), epsc_a.max())
+            stage = make_sharded_fused_stage(geom, prm, mode, mesh,
+                                             overlap=overlap)
+            ys, e = stage.stage5(t, h, shards, [
+                (c, shard_freezing_state(k, mesh)) for c, k in combo])
+            assert torch.equal(gather_freezing_state(ys, mesh), yc_a)
+            assert torch.equal(e.max(), ec_a.max())
+    torch.cuda.synchronize()
+    after = [st.fused_stage_shard.launches,
+             st.fused_stage_shard.launches_split,
+             st.delta_g_shard.launches, st.delta_g_shard.launches_dy]
+    assert all(b > a for a, b in zip(counts, after))

@@ -25,7 +25,9 @@ def test_port_imports_no_jax():
     names = [m.name for m in pkgutil.walk_packages(
         porousfreezethaw_tpu_torch.__path__, "porousfreezethaw_tpu_torch.")]
     assert {"porousfreezethaw_tpu_torch.apps.intertrack",
-            "porousfreezethaw_tpu_torch.bench"} <= set(names)
+            "porousfreezethaw_tpu_torch.bench",
+            "porousfreezethaw_tpu_torch.parallel.fused",
+            "porousfreezethaw_tpu_torch.parallel.sharding"} <= set(names)
     code = (
         "import importlib, sys\n"
         "import porousfreezethaw_tpu_torch.apps.intertrack\n"
