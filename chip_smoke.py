@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                       # all phases
     python3 chip_smoke.py --phases env,build,kernels
+    python3 chip_smoke.py --phases env,build,kernels,solve,bench,app,mesh,profile
 
 Run from the root of a checkout.  Phases, one JSON line each:
 
@@ -10,12 +11,14 @@ Run from the root of a checkout.  Phases, one JSON line each:
 2. build    compile csrc/*.cu with nvcc (sm_90a, one process per source,
             all started together) and time it
 3. kernels  every kernel against its plain PyTorch version on the card
-            (MR, LR and an odd shape; calc modes 0/1/2; t on each side
-            of the phase switch; every stage variant): fused_stage (K1),
-            delta_g (K2), its emit="dy" tail (K2') and the
-            double-buffered attempt (K4), which must also equal the
-            fused_stage chain bit for bit; then kernel and plain times at
-            the MR shape beside each kernel's bound
+            (MR, LR, an odd shape and the delta tiles' edge shapes; calc
+            modes 0/1/2; t on each side of the phase switch; every stage
+            variant): fused_stage (K1), delta_g (K2), its emit="dy" tail
+            (K2') and the double-buffered attempt (K4), which must also
+            equal the fused_stage chain bit for bit; then kernel and
+            plain times at the MR shape beside each kernel's bound, the
+            delta instantiations' ptxas report, and the time of one tensor
+            copy moving a delta row's bytes (copy_ms)
 4. solve    MR GradP (100x100x200) f32 solves of 300 attempts through
             merson_solve, increment form (DeltaAttempt) and classic
             double-buffered (FusedAttempt): kernels, then the plain
@@ -33,7 +36,9 @@ Run from the root of a checkout.  Phases, one JSON line each:
             whose device list repeats cuda:0): the shard kernels K1s
             (fused_stage_shard), K3 (its interior/edge split,
             fused_stage_split), K2s (delta_g_shard) and its emit="dy" tail
-            (delta_g_shard_dy) against their plain versions at MR shards;
+            (delta_g_shard_dy) against their plain versions at MR shards
+            (and two at the delta tiles' edges); K2s also timed with its
+            inputs cold in L2;
             sharded against single-device bit for bit at MR on z1, z2,
             z4, z2,y2 and y2 (overlap on and off); their times; MR solves
             of 100 attempts at z4 and z2,y2 against the single-device
@@ -56,8 +61,10 @@ at z4 for fused_stage_split and delta_g_shard, the compensated golden at
 z4 for delta_g_shard_dy, the bench's z1,y1 row for fused_stage_shard.
 
 It exits non-zero, before printing the final line, when CUDA is missing or
-any phase fails.  The last three lines are the card's name and power
-limit (nvidia-smi), the kernel summary, and {"ok": true, "device": ...}.
+any phase fails.  A run of every phase of PHASES (optional phases may be
+added) ends with three lines: the card's name and power limit
+(nvidia-smi), the kernel summary, and {"ok": true, "device": ...}; a run
+of fewer phases prints none of them.
 """
 
 from __future__ import annotations
@@ -88,6 +95,12 @@ SOLVE_ATTEMPTS = 300
 MR_SHAPE = (200, 100, 100)     # (n3, n2, n1)
 LR_SHAPE = (100, 50, 50)       # the app phase's grid
 ODD_SHAPE = (19, 23, 37)
+# shapes at the edges of the delta kernel's tiles (csrc/delta_g.cu): x and y
+# smaller than a tile and z than any chunk; x and y one or more past a
+# multiple of a tile side; rows that allow 4-byte copies only (odd x),
+# 8-byte (x = 26) and 16-byte (x = 52)
+EDGE_SHAPES = ((2, 3, 7), (13, 17, 51), (5, 11, 33), (6, 13, 52),
+               (9, 21, 26))
 # the bound of a kernel call: the larger of its bytes over the H100's HBM
 # rate and its float32 operations over the card's float32 rate outside the
 # tensor cores (NVIDIA's data sheet, SXM, 700 W)
@@ -145,6 +158,43 @@ def phase_build() -> None:
              if "registers" in ln or "spill" in ln]
     emit("build", seconds=res.seconds, library=str(res.path),
          num_consts=lib.pft_num_consts(), ptxas=ptxas)
+    emit("build_delta_ptxas", instantiations=_delta_ptxas(res.log))
+
+
+def _delta_ptxas(log: str) -> dict:
+    """Registers, spills and static shared memory of each delta_g_kernel
+    instantiation in a build log (``nvcc -Xptxas -v``), by
+    "mode/nk/tail" (tail G, y or dy; the tile buffers are dynamic shared
+    memory, csrc/delta_g.cu delta_smem_bytes)."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            t = re.search(r"delta_g_kernelILi(\d+)ELi(\d)ELi(\d)E",
+                          m.group(1))
+            cur = (f"{t[1]}/nk{t[2]}/" + ("G", "y", "dy")[int(t[3])]
+                   if t else None)
+            if cur:
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("smem", r"(\d+) bytes smem")):
+            m = re.search(pat, ln)
+            if m:
+                out[cur][key] = int(m[1])
+    return out
+
+
+def _built_delta_ptxas() -> dict:
+    """_delta_ptxas of the log of the library in build/kernels."""
+    from porousfreezethaw_tpu_torch.ops.cuda import build
+    log = build.BUILD_DIR / (build.LIB_NAME + ".log")
+    return _delta_ptxas(log.read_text()) if log.exists() else {}
 
 
 # --------------------------------------------------------------------------
@@ -320,7 +370,7 @@ def phase_kernels(dev) -> dict:
              + [("delta_g", c) for c in DELTA_CASES]
              + [("delta_g_dy", "stage5"), ("fused_attempt", "attempt")])
     summary = {k: [] for k, _ in cases}
-    for shape in (MR_SHAPE, LR_SHAPE, ODD_SHAPE):
+    for shape in (MR_SHAPE, LR_SHAPE, ODD_SHAPE) + EDGE_SHAPES:
         geom = GridGeometry(0.03, 0.03, 0.06, shape[2], shape[1], shape[0])
         w, ks = _inputs(shape, dev, rng)
         per = {key: dict(ok=True, finite=True, n=0, max_abs_err=0.0,
@@ -440,11 +490,40 @@ def phase_kernels(dev) -> dict:
             bound_ms=bound_ms, bound_by=bound_by,
             # no single PyTorch call computes the stencil right-hand side
             library_ms=None, device_ms=avg("kernel_device"),
+            bound_share=bound_ms / avg("kernel_device"),
             timed=(f"{'+'.join(cases)} at {MR_SHAPE}"
                    + (", one attempt = 5 launches"
                       if kern == "fused_attempt" else ", per launch")
                    + TIMED_BY))
+    for kern in ("delta_g", "delta_g_dy"):
+        out[kern]["ptxas"] = _delta_row_ptxas(kern)
+        out[kern]["copy_ms"] = _copy_ms(out[kern]["bound_ms"], dev)
     return out
+
+
+def _copy_ms(bound_ms, dev):
+    """Device ms of one tensor copy that moves the bytes of a bytes bound
+    of ``bound_ms`` (half read, half written): the rate the card reaches
+    for those bytes, beside the data sheet's."""
+    n = int(bound_ms * 1e-3 * HBM_BYTES_PER_S) // 8
+    src = torch.ones(n, dtype=torch.float32, device=dev)
+    dst = torch.empty_like(src)
+    ms = _queued_ms(lambda: dst.copy_(src), 10)
+    emit("copy_baseline", bytes=8 * n, device_ms=ms,
+         bytes_per_s=8 * n / (1e-3 * ms))
+    return ms
+
+
+def _delta_row_ptxas(kern: str) -> dict:
+    """The ptxas report of the delta instantiations of the kernel summary
+    row ``kern`` (delta_g or delta_g_shard: the G and y_spec tails; *_dy:
+    the dy tail): all calc modes on a line of their own, those of the
+    timed calc mode 0 returned for the row."""
+    tails = ("dy",) if kern.endswith("_dy") else ("G", "y")
+    mine = {k: v for k, v in _built_delta_ptxas().items()
+            if k.split("/")[2] in tails}
+    emit("delta_ptxas", kernel=kern, instantiations=mine)
+    return {k: v for k, v in mine.items() if k.startswith("0/")}
 
 
 # --------------------------------------------------------------------------
@@ -802,6 +881,7 @@ MESH_SPECS = (("z1", 1), ("z2", 2), ("z4", 4), ("z2,y2", 4), ("y2", 2))
 MESH_ATTEMPTS = 100
 MESH_KERNELS = ("fused_stage_shard", "fused_stage_split", "delta_g_shard",
                 "delta_g_shard_dy")
+COLD_SETS = 5          # input sets rotated for K2s's L2-cold time
 
 
 def _mesh_counters(st) -> dict:
@@ -873,6 +953,11 @@ def _mesh_kernels(dev):
               ((Z // 2, Z), slice(0, half + 1), (0, half, 0)),
               ((0, Z // 2), slice(half - 1, None), (1, half, half)))
     top = ((Z - zq, Z), slice(None), (0, MR_SHAPE[1], 0))
+    # at the edges of the delta kernel's tiles: a z4 shard of one own row;
+    # the top three planes (fewer than a chunk) with 13 own rows at the y
+    # chain end
+    edges = (((zq, 2 * zq), slice(half - 1, half + 2), (1, 1, half), False),
+             ((Z - 3, Z), slice(86, None), (1, 13, 87), True))
     for mode in (0, 1, 2):
         spec = st.StencilSpec.of(geom, prm, mode)
         for t in (prm.phase_switch_time - 0.5 * h,
@@ -895,9 +980,9 @@ def _mesh_kernels(dev):
                     _compare(got, ref, stats["fused_stage_split"])
             D1 = physics.dirichlet_top(t, prm)
             dDi = float(np.float32(physics.dirichlet_top(t + h, prm) - D1))
-            for (planes, rows, window), is_top in ((shards[0], False),
-                                                  (shards[2], False),
-                                                  (top, True)):
+            for planes, rows, window, is_top in (
+                    (*shards[0], False), (*shards[2], False), (*top, True),
+                    *edges):
                 for cs, s5 in DELTA_CASES.values():
                     for tail in (("y", "dy") if s5 else ("y",)):
                         ws, kk, g = _shard_case(w, ks, len(cs), planes, rows)
@@ -1031,6 +1116,19 @@ def _mesh_times(dev):
                 spec, h, D1, 0.0, ws, kk, g, is_top=False, window=win,
                 stage5=s5),
             _shard_cost(DELTA_OPS, ws, len(cs), ny, s5)))
+    # K2s with its inputs cold in L2: each call takes the next of
+    # COLD_SETS input sets of the same shard, 18-22 MB each, so the 50 MB L2
+    # holds none of a call's inputs when it starts
+    cold, grids = [], [_inputs(MR_SHAPE, dev, rng) for _ in range(COLD_SETS)]
+    for cs, s5 in DELTA_CASES.values():
+        sets = [_shard_case(*wk, len(cs), planes, rows) for wk in grids]
+        turn = iter(range(1 << 30))
+
+        def call(f, sets=sets, cs=cs, s5=s5, turn=turn):
+            ws, kk, g = sets[next(turn) % COLD_SETS]
+            return f(spec, h, D1, 0.0, ws, list(zip(cs, kk)), g,
+                     is_top=False, window=win, stage5=s5)
+        cold.append(call)
     ws3, kk3, g3 = _shard_case(w, ks, 3, planes, rows)
     kk3 = list(zip(DELTA_CASES["stage5"][0], kk3))
     cases["delta_g_shard_dy"] = [(
@@ -1057,6 +1155,10 @@ def _mesh_times(dev):
         timing[impl] = row
         emit("mesh_kernel_times", impl=impl,
              shard=[zq] + list(MR_SHAPE[1:]), ms=row)
+    cold_ms = float(np.mean([_queued_ms(lambda c=c: c(st.delta_g_shard),
+                                        2 * COLD_SETS) for c in cold]))
+    emit("mesh_kernel_times", impl="kernel_device_l2_cold",
+         shard=[zq] + list(MR_SHAPE[1:]), ms={"delta_g_shard": cold_ms})
     out = {}
     for kern, calls in cases.items():
         nbytes = float(np.mean([b for _, (b, _) in calls]))
@@ -1066,7 +1168,8 @@ def _mesh_times(dev):
                      float(np.mean([timing["plain"][kern],
                                     timing["plain2"][kern]])),
                      _bound(nbytes, ops), nbytes,
-                     timing["kernel_device"][kern])
+                     timing["kernel_device"][kern],
+                     cold_ms if kern == "delta_g_shard" else None)
     return out
 
 
@@ -1317,7 +1420,8 @@ def phase_mesh(dev):
             ("fused_stage_split", ":642", "nk0, interior + edge"),
             ("delta_g_shard", ":1112", "nk1+nk2+nk3+stage5"),
             ("delta_g_shard_dy", ":1059", "stage5 emit=dy")):
-        ms, plain_ms, (bound_ms, bound_by), nbytes, device_ms = times[kern]
+        (ms, plain_ms, (bound_ms, bound_by), nbytes, device_ms,
+         cold_ms) = times[kern]
         src = ("delta_g.cu" if kern.startswith("delta")
                else "fused_stage.cu")
         out[kern] = dict(
@@ -1329,9 +1433,16 @@ def phase_mesh(dev):
             max_rel_err=stats[kern]["max_rel_err"],
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, device_ms=device_ms,
+            bound_share=bound_ms / device_ms,
             timed=f"{timed} on one z4 shard of {MR_SHAPE} "
                   f"({MR_SHAPE[0] // 4} planes), {nbytes / 1e6:.1f} MB per "
                   f"launch{TIMED_BY}")
+    for kern in ("delta_g_shard", "delta_g_shard_dy"):
+        out[kern]["ptxas"] = _delta_row_ptxas(kern)
+    cold = times["delta_g_shard"][5]
+    out["delta_g_shard"].update(
+        device_ms_l2_cold=cold,
+        bound_share_l2_cold=out["delta_g_shard"]["bound_ms"] / cold)
     return out, launches
 
 
@@ -1378,7 +1489,11 @@ def main(argv=None) -> int:
 
     for name in set(kernels) & set(launches):
         kernels[name]["launches"] = launches[name]
-    if phases != list(PHASES):
+        # the order of the kernel work: main-path launches times the
+        # card's time above the bound, in ms
+        kernels[name]["launches_x_gap_ms"] = launches[name] * (
+            kernels[name]["device_ms"] - kernels[name]["bound_ms"])
+    if not set(PHASES) <= set(phases):
         return 0               # partial runs print no result line
     if set(launches) != set(kernels):
         raise AssertionError(f"main-path launches for {sorted(launches)}, "

@@ -2,11 +2,11 @@
 //
 // Replaces the Pallas kernel make_delta_g -> build_g
 // (porousfreezethaw_tpu/ops/pallas/stencil.py:973-1122, pallas_call at
-// :1112; arithmetic models/freezing/delta.py:101-244).  Each thread
+// :1112; arithmetic models/freezing/delta.py:101-244).  Each point
 // evaluates the exact expansion of delta.py term by term, in the same
 // association, so that no term subtracts two large nearly equal values:
 //
-//   d = h * (c_0 K1 + sum_j c_j G_j)   assembled in registers per point
+//   d = h * (c_0 K1 + sum_j c_j G_j)   assembled once per point
 //   old u ghost above the top := D1 = D(t1); increment ghost := dDi =
 //   D(t_i) - D(t1), both formed on the host from the float64 t; every
 //   other boundary is the mirror (clamped index).
@@ -25,26 +25,53 @@
 // of the y_spec tail.  That launch moves 11 float32 planes (w, K1, G3, G4
 // in; dy out), 88 MB at MR (100x100x200): 0.026 ms at 3.35 TB/s.
 //
-// With SHARD (pft_delta_g_shard, K2s: Pallas shard_ghosts, is_top and
-// plane_rows/row_window, stencil.py:935-953, :1001-1035, :1052-1057) the
-// kernel runs on one shard of a device mesh, for every tail: the z
+// The shard entry (pft_delta_g_shard, K2s: Pallas shard_ghosts, is_top and
+// plane_rows/row_window, stencil.py:935-953, :1001-1035, :1052-1057) runs
+// the same kernel on one shard of a device mesh, for every tail: the z
 // neighbours beyond the shard's planes are (u, p, gl) and the increment
-// assembled in-kernel from caller-supplied ghost stacks of raw edge planes
-// (w, K1, G_j) with the arithmetic of the own planes; the Dirichlet
-// overwrites of the top ghost (old u := D1, increment := dDi) apply only on
-// the global top shard (is_top); the y window is that of the stage kernel
-// (stage.cuh), so the output and the eps max cover the own rows only.
-// A sharded solve equals the single-device one bit for bit; for that the
-// SigmaP1-P models round their point arithmetic uncontracted (see
-// uncontracted below).
+// assembled from caller-supplied ghost stacks of raw edge planes (w, K1,
+// G_j) with the arithmetic of the own planes; the Dirichlet overwrites of
+// the top ghost (old u := D1, increment := dDi) apply only on the global top
+// shard (is_top); the y window is that of the stage kernel (stage.cuh), so
+// the output and the eps max cover the own rows only.  The single-device
+// entry is the same kernel on a shard that is the whole grid (own rows
+// [0, Y), is_top, no ghost stacks: the mirror below plane 0 and above plane
+// Z-1), so ptxas compiles one body for both entries and a sharded solve
+// equals the single-device one bit for bit.
 //
-// What bounds it on Hopper: memory traffic, as for the classic stage (about
-// 47 float32 single-variable planes per attempt at any grid), though this
-// kernel does several times the classic stage's flops per cell.  The design
-// is the classic stage's: one thread per (x, y) column, x fastest for
-// coalesced loads, ZCHUNK planes marched with the z-1/z/z+1 values of
-// (u, p, gl, a, b) in registers, in-plane neighbours recomputed from
-// global memory through L1/L2.  Shared-memory tiling and TMA are later work.
+// What bounds it on Hopper.  Bytes: a launch reads w (3 planes) and nk
+// increments (2 planes each) once and writes 2 planes, 76 MB at MR for the
+// mix of nk = 1, 2, 3 and the tail: 0.023 ms at 3.35 TB/s.  Operations:
+// about 310 float32 operations per point (chip_smoke.py DELTA_OPS), 0.009
+// ms at MR at 67 TFLOP/s, only 2.5x under the bytes; in instructions the
+// point arithmetic, with its IEEE divisions and square roots, is several
+// hundred per point, so the issue slots bound the kernel as much as the
+// bytes do.  The design therefore spends as few instructions as it can on
+// moving data, and keeps every lane busy:
+//
+// * One block per (x, y) tile of TILE_X x TILE_Y own points, one thread per
+//   point, marching a chunk of planes; the chunk is chosen at launch so that
+//   the blocks fill the card in whole waves (delta_grid).
+// * Each plane's rows of raw inputs over the tile and its one-point x/y
+//   halo are copied to shared memory with cp.async in whole chunks of 16
+//   bytes (8 or 4 where the rows are not 16-byte aligned, as at X = 50),
+//   the 16-byte copies through L2 only: each element is read from device
+//   memory once per plane, apart from the halo.  The input rows follow the
+//   y mirror, decided on the global row; a tile cell past the x edge reads
+//   the edge's column, so the compute needs no boundary case.
+// * A ring of RING raw planes: RING - 1 planes are in flight while the
+//   block assembles one and computes the one before it; one barrier per
+//   plane.
+// * Each thread assembles (u, p, gl, a, b) of its own point once per plane
+//   (the first threads also a halo cell) into shared memory, for two
+//   planes, z and z+1; it reads its four in-plane neighbours from there and
+//   keeps z-1, z and z+1 of its own column in registers, with the raw w,
+//   K1, G3 and G4 of its point for the stage-5 tail.  The planes below and
+//   above a chunk are copied for the tile's own rows only.
+// * nk is a template parameter, so the copies and the assembly are
+//   unrolled without guards.
+//
+// On the H100 this runs at about 43% of the bytes bound at MR (PERF.md).
 #include "freezing.cuh"
 
 namespace pft {
@@ -68,56 +95,110 @@ __device__ __forceinline__ float fmul(float a, float b) {
     if constexpr (RN) return __fmul_rn(a, b); else return a * b;
 }
 
-// In the SigmaP1-P models (1, 11) ptxas contracts the point arithmetic
-// into multiply-adds differently in the single-device and the shard
-// instantiations of the kernel, and a sharded solve must equal the
-// single-device one bit for bit.  So those models round every operation
-// of rhs_delta_point on its own, apart from the face fluxes, which both
-// instantiations contract alike.  The other models keep the faster
-// contracted arithmetic, where both instantiations round alike already.
+// The SigmaP1-P models (1, 11) round every operation of rhs_delta_point on
+// its own, apart from the face fluxes; the other models let nvcc and ptxas
+// contract multiply-adds.  (That split dates from when the shard and the
+// single-device entries were two instantiations, which ptxas contracted
+// differently in those models; with one body for both it is kept so that
+// the point arithmetic, and with it the models' results, stay as they were.)
 template <int MODE>
 constexpr bool uncontracted = MODE == SIGMAP || MODE == SIGMAP_FROZEN_U;
 
+constexpr int RAW = 9;     // raw planes: w's (u, p, gl), then each K's (u, p)
+constexpr int NPT = 5;     // assembled planes: u, p, gl, a, b
+
 struct DeltaArgs {
-    const float* w;        // (3, Z, Y, X)
-    const float* k[3];     // K1 then G_j, each (2, Z, Y, X)
+    const float* plane[RAW];  // the raw input planes at z = 0: w's u, p, gl
+                              // (3, Z, Y, X), then the (u, p) of K1 and the
+                              // G_j, each (2, Z, Y, X)
     float hc[3];           // h*c_a, formed in float32
-    int nk;
     float h, D1, dDi;
     float* out;            // G (2, Z, Y, X), or y_spec / dy with STAGE5
     float* eps;            // per-block partial max (STAGE5)
+    int64_t eps_n;         // its slots
     Grid g;
+    int vec;               // floats per copy: 4, 2 or 1 (alignment of rows)
+    int tz;                // planes per block (the chunk)
 };
 
-// (u, p, gl) of w and the increment (a, b) at element i of the planes w
-// (variable stride wV) and k0..k2 (stride kV)
-__device__ __forceinline__ DPt load_of(const DeltaArgs& a, const float* w,
-                                       int64_t wV, const float* k0,
-                                       const float* k1, const float* k2,
-                                       int64_t kV, int64_t i) {
-    const float* k[3] = {k0, k1, k2};
-    float d_u = a.hc[0] * k[0][i];
-    float d_p = a.hc[0] * k[0][kV + i];
+// The tile of own points of one block (x by y) and the depth of the ring of
+// raw planes in flight.  50 x 10 fills every lane at the grids' widths of
+// 50, 100 and 200, and was the fastest of the tiles compared at MR, LR and
+// on a z4 shard of MR (PERF.md).
+constexpr int TILE_X = 50, TILE_Y = 10;
+constexpr int RING = 3;
+constexpr int TILE_POINTS = TILE_X * TILE_Y;
+constexpr int TILE_THREADS = (TILE_POINTS + 31) / 32 * 32;
+// the blocks an SM should hold: ptxas keeps a thread's registers to 64
+constexpr int BLOCKS_PER_SM = TILE_THREADS < 1024 ? 1024 / TILE_THREADS : 1;
+constexpr int HALO_X = TILE_X + 2;                  // the tile with its halo
+constexpr int ROWS = TILE_Y + 2;
+constexpr int HALO_CELLS = HALO_X * ROWS;
+constexpr int HALO_RING = HALO_CELLS - TILE_POINTS; // cells around the tile
+// a raw row: the tile's HALO_X columns from a start aligned down to 4
+// floats, so that whole 16-byte chunks of a row are copied
+constexpr int PITCH = (HALO_X + 3 + 3) / 4 * 4;
+constexpr int RAW_PLANE = ROWS * PITCH;
+static_assert(RING >= 3 && HALO_RING <= TILE_THREADS, "bad delta tile");
+
+// dynamic shared memory of a launch with nk inputs: RING raw planes of
+// 3 + 2 nk rows blocks, two assembled planes of NPT values per tile cell
+constexpr int delta_smem_bytes(int nk) {
+    return 4 * (RING * (3 + 2 * nk) * RAW_PLANE + 2 * NPT * HALO_CELLS);
+}
+
+
+// cp.async of VEC floats from device to shared memory (16 bytes through L2
+// only), its commit and wait
+template <int VEC>
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    if constexpr (VEC == 4)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                     :: "r"(d), "l"(src) : "memory");
+    else if constexpr (VEC == 2)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+                     :: "r"(d), "l"(src) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                     :: "r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void copy_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// waits until at most N of this thread's newest groups of copies are
+// pending
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// (u, p, gl) and the increment (a, b) of the raw values r of one point.
+// The multiply-adds are explicit, so every call site rounds alike.
+template <int NK>
+__device__ __forceinline__ DPt assemble(const DeltaArgs& a, const float* r) {
+    float d_u = __fmul_rn(a.hc[0], r[3]);
+    float d_p = __fmul_rn(a.hc[0], r[4]);
 #pragma unroll
-    for (int q = 1; q < 3; ++q) {
-        if (q < a.nk) {
-            d_u = d_u + a.hc[q] * k[q][i];
-            d_p = d_p + a.hc[q] * k[q][kV + i];
-        }
+    for (int q = 1; q < NK; ++q) {
+        d_u = __fmaf_rn(a.hc[q], r[3 + 2 * q], d_u);
+        d_p = __fmaf_rn(a.hc[q], r[4 + 2 * q], d_p);
     }
-    return DPt{w[i], w[wV + i], w[2 * wV + i], d_u, d_p};
+    return DPt{r[0], r[1], r[2], d_u, d_p};
 }
 
-__device__ __forceinline__ DPt load(const DeltaArgs& a, int64_t i) {
-    const int64_t V = a.g.var();
-    return load_of(a, a.w, V, a.k[0], a.k[1], a.k[2], V, i);
+__device__ __forceinline__ DPt tile_point(const float* pt, int cell) {
+    return DPt{pt[cell], pt[HALO_CELLS + cell], pt[2 * HALO_CELLS + cell],
+               pt[3 * HALO_CELLS + cell], pt[4 * HALO_CELLS + cell]};
 }
 
-// the same at column col of a ghost stack (3 + 2 nk, Y, X)
-__device__ __forceinline__ DPt load_ghost(const DeltaArgs& a, const float* g,
-                                          int64_t col) {
-    const int64_t P = a.g.plane();
-    return load_of(a, g, P, g + 3 * P, g + 5 * P, g + 7 * P, P, col);
+__device__ __forceinline__ void store_point(float* pt, int cell,
+                                            const DPt& v) {
+    pt[cell] = v.u;
+    pt[HALO_CELLS + cell] = v.p;
+    pt[2 * HALO_CELLS + cell] = v.gl;
+    pt[3 * HALO_CELLS + cell] = v.a;
+    pt[4 * HALO_CELLS + cell] = v.b;
 }
 
 __device__ __forceinline__ float tanh_exp(float x) {
@@ -320,76 +401,227 @@ __device__ __forceinline__ void rhs_delta_point(
          / fmul<RN>(cp_n, cp_o);
 }
 
-template <int MODE, bool STAGE5, bool EMIT_DY, bool SHARD = false>
-__global__ void __launch_bounds__(BX * BY)
-delta_g_kernel(const Consts c, const DeltaArgs a,
-               const ShardArgs s) {
-    const int x = blockIdx.x * BX + threadIdx.x;
-    const int yo = blockIdx.y * BY + threadIdx.y;   // own row
-    const int z0 = blockIdx.z * ZCHUNK;
-    const int X = a.g.X, Y = a.g.Y, Z = a.g.Z;
-    const int64_t P = a.g.plane(), V = a.g.var();
-    const int Yo = SHARD ? s.Yl : Y;
+// Where a block's planes come from and go to.  A raw plane in shared
+// memory holds the ROWS rows of the tile with its halo; a row holds the
+// floats [xa, xa + PITCH) of an input row, xa = x0 - 1 aligned down to a
+// multiple of the copy width.  The input rows follow the y mirror, decided
+// on the global row; the x mirror is left to the readers: a tile cell past
+// the grid's edge reads the edge's column.  Thread t < TILE_POINTS owns
+// the tile cell of point t; thread t < HALO_RING also assembles halo cell t
+// of the ring around the tile (the row below, the row above, the left
+// column, the right column).
+struct TileMap {
+    int xa;                // the global x of raw column 0
+    int ctr, halo;         // tile cells of this thread (halo < 0: none)
+    int ctr_raw, halo_raw; // their places in a raw plane
+};
+
+__device__ __forceinline__ int raw_cell(int X, int x0, int xa, int cell) {
+    const int r = cell / HALO_X;
+    const int xs = min(max(x0 - 1 + cell - r * HALO_X, 0), X - 1);
+    return r * PITCH + xs - xa;
+}
+
+__device__ __forceinline__ TileMap tile_map(int X, int x0, int vec) {
+    const int t = threadIdx.x;
+    TileMap m{((x0 - 1 + vec) / vec - 1) * vec, 0, -1, 0, 0};
+    if (t < TILE_POINTS)
+        m.ctr = (t / TILE_X + 1) * HALO_X + t % TILE_X + 1;
+    if (t < HALO_RING) {
+        constexpr int LEFT = 2 * HALO_X, RIGHT = LEFT + TILE_Y;
+        m.halo = t < HALO_X ? t
+            : t < LEFT ? (TILE_Y + 1) * HALO_X + t - HALO_X
+            : t < RIGHT ? (t - LEFT + 1) * HALO_X
+            : (t - RIGHT + 1) * HALO_X + HALO_X - 1;
+        m.halo_raw = raw_cell(X, x0, m.xa, m.halo);
+    }
+    m.ctr_raw = raw_cell(X, x0, m.xa, m.ctr);
+    return m;
+}
+
+// The offset within an input plane of the row of tile row r: own row yo0 -
+// 1 + r, clamped to the shard's rows and its neighbour rows, the mirror
+// decided on the global row.
+__device__ __forceinline__ int row_offset(const ShardArgs& s, int X, int yo0,
+                                          int r) {
+    const int yc = min(max(yo0 - 1 + r, -1), s.Yl);     // own row
+    const int gy = min(max(s.y0 + yc, 0), s.Yg - 1);    // global row
+    return (s.r0 + gy - s.y0) * X;
+}
+
+// Starts the copies of rows [r0, r0 + rows) of one plane into raw, VEC
+// floats at a time: the raw planes q of the plane are at base + q *
+// qstride (a ghost stack), or at a.plane[q] + zoff.  Whole chunks of a row
+// lie inside [0, X) or outside it, as VEC divides X; those outside, or
+// past the tile's last column, are not copied.
+template <int NK, int VEC>
+__device__ __forceinline__ void copy_rows(const DeltaArgs& a,
+                                          const float* base, int64_t qstride,
+                                          int64_t zoff, const int* rowoff,
+                                          int xa, int xlim, int r0, int rows,
+                                          float* raw) {
+    constexpr int NR = 3 + 2 * NK, CHUNKS = PITCH / VEC;
+#pragma unroll 1
+    for (int i = threadIdx.x; i < rows * CHUNKS; i += TILE_THREADS) {
+        const int r = r0 + i / CHUNKS, j = i % CHUNKS;
+        const int x = xa + j * VEC;
+        if (x < 0 || x >= xlim) continue;
+        const int64_t off = zoff + rowoff[r] + x;
+        float* dst = raw + r * PITCH + j * VEC;
+#pragma unroll
+        for (int q = 0; q < NR; ++q)
+            copy_async<VEC>(dst + q * RAW_PLANE,
+                            (base ? base + q * qstride : a.plane[q]) + off);
+    }
+}
+
+// Starts the copies of plane pz (z0 - 1 <= pz <= z1) into raw and commits
+// them as one group: all ROWS rows of an own plane, the tile's own rows of
+// the planes below and above the chunk.  Below plane 0 and above plane Z-1
+// the plane is the shard's ghost stack (3 + 2 NK, Y, X), or the mirror.
+template <int NK>
+__device__ __forceinline__ void stage_plane(const DeltaArgs& a,
+                                            const ShardArgs& s,
+                                            const int* rowoff, int xa,
+                                            int xlim, int pz, bool whole,
+                                            float* raw) {
+    const int64_t P = a.g.plane();
+    const float* ghost = pz < 0 ? s.glo : pz >= a.g.Z ? s.ghi : nullptr;
+    const int64_t zoff = ghost ? 0 : min(max(pz, 0), a.g.Z - 1) * P;
+    const int r0 = whole ? 0 : 1, rows = whole ? ROWS : TILE_Y;
+    if (a.vec == 4)
+        copy_rows<NK, 4>(a, ghost, P, zoff, rowoff, xa, xlim, r0, rows, raw);
+    else if (a.vec == 2)
+        copy_rows<NK, 2>(a, ghost, P, zoff, rowoff, xa, xlim, r0, rows, raw);
+    else
+        copy_rows<NK, 1>(a, ghost, P, zoff, rowoff, xa, xlim, r0, rows, raw);
+    copy_commit();
+}
+
+// The point at place i of the raw buffer raw; its raw tail inputs (w's u,
+// p, then the (u, p) of K1, G3 and G4) go to tl when TL.
+template <int NK, bool TL = false>
+__device__ __forceinline__ DPt raw_point(const DeltaArgs& a, const float* raw,
+                                         int i, float* tl = nullptr) {
+    float r[3 + 2 * NK];
+#pragma unroll
+    for (int q = 0; q < 3 + 2 * NK; ++q) r[q] = raw[q * RAW_PLANE + i];
+    if constexpr (TL) {
+        tl[0] = r[0];
+        tl[1] = r[1];
+#pragma unroll
+        for (int q = 0; q < 6; ++q) tl[2 + q] = r[3 + q];
+    }
+    return assemble<NK>(a, r);
+}
+
+// TAIL: 0 = G, 1 = y_spec (emit="y"), 2 = dy (emit="dy"); the tails take
+// NK = 3 (K1, G3, G4).
+template <int MODE, int NK, int TAIL>
+__global__ void __launch_bounds__(TILE_THREADS, BLOCKS_PER_SM)
+delta_g_kernel(const Consts c, const DeltaArgs a, const ShardArgs s) {
+    constexpr bool STAGE5 = TAIL > 0, EMIT_DY = TAIL == 2;
+    constexpr int NR = 3 + 2 * NK;
+    extern __shared__ __align__(16) float smem[];
+    __shared__ int rowoff[ROWS];
+    // RING raw planes, then the assembled planes of two consecutive z
+    float* const raw = smem;
+    float* const pts = smem + RING * NR * RAW_PLANE;
+    const int X = a.g.X, Z = a.g.Z;
+    const int x0 = blockIdx.x * TILE_X, yo0 = blockIdx.y * TILE_Y;
+    const int z0 = blockIdx.z * a.tz, z1 = min(z0 + a.tz, Z);
+    const int tid = threadIdx.x;
+    const int x = x0 + tid % TILE_X, yo = yo0 + tid / TILE_X;  // own row yo
+    const bool point = tid < TILE_POINTS;
+    const bool own = point && x < X && yo < s.Yl;
+    const TileMap m = tile_map(X, x0, a.vec);
+    const int xlim = min(X, x0 + TILE_X + 1);
+    if (tid < ROWS) rowoff[tid] = row_offset(s, X, yo0, tid);
+    __syncthreads();
     // the output's plane and variable strides (own rows only)
-    const int64_t oP = (int64_t)Yo * X, oV = (int64_t)Z * oP;
-    float m = 0.0f;
-    if (x < X && yo < Yo) {
-        const int xm = x > 0 ? x - 1 : x, xp = x < X - 1 ? x + 1 : x;
-        int y, ym, yp;
-        if (SHARD) {
-            const int gy = s.y0 + yo;
-            y = s.r0 + yo;
-            ym = gy > 0 ? y - 1 : y;
-            yp = gy < s.Yg - 1 ? y + 1 : y;
-        } else {
-            y = yo;
-            ym = y > 0 ? y - 1 : y;
-            yp = y < Y - 1 ? y + 1 : y;
-        }
-        const int64_t col = (int64_t)y * X + x;
-        DPt below = (SHARD && z0 == 0)
-            ? load_ghost(a, s.glo, col)
-            : load(a, (int64_t)(z0 > 0 ? z0 - 1 : 0) * P + col);
-        DPt cur = load(a, (int64_t)z0 * P + col);
-        const int z1 = min(z0 + ZCHUNK, Z);
-        for (int z = z0; z < z1; ++z) {
-            const int64_t i = (int64_t)z * P + col;
-            const int64_t o = (int64_t)z * oP + (int64_t)yo * X + x;
-            // top ghost: old u := D1, increment a := dDi; p, gl, b mirror.
-            // A shard reads its ghost stack, overwritten on the global top.
-            DPt above;
-            if (z + 1 < Z) {
-                above = load(a, i + P);
-            } else if (SHARD) {
-                above = load_ghost(a, s.ghi, col);
-                if (s.is_top) {
-                    above.u = a.D1;
-                    above.a = a.dDi;
-                }
-            } else {
-                above = DPt{a.D1, cur.p, cur.gl, a.dDi, cur.b};
+    const int64_t oP = (int64_t)s.Yl * X, oV = (int64_t)Z * oP;
+
+    // planes k = 0 .. n-1 are z0 - 1 .. z1; plane k lives in the raw
+    // buffer k % RING and, assembled, in pts[k % 2].  A raw buffer is
+    // refilled after the barrier that follows its plane's assembly: RING -
+    // 1 planes are in flight while a plane is computed.
+    const int n = z1 - z0 + 2;
+    auto raw_of = [&](int k) { return raw + (k % RING) * NR * RAW_PLANE; };
+    auto pts_of = [&](int k) { return pts + (k & 1) * NPT * HALO_CELLS; };
+    auto stage = [&](int k) {
+        if (k < n)
+            stage_plane<NK>(a, s, rowoff, m.xa, xlim, z0 - 1 + k,
+                            k > 0 && k < n - 1, raw_of(k));
+        else
+            copy_commit();
+    };
+#pragma unroll
+    for (int k = 0; k < RING; ++k) stage(k);
+    copy_wait<RING - 2>();                  // planes 0 and 1 have arrived
+    __syncthreads();
+    float tl[8] = {}, tn[8] = {};   // tail inputs of planes z and z+1
+    DPt below{}, cur{};
+    if (point) {
+        below = raw_point<NK>(a, raw_of(0), m.ctr_raw);
+        cur = raw_point<NK, STAGE5>(a, raw_of(1), m.ctr_raw, tl);
+        store_point(pts_of(1), m.ctr, cur);
+    }
+    if (m.halo >= 0)
+        store_point(pts_of(1), m.halo,
+                    raw_point<NK>(a, raw_of(1), m.halo_raw));
+    float mx = 0.0f;
+#pragma unroll 1
+    for (int k = 1; k < n - 1; ++k) {
+        const int z = z0 - 1 + k;
+        // plane k + 1 has arrived (the first time, planes RING .. RING + 1
+        // are not yet staged)
+        if (k == 1)
+            copy_wait<RING - 3>();
+        else
+            copy_wait<RING - 2>();
+        __syncthreads();    // pts_of(k) is whole, pts_of(k + 1) is free
+        if (k == 1)
+            stage(RING);    // into the buffer of plane 0
+        stage(k + RING);    // into the buffer of plane k
+        // plane k + 1: the next own plane, or the plane above the chunk
+        // (above the top: old u := D1 and the increment := dDi on the
+        // global top)
+        DPt above{};
+        if (point) {
+            above = raw_point<NK, STAGE5>(a, raw_of(k + 1), m.ctr_raw, tn);
+            if (k + 1 < n - 1) {
+                store_point(pts_of(k + 1), m.ctr, above);
+            } else if (z1 == Z && s.is_top) {
+                above.u = a.D1;
+                above.a = a.dDi;
             }
-            const int64_t row = (int64_t)z * P;
-            DPt nxm = load(a, row + (int64_t)y * X + xm);
-            DPt nxp = load(a, row + (int64_t)y * X + xp);
-            DPt nym = load(a, row + (int64_t)ym * X + x);
-            DPt nyp = load(a, row + (int64_t)yp * X + x);
+        }
+        if (k + 1 < n - 1 && m.halo >= 0)
+            store_point(pts_of(k + 1), m.halo,
+                        raw_point<NK>(a, raw_of(k + 1), m.halo_raw));
+        if (own) {
+            const float* pt = pts_of(k);
             float gu, gp;
-            rhs_delta_point<MODE>(c, cur, nxm, nxp, nym, nyp, below, above,
-                                  gu, gp);
+            rhs_delta_point<MODE>(c, cur, tile_point(pt, m.ctr - 1),
+                                  tile_point(pt, m.ctr + 1),
+                                  tile_point(pt, m.ctr - HALO_X),
+                                  tile_point(pt, m.ctr + HALO_X), below,
+                                  above, gu, gp);
+            const int64_t o = (int64_t)z * oP + (int64_t)yo * X + x;
             if (!STAGE5) {
                 a.out[o] = gu;
                 a.out[oV + o] = gp;
             } else {
-                // k[0], k[1], k[2] are K1, G3, G4 of the stage-5 combination
+                // tl: w's u, p, then the (u, p) of K1, G3 and G4 of the
+                // stage-5 combination
                 const float h3 = a.h / 3.0f;
                 const float g5[2] = {gu, gp};
 #pragma unroll
                 for (int v = 0; v < 2; ++v) {
-                    const int64_t j = v * V + i;
-                    const float k1 = a.k[0][j], g3 = a.k[1][j], g4 = a.k[2][j];
+                    const float k1 = tl[2 + v], g3 = tl[4 + v];
+                    const float g4 = tl[6 + v];
                     float err = -0.9f * g3 + 0.8f * g4 - 0.1f * g5[v];
-                    m = nan_max(m, fabsf(err));
+                    mx = nan_max(mx, fabsf(err));
                     if (EMIT_DY) {
                         const float u_term = __fmul_rn(a.h, k1);
                         const float x_term = __fmul_rn(
@@ -397,65 +629,160 @@ delta_g_kernel(const Consts c, const DeltaArgs a,
                                           __fmul_rn(0.5f, g5[v])));
                         a.out[v * oV + o] = __fadd_rn(u_term, x_term);
                     } else {
-                        a.out[v * oV + o] = a.w[j] + a.h * k1
+                        a.out[v * oV + o] = tl[v] + a.h * k1
                                             + h3 * (2.0f * g4 + 0.5f * g5[v]);
                     }
                 }
             }
-            below = cur;
-            cur = above;
+        }
+        below = cur;
+        cur = above;
+        if (STAGE5) {
+#pragma unroll
+            for (int q = 0; q < 8; ++q) tl[q] = tn[q];
         }
     }
-    if (STAGE5) block_max_store(m, a.eps);
+    if (STAGE5) block_max_store<TILE_THREADS>(mx, a.eps);
 }
 
-// tail: 0 = G, 1 = y_spec (emit="y"), 2 = dy (emit="dy")
-template <int MODE>
-static void launch_mode(const Consts& c, const DeltaArgs& a, int tail,
-                        cudaStream_t s) {
-    dim3 grid = launch_grid(a.g.Z, a.g.Y, a.g.X), block(BX, BY);
-    const ShardArgs none{};
-    if (tail == 2)
-        delta_g_kernel<MODE, true, true><<<grid, block, 0, s>>>(c, a, none);
-    else if (tail == 1)
-        delta_g_kernel<MODE, true, false><<<grid, block, 0, s>>>(c, a, none);
-    else
-        delta_g_kernel<MODE, false, false><<<grid, block, 0, s>>>(c, a, none);
+// The launch grid: the tiles of own points in x and y, and the chunks of
+// tz planes in z.  All blocks of a launch should run in one wave, or in
+// whole waves: a block's time is about its planes plus one (the pipeline's
+// start and the planes around the chunk), so the chunk count minimises
+// waves x (tz + 1) over the card's resident blocks of this kernel.
+struct DeltaGrid {
+    dim3 grid;
+    int tz;
+};
+
+template <int MODE, int NK, int TAIL>
+static int delta_grid(int Z, int Yl, int X, DeltaGrid& out) {
+    constexpr int bytes = delta_smem_bytes(NK);
+    constexpr int MAX_DEVICES = 64;
+    static int resident[MAX_DEVICES] = {};      // blocks on the card
+    int dev = 0, per_sm = 0, sms = 0;
+    cudaError_t rc = cudaGetDevice(&dev);
+    if (rc == cudaSuccess && (dev >= MAX_DEVICES || !resident[dev])) {
+        // the most shared memory an SM has, so that as many blocks are
+        // resident as the occupancy query counts; above 48 KB a block gets
+        // it only after opting in
+        rc = cudaFuncSetAttribute(
+            delta_g_kernel<MODE, NK, TAIL>,
+            cudaFuncAttributePreferredSharedMemoryCarveout,
+            cudaSharedmemCarveoutMaxShared);
+        if (rc == cudaSuccess && bytes > 48 * 1024)
+            rc = cudaFuncSetAttribute(
+                delta_g_kernel<MODE, NK, TAIL>,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        if (rc == cudaSuccess)
+            rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, delta_g_kernel<MODE, NK, TAIL>, TILE_THREADS,
+                bytes);
+        if (rc == cudaSuccess)
+            rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                        dev);
+        if (rc == cudaSuccess && dev < MAX_DEVICES)
+            resident[dev] = max(per_sm * sms, 1);
+    }
+    if (rc != cudaSuccess) return (int)rc;
+    const int cap = dev < MAX_DEVICES ? resident[dev] : max(per_sm * sms, 1);
+    const long long tiles = (long long)((X + TILE_X - 1) / TILE_X)
+                            * ((Yl + TILE_Y - 1) / TILE_Y);
+    // for each wave count, the most chunks that fit it
+    int best = 1;
+    long long best_cost = -1;
+    for (long long w = (tiles + cap - 1) / cap; w * cap < tiles * Z + cap;
+         ++w) {
+        const int nz = (int)min((long long)Z, w * cap / tiles);
+        const long long cost = (tiles * nz + cap - 1) / cap
+                               * ((Z + nz - 1) / nz + 1);
+        if (best_cost < 0 || cost < best_cost) {
+            best = nz;
+            best_cost = cost;
+        }
+    }
+    out.tz = (Z + best - 1) / best;
+    out.grid = dim3((X + TILE_X - 1) / TILE_X, (Yl + TILE_Y - 1) / TILE_Y,
+                    (Z + out.tz - 1) / out.tz);
+    return 0;
 }
 
+// Computes the grid of a launch; with out, only stores it there, else
+// launches, when a tail's grid has no more blocks than eps has slots.
+template <int MODE, int NK, int TAIL>
+static int launch_kernel(const Consts& c, DeltaArgs a, const ShardArgs& sa,
+                         cudaStream_t s, DeltaGrid* out) {
+    DeltaGrid dg;
+    const int rc = delta_grid<MODE, NK, TAIL>(a.g.Z, sa.Yl, a.g.X, dg);
+    if (rc) return rc;
+    if (out) {
+        *out = dg;
+        return 0;
+    }
+    if (TAIL && (int64_t)dg.grid.x * dg.grid.y * dg.grid.z > a.eps_n)
+        return 1012;
+    a.tz = dg.tz;
+    delta_g_kernel<MODE, NK, TAIL><<<dg.grid, TILE_THREADS,
+                                     delta_smem_bytes(NK), s>>>(c, a, sa);
+    return (int)cudaGetLastError();
+}
+
+// A single-device launch is a shard that holds the whole grid (see the
+// top of the file).
 template <int MODE>
-static void launch_shard_mode(const Consts& c, const DeltaArgs& a,
-                              const ShardArgs& sa, int tail, cudaStream_t s) {
-    dim3 grid = shard_grid(PART_ALL, a.g.Z, sa.Yl, a.g.X), block(BX, BY);
-    if (tail == 2)
-        delta_g_kernel<MODE, true, true, true><<<grid, block, 0, s>>>(
-            c, a, sa);
-    else if (tail == 1)
-        delta_g_kernel<MODE, true, false, true><<<grid, block, 0, s>>>(
-            c, a, sa);
-    else
-        delta_g_kernel<MODE, false, false, true><<<grid, block, 0, s>>>(
-            c, a, sa);
+static int launch_mode(const Consts& c, const DeltaArgs& a,
+                       const ShardArgs& sa, int nk, int tail, cudaStream_t s,
+                       DeltaGrid* out) {
+    if (tail == 2) return launch_kernel<MODE, 3, 2>(c, a, sa, s, out);
+    if (tail == 1) return launch_kernel<MODE, 3, 1>(c, a, sa, s, out);
+    if (nk == 1) return launch_kernel<MODE, 1, 0>(c, a, sa, s, out);
+    if (nk == 2) return launch_kernel<MODE, 2, 0>(c, a, sa, s, out);
+    return launch_kernel<MODE, 3, 0>(c, a, sa, s, out);
+}
+
+static int launch(const Consts& c, const DeltaArgs& a, const ShardArgs& sa,
+                  int mode, int nk, int tail, cudaStream_t s,
+                  DeltaGrid* out = nullptr) {
+    switch (mode) {
+        case GRADP: return launch_mode<GRADP>(c, a, sa, nk, tail, s, out);
+        case SIGMAP: return launch_mode<SIGMAP>(c, a, sa, nk, tail, s, out);
+        case TEMP: return launch_mode<TEMP>(c, a, sa, nk, tail, s, out);
+        case GRADP_FROZEN_U:
+            return launch_mode<GRADP_FROZEN_U>(c, a, sa, nk, tail, s, out);
+        case SIGMAP_FROZEN_U:
+            return launch_mode<SIGMAP_FROZEN_U>(c, a, sa, nk, tail, s, out);
+        default: return 1004;
+    }
 }
 
 // The argument block of one delta launch; returns 0 or 1000 + n.
 static int delta_args(DeltaArgs& a, int nk, int tail, float h, float D1,
                       float dDi, const float* coefs, const float* w,
                       const float* k0, const float* k1, const float* k2,
-                      float* out, float* eps, int Z, int Y, int X) {
+                      float* out, float* eps, long long eps_n, int Z, int Y,
+                      int X) {
     if (nk < 1 || nk > 3) return 1001;
     if (tail < 0 || tail > 2) return 1005;
     if (tail && nk != 3) return 1002;
     if (Z < 1 || Y < 1 || X < 1) return 1003;
-    a.w = w;
-    a.k[0] = k0; a.k[1] = k1; a.k[2] = k2;
+    const int64_t V = (int64_t)Z * Y * X;
+    const float* k[3] = {k0, k1, k2};
+    for (int q = 0; q < RAW; ++q)
+        a.plane[q] = q < 3 ? w + q * V
+            : q < 3 + 2 * nk ? k[(q - 3) / 2] + ((q - 3) % 2) * V : nullptr;
     for (int q = 0; q < 3; ++q) a.hc[q] = q < nk ? h * coefs[q] : 0.0f;
-    a.nk = nk;
+    // the widest copy that every input row allows
+    uintptr_t addr = 0;
+    for (int q = 0; q < 3 + 2 * nk; ++q)
+        addr |= reinterpret_cast<uintptr_t>(a.plane[q]);
+    a.vec = X % 4 == 0 && addr % 16 == 0 ? 4
+        : X % 2 == 0 && addr % 8 == 0 ? 2 : 1;
     a.h = h;
     a.D1 = D1;
     a.dDi = dDi;
     a.out = out;
     a.eps = eps;
+    a.eps_n = eps_n;
     a.g = Grid{Z, Y, X};
     return 0;
 }
@@ -469,26 +796,21 @@ extern "C" {
 // G of one increment-form stage (tail = 0), or the stage-5 tail with its
 // eps partials: y_spec (tail = 1, emit="y") or dy (tail = 2, emit="dy").
 // consts and coefs are host arrays; every other pointer is device memory.
-// Returns cudaGetLastError() after the launch; 1000 + n for bad arguments.
+// eps has eps_n slots, pft_delta_eps_blocks of the launch.  Returns
+// cudaGetLastError() after the launch; 1000 + n for bad arguments (1012:
+// eps is too short for the launch's grid).
 int pft_delta_g(const float* consts, int mode, int nk, int tail, float h,
                 float D1, float dDi, const float* coefs, const float* w,
                 const float* k0, const float* k1, const float* k2,
-                float* out, float* eps, int Z, int Y, int X, void* stream) {
+                float* out, float* eps, int Z, int Y, int X, void* stream,
+                long long eps_n) {
     DeltaArgs a;
     int bad = delta_args(a, nk, tail, h, D1, dDi, coefs, w, k0, k1, k2, out,
-                         eps, Z, Y, X);
+                         eps, eps_n, Z, Y, X);
     if (bad) return bad;
-    Consts c = *reinterpret_cast<const Consts*>(consts);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (mode) {
-        case GRADP: launch_mode<GRADP>(c, a, tail, s); break;
-        case SIGMAP: launch_mode<SIGMAP>(c, a, tail, s); break;
-        case TEMP: launch_mode<TEMP>(c, a, tail, s); break;
-        case GRADP_FROZEN_U: launch_mode<GRADP_FROZEN_U>(c, a, tail, s); break;
-        case SIGMAP_FROZEN_U: launch_mode<SIGMAP_FROZEN_U>(c, a, tail, s); break;
-        default: return 1004;
-    }
-    return (int)cudaGetLastError();
+    const ShardArgs whole{nullptr, nullptr, PART_ALL, 0, Y, 0, Y, 1};
+    return launch(*reinterpret_cast<const Consts*>(consts), a, whole, mode,
+                  nk, tail, static_cast<cudaStream_t>(stream));
 }
 
 // K2s: the delta stage on one shard, every tail.  Shapes and the y window
@@ -497,29 +819,34 @@ int pft_delta_g_shard(const float* consts, int mode, int nk, int tail,
                       float h, float D1, float dDi, const float* coefs,
                       const float* w, const float* k0, const float* k1,
                       const float* k2, float* out, float* eps, int Z, int Y,
-                      int X, void* stream, const float* glo,
-                      const float* ghi, int is_top, int r0, int Yl, int y0,
-                      int Yg) {
+                      int X, void* stream, long long eps_n,
+                      const float* glo, const float* ghi, int is_top, int r0,
+                      int Yl, int y0, int Yg) {
     DeltaArgs a;
     int bad = delta_args(a, nk, tail, h, D1, dDi, coefs, w, k0, k1, k2, out,
-                         eps, Z, Y, X);
+                         eps, eps_n, Z, Y, X);
     if (bad) return bad;
     ShardArgs sa{glo, ghi, PART_ALL, r0, Yl, y0, Yg, is_top};
     bad = shard_check(sa, Z, Y);
     if (bad) return bad;
-    Consts c = *reinterpret_cast<const Consts*>(consts);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (mode) {
-        case GRADP: launch_shard_mode<GRADP>(c, a, sa, tail, s); break;
-        case SIGMAP: launch_shard_mode<SIGMAP>(c, a, sa, tail, s); break;
-        case TEMP: launch_shard_mode<TEMP>(c, a, sa, tail, s); break;
-        case GRADP_FROZEN_U:
-            launch_shard_mode<GRADP_FROZEN_U>(c, a, sa, tail, s); break;
-        case SIGMAP_FROZEN_U:
-            launch_shard_mode<SIGMAP_FROZEN_U>(c, a, sa, tail, s); break;
-        default: return 1004;
-    }
-    return (int)cudaGetLastError();
+    const uintptr_t ghosts = reinterpret_cast<uintptr_t>(glo)
+                             | reinterpret_cast<uintptr_t>(ghi);
+    while (a.vec > 1 && ghosts % (4 * a.vec)) a.vec /= 2;
+    return launch(*reinterpret_cast<const Consts*>(consts), a, sa, mode,
+                  nk, tail, static_cast<cudaStream_t>(stream));
+}
+
+// eps partial slots of a stage-5 launch (tail 1 or 2) of either entry over
+// Yl own rows on the current device: the blocks of its grid; -1 for bad
+// arguments or a failed query.
+long long pft_delta_eps_blocks(int mode, int tail, int Z, int Yl, int X) {
+    if (tail < 1 || tail > 2 || Z < 1 || Yl < 1 || X < 1) return -1;
+    DeltaArgs a{};
+    a.g = Grid{Z, Yl, X};
+    ShardArgs sa{nullptr, nullptr, PART_ALL, 0, Yl, 0, Yl, 1};
+    DeltaGrid dg;
+    if (launch(Consts{}, a, sa, mode, 3, tail, nullptr, &dg)) return -1;
+    return (long long)dg.grid.x * dg.grid.y * dg.grid.z;
 }
 
 }  // extern "C"

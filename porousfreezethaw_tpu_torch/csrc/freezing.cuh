@@ -140,9 +140,11 @@ inline int shard_check(const ShardArgs& s, int Z, int Y) {
     return 0;
 }
 
-// NaN-propagating max over the block; thread 0 writes it to out[block].
+// NaN-propagating max over the block of THREADS threads (a multiple of 32);
+// thread 0 writes it to out[block].
+template <int THREADS = BX * BY>
 __device__ __forceinline__ void block_max_store(float m, float* out) {
-    __shared__ float warp_max[BX * BY / 32];
+    __shared__ float warp_max[THREADS / 32];
     for (int off = 16; off > 0; off >>= 1)
         m = nan_max(m, __shfl_down_sync(0xffffffffu, m, off));
     int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -150,7 +152,7 @@ __device__ __forceinline__ void block_max_store(float m, float* out) {
     __syncthreads();
     if (tid == 0) {
         float r = warp_max[0];
-        for (int i = 1; i < BX * BY / 32; ++i) r = nan_max(r, warp_max[i]);
+        for (int i = 1; i < THREADS / 32; ++i) r = nan_max(r, warp_max[i]);
         int64_t b = ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x
                     + blockIdx.x;
         out[b] = r;

@@ -127,9 +127,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                       vp, vp, vp, vp, ci, ci, ci, vp]
     lib.pft_fused_attempt.restype = ci
     # consts, mode, nk, tail, h, D1, dDi, coefs, w, k0, k1, k2, out, eps,
-    # Z, Y, X, stream
+    # Z, Y, X, stream, eps_n (the slots of eps)
     lib.pft_delta_g.argtypes = [vp, ci, ci, ci, cf, cf, cf, vp, vp, vp, vp,
-                                vp, vp, vp, ci, ci, ci, vp]
+                                vp, vp, vp, ci, ci, ci, vp, ctypes.c_longlong]
     lib.pft_delta_g.restype = ci
     # the shard entries: the arguments of their single-device entry, then
     # glo, ghi, part (stage) or is_top (delta), r0, Yl, y0, Yg
@@ -140,6 +140,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pft_delta_g_shard.restype = ci
     lib.pft_shard_eps_blocks.argtypes = [ci, ci, ci, ci]
     lib.pft_shard_eps_blocks.restype = ctypes.c_longlong
+    lib.pft_delta_eps_blocks.argtypes = [ci, ci, ci, ci, ci]
+    lib.pft_delta_eps_blocks.restype = ctypes.c_longlong
     return lib
 
 

@@ -363,8 +363,10 @@ def delta_g(spec: StencilSpec, h: float, D1: float, dDi: float,
     scalars = tuple(float(np.float32(v)) for v in (h, D1, dDi))
     out = _k_out(spec, w.device)
     tail = 2 if emit == "dy" else int(stage5)
-    eps = _kernel_call("pft_delta_g", spec, scalars, (w.data_ptr(),),
-                       w.device, ks, tail, out)
+    eps = (_delta_eps(spec, tail, *spec.geom.shape, w.device) if stage5
+           else None)
+    _kernel_call("pft_delta_g", spec, scalars, (w.data_ptr(),), w.device, ks,
+                 tail, out, eps=eps, extra=(_slots(eps),))
     if emit == "dy":
         delta_g.launches_dy += 1
     else:
@@ -374,6 +376,31 @@ def delta_g(spec: StencilSpec, h: float, D1: float, dDi: float,
 
 delta_g.launches = 0
 delta_g.launches_dy = 0
+
+
+def _delta_eps(spec: StencilSpec, tail: int, Z: int, Yl: int, X: int,
+               device: torch.device) -> torch.Tensor:
+    """The eps partials buffer of a delta kernel's tail over Yl own rows:
+    one slot per block of its launch grid, which csrc/delta_g.cu sizes for
+    the card."""
+    n = _delta_eps_blocks(int(spec.mode), tail, Z, Yl, X, device)
+    return torch.empty((n,), dtype=torch.float32, device=device)
+
+
+def _slots(eps) -> int:
+    """The slots of an eps partials buffer (0 for none), which the delta
+    entries check against their launch grid."""
+    return 0 if eps is None else eps.numel()
+
+
+@functools.lru_cache(maxsize=256)
+def _delta_eps_blocks(mode: int, tail: int, Z: int, Yl: int, X: int,
+                      device: torch.device) -> int:
+    with torch.cuda.device(device):
+        n = _library().pft_delta_eps_blocks(mode, tail, Z, Yl, X)
+    if n < 1:
+        raise KernelLaunchError(f"pft_delta_eps_blocks failed for {Z, Yl, X}")
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -599,14 +626,12 @@ def delta_g_shard(spec: StencilSpec, h: float, D1: float, dDi: float,
     zl, Ye, X = w.shape[1:]
     out = torch.empty((K_VARS, zl, Yl, X), dtype=torch.float32,
                       device=w.device)
-    eps = (torch.empty((_library().pft_shard_eps_blocks(0, zl, Yl, X),),
-                       dtype=torch.float32, device=w.device)
-           if stage5 else None)
     scalars = tuple(float(np.float32(v)) for v in (h, D1, dDi))
     tail = 2 if emit == "dy" else int(stage5)
+    eps = _delta_eps(spec, tail, zl, Yl, X, w.device) if stage5 else None
     _kernel_call("pft_delta_g_shard", spec, scalars, (w.data_ptr(),),
                  w.device, ks, tail, out, dims=(zl, Ye, X), eps=eps,
-                 extra=_ghost_ptrs(ghosts) + (
+                 extra=(_slots(eps),) + _ghost_ptrs(ghosts) + (
                      int(is_top), r0, Yl, y0, spec.geom.n2))
     if emit == "dy":
         delta_g_shard.launches_dy += 1

@@ -29,6 +29,13 @@ from porousfreezethaw_tpu_torch.solvers.merson import (
 pytestmark = pytest.mark.cuda
 
 SHAPE = (19, 23, 37)     # (n3, n2, n1): odd sizes catch edge indexing
+# shapes at the edges of the delta kernel's tiles (csrc/delta_g.cu: 50 x 10
+# points, a chunk of planes chosen at launch): x and y smaller than a tile
+# and z than any chunk; x and y one or more past a multiple of the tile;
+# rows that allow 4-byte copies only (odd x), 8-byte (x = 26) and 16-byte
+# (x = 52)
+EDGE_SHAPES = ((2, 3, 7), (13, 17, 51), (5, 11, 33), (6, 13, 52),
+               (9, 21, 26))
 
 
 @pytest.fixture(scope="module")
@@ -53,11 +60,11 @@ def _params():
     return shift_temperature_origin(prm, prm.u_star)
 
 
-def _inputs(dev):
+def _inputs(dev, shape=SHAPE):
     rng = np.random.default_rng(3)
-    w = np.stack([rng.uniform(-10, 10, SHAPE), rng.uniform(0, 1, SHAPE),
-                  rng.uniform(0, 0.6, SHAPE)]).astype(np.float32)
-    ks = [rng.standard_normal((2,) + SHAPE).astype(np.float32)
+    w = np.stack([rng.uniform(-10, 10, shape), rng.uniform(0, 1, shape),
+                  rng.uniform(0, 0.6, shape)]).astype(np.float32)
+    ks = [rng.standard_normal((2,) + shape).astype(np.float32)
           for _ in range(3)]
     return (torch.from_numpy(w).to(dev), [torch.from_numpy(k).to(dev)
                                           for k in ks])
@@ -78,10 +85,18 @@ def _close(got, ref):
 
 @pytest.mark.parametrize("mode", [0, 1, 2, 10, 11])
 def test_kernels_match_plain(dev, mode):
+    """Every kernel against its plain version at the odd shape and at the
+    edges of the delta kernel's tiles."""
     prm = _params()
-    geom = GridGeometry(0.03, 0.03, 0.06, SHAPE[2], SHAPE[1], SHAPE[0])
+    for shape in (SHAPE,) + EDGE_SHAPES:
+        _kernels_match_plain(dev, prm, mode, shape)
+    torch.cuda.synchronize()
+
+
+def _kernels_match_plain(dev, prm, mode, shape):
+    geom = GridGeometry(0.03, 0.03, 0.06, shape[2], shape[1], shape[0])
     spec = st.StencilSpec.of(geom, prm, mode)
-    w, ks = _inputs(dev)
+    w, ks = _inputs(dev, shape)
     h = 0.05
     for t in (prm.phase_switch_time - 0.5 * h, prm.phase_switch_time + 1.0):
         for cs, s5 in (([], False), ([1 / 3], False), ([0.5, 0.5], False),
@@ -101,7 +116,6 @@ def test_kernels_match_plain(dev, mode):
         _close(st.delta_g(spec, h, D1, dDi, w, kk, stage5=True, emit="dy"),
                st.delta_g_plain(spec, h, D1, dDi, w, kk, stage5=True,
                                 emit="dy"))
-    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("mode", [0, 1, 2, 10, 11])
@@ -149,6 +163,34 @@ def test_nan_reaches_the_controller(dev):
                         [(1.0, ks[0]), (-1.5, ks[1]), (2.0, ks[2])],
                         stage5=True)
     assert torch.isnan(eps).any()
+
+
+@pytest.mark.parametrize("fn", ["pft_delta_g", "pft_delta_g_shard"])
+def test_delta_tail_refuses_a_short_eps_buffer(dev, fn):
+    """The delta entries launch a tail only when the eps buffer has a slot
+    for every block of its grid."""
+    prm = _params()
+    geom = GridGeometry(0.03, 0.03, 0.06, SHAPE[2], SHAPE[1], SHAPE[0])
+    spec = st.StencilSpec.of(geom, prm, 0)
+    w, ks = _inputs(dev)
+    kk = [(1.0, ks[0]), (-1.5, ks[1]), (2.0, ks[2])]
+    n = st._delta_eps_blocks(0, 1, *SHAPE, dev)
+    out = torch.empty((2,) + SHAPE, dtype=torch.float32, device=dev)
+    ghost = torch.zeros((9,) + SHAPE[1:], dtype=torch.float32, device=dev)
+    shard = (() if fn == "pft_delta_g" else
+             (ghost.data_ptr(), ghost.data_ptr(), 1, 0, SHAPE[1], 0,
+              SHAPE[1]))
+    for slots, ok in ((n, True), (n - 1, False)):
+        eps = torch.empty((slots,), dtype=torch.float32, device=dev)
+        call = lambda: st._kernel_call(  # noqa: E731
+            fn, spec, (0.05, -25.0, 0.0), (w.data_ptr(),), dev, kk, 1, out,
+            eps=eps, extra=(slots,) + shard)
+        if ok:
+            call()
+        else:
+            with pytest.raises(st.KernelLaunchError, match="invalid"):
+                call()
+    torch.cuda.synchronize()
 
 
 def test_solve_goes_through_both_kernels(dev):
@@ -206,43 +248,60 @@ def _shard_inputs(w, ks, nk, lo, hi, rows):
     return ws, kk, g
 
 
-@pytest.mark.parametrize("mode", [0, 2])
+# shards of SHAPE: (planes [lo, hi), input rows, window (r0, Yl, y0)).  An
+# interior shard with own rows 5..12; the top shard with them; the top with
+# one own row; the bottom two planes (fewer than a chunk) with one own row
+# at the y chain start; 14 planes with the 12 own rows of the y chain end
+SHARDS = ((6, 13, slice(4, 14), (1, 8, 5)), (12, 19, slice(4, 14), (1, 8, 5)),
+          (12, 19, slice(4, 7), (1, 1, 5)), (0, 2, slice(0, 2), (0, 1, 0)),
+          (3, 17, slice(10, None), (1, 12, 11)))
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 10, 11])
 def test_shard_kernels_match_plain(dev, mode):
-    """K1s (part all), K3 (interior + edge) and K2s (G, y_spec and dy) on
-    one interior shard with a y window, against their plain versions
-    (the tolerance of _close)."""
+    """K1s (part all), K3 (interior + edge) and K2s (G, y_spec and dy, with
+    and without the Dirichlet top) on the shards of SHARDS, of SHAPE and of
+    the same grid 52 wide (16-byte rows), against their plain versions (the
+    tolerance of _close)."""
     prm = _params()
-    geom = GridGeometry(0.03, 0.03, 0.06, SHAPE[2], SHAPE[1], SHAPE[0])
-    spec = st.StencilSpec.of(geom, prm, mode)
-    w, ks = _inputs(dev)
-    t, h = 100.0, 0.05
-    rows, window = slice(4, 14), (1, 8, 5)      # own rows 5..12 of 23
-    for nk, cs, s5 in ((0, [], False), (2, [0.5, 0.5], False),
-                       (3, [0.5, -1.5, 2.0], True)):
-        ws, kk, g = _shard_inputs(w, ks, nk, 6, 13, rows)
-        kk = list(zip(cs, kk))
-        ref = st.fused_stage_shard_plain(spec, t, h, ws, kk, g,
-                                         window=window, stage5=s5)
-        _close(st.fused_stage_shard(spec, t, h, ws, kk, g, window=window,
-                                    stage5=s5), ref)
-        prev = st.fused_stage_shard(spec, t, h, ws, kk, None,
-                                    window=window, stage5=s5,
-                                    part="interior")
-        got = st.fused_stage_shard(spec, t, h, ws, kk, g, window=window,
-                                   stage5=s5, part="edge",
-                                   prev=prev if s5 else (prev,))
-        _close(got, ref)
-    for nk, cs, s5, emit in ((1, [1 / 3], False, "y"),
-                             (3, [1.0, -1.5, 2.0], True, "y"),
-                             (3, [1.0, -1.5, 2.0], True, "dy")):
-        ws, kk, g = _shard_inputs(w, ks, nk, 12, 19, rows)   # the top
-        kk = list(zip(cs, kk))
-        for is_top in (True, False):
-            args = (spec, h, -20.0, 1.5, ws, kk, g)
-            kw = dict(is_top=is_top, window=window, stage5=s5, emit=emit)
-            _close(st.delta_g_shard(*args, **kw),
-                   st.delta_g_shard_plain(*args, **kw))
+    for shape in (SHAPE, SHAPE[:2] + (52,)):
+        _shard_kernels_match_plain(dev, prm, mode, shape)
     torch.cuda.synchronize()
+
+
+def _shard_kernels_match_plain(dev, prm, mode, shape):
+    geom = GridGeometry(0.03, 0.03, 0.06, shape[2], shape[1], shape[0])
+    spec = st.StencilSpec.of(geom, prm, mode)
+    w, ks = _inputs(dev, shape)
+    t, h = 100.0, 0.05
+    for lo, hi, rows, window in SHARDS:
+        for nk, cs, s5 in ((0, [], False), (2, [0.5, 0.5], False),
+                           (3, [0.5, -1.5, 2.0], True)):
+            ws, kk, g = _shard_inputs(w, ks, nk, lo, hi, rows)
+            kk = list(zip(cs, kk))
+            ref = st.fused_stage_shard_plain(spec, t, h, ws, kk, g,
+                                             window=window, stage5=s5)
+            _close(st.fused_stage_shard(spec, t, h, ws, kk, g,
+                                        window=window, stage5=s5), ref)
+            if hi - lo < 3:
+                continue                # the split needs three planes
+            prev = st.fused_stage_shard(spec, t, h, ws, kk, None,
+                                        window=window, stage5=s5,
+                                        part="interior")
+            got = st.fused_stage_shard(spec, t, h, ws, kk, g, window=window,
+                                       stage5=s5, part="edge",
+                                       prev=prev if s5 else (prev,))
+            _close(got, ref)
+        for nk, cs, s5, emit in ((1, [1 / 3], False, "y"),
+                                 (3, [1.0, -1.5, 2.0], True, "y"),
+                                 (3, [1.0, -1.5, 2.0], True, "dy")):
+            ws, kk, g = _shard_inputs(w, ks, nk, lo, hi, rows)
+            kk = list(zip(cs, kk))
+            for is_top in (True, False):
+                args = (spec, h, -20.0, 1.5, ws, kk, g)
+                kw = dict(is_top=is_top, window=window, stage5=s5, emit=emit)
+                _close(st.delta_g_shard(*args, **kw),
+                       st.delta_g_shard_plain(*args, **kw))
 
 
 @pytest.mark.parametrize("mode", [0, 1, 2, 10, 11])

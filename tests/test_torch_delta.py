@@ -147,13 +147,12 @@ def test_plain_stage_matches_pallas(case):
     assert diff[0, :-1].max() == 0 and diff[1].max() == 0
 
 
-# mode 1 here; modes 0 and 2 run through the delta kernel in the whole
-# attempt below
-@pytest.mark.parametrize("mode", [1])
+@pytest.mark.parametrize("mode", MODES)
 def test_plain_delta_g_matches_pallas(case, mode):
-    """The plain delta kernel (nk 1-3, and stage5 with emit "y" and "dy")
-    against JAX make_delta_g in interpret mode, with the increment ghost of
-    a step across the phase switch."""
+    """The plain delta kernel (nk 1-3, and stage5 with emit "y" and "dy"),
+    the version the CUDA kernel is held to on the card, against JAX
+    make_delta_g in interpret mode in every calc mode, with the increment
+    ghost of a step across the phase switch."""
     jprm, prm, jgeom, geom, w32, ks = _f32_case(case, shifted=True)
     jg = jst.make_delta_g(jgeom, jprm, mode, bz=2, interpret=True)
     spec = st.StencilSpec.of(geom, prm, mode)
