@@ -11,14 +11,15 @@ Run from the root of a checkout.  Phases, one JSON line each:
 2. build    compile csrc/*.cu with nvcc (sm_90a, one process per source,
             all started together) and time it
 3. kernels  every kernel against its plain PyTorch version on the card
-            (MR, LR, an odd shape and the delta tiles' edge shapes; calc
-            modes 0/1/2; t on each side of the phase switch; every stage
+            (MR, LR, an odd shape and the tiles' edge shapes; calc modes
+            0/1/2; t on each side of the phase switch; every stage
             variant): fused_stage (K1), delta_g (K2), its emit="dy" tail
             (K2') and the double-buffered attempt (K4), which must also
             equal the fused_stage chain bit for bit; then kernel and
-            plain times at the MR shape beside each kernel's bound, the
-            delta instantiations' ptxas report, and the time of one tensor
-            copy moving a delta row's bytes (copy_ms)
+            plain times at the MR shape beside each kernel's bound, each
+            row's ptxas report (registers, spills, shared memory), the
+            time of one tensor copy moving the row's bytes (copy_ms), and
+            a digest of the delta kernels' outputs (_delta_digest)
 4. solve    MR GradP (100x100x200) f32 solves of 300 attempts through
             merson_solve, increment form (DeltaAttempt) and classic
             double-buffered (FusedAttempt): kernels, then the plain
@@ -37,8 +38,9 @@ Run from the root of a checkout.  Phases, one JSON line each:
             (fused_stage_shard), K3 (its interior/edge split,
             fused_stage_split), K2s (delta_g_shard) and its emit="dy" tail
             (delta_g_shard_dy) against their plain versions at MR shards
-            (and two at the delta tiles' edges); K2s also timed with its
-            inputs cold in L2;
+            (and two at the tiles' edges); K2s also timed with its inputs
+            cold in L2, K3's interior and edge passes each on its own,
+            beside one launch's floor;
             sharded against single-device bit for bit at MR on z1, z2,
             z4, z2,y2 and y2 (overlap on and off); their times; MR solves
             of 100 attempts at z4 and z2,y2 against the single-device
@@ -71,6 +73,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -95,10 +98,10 @@ SOLVE_ATTEMPTS = 300
 MR_SHAPE = (200, 100, 100)     # (n3, n2, n1)
 LR_SHAPE = (100, 50, 50)       # the app phase's grid
 ODD_SHAPE = (19, 23, 37)
-# shapes at the edges of the delta kernel's tiles (csrc/delta_g.cu): x and y
-# smaller than a tile and z than any chunk; x and y one or more past a
-# multiple of a tile side; rows that allow 4-byte copies only (odd x),
-# 8-byte (x = 26) and 16-byte (x = 52)
+# shapes at the edges of the tiles of the stage and delta kernels
+# (csrc/tile.cuh): x and y smaller than a tile and z than any chunk; x and y
+# one or more past a multiple of a tile side; rows that allow 4-byte copies
+# only (odd x), 8-byte (x = 26) and 16-byte (x = 52)
 EDGE_SHAPES = ((2, 3, 7), (13, 17, 51), (5, 11, 33), (6, 13, 52),
                (9, 21, 26))
 # the bound of a kernel call: the larger of its bytes over the H100's HBM
@@ -158,24 +161,31 @@ def phase_build() -> None:
              if "registers" in ln or "spill" in ln]
     emit("build", seconds=res.seconds, library=str(res.path),
          num_consts=lib.pft_num_consts(), ptxas=ptxas)
-    emit("build_delta_ptxas", instantiations=_delta_ptxas(res.log))
+    emit("build_ptxas", instantiations=_ptxas(res.log))
 
 
-def _delta_ptxas(log: str) -> dict:
-    """Registers, spills and static shared memory of each delta_g_kernel
+# the kernel families of the library: their __global__ templates
+# <MODE, NK, TAIL> and the names of their tails
+PTXAS_KERNELS = {"delta_g": ("G", "y", "dy"), "fused_stage": ("K", "y"),
+                 "fused_attempt": ("K", "y")}
+
+
+def _ptxas(log: str) -> dict:
+    """Registers, spills and static shared memory of each kernel
     instantiation in a build log (``nvcc -Xptxas -v``), by
-    "mode/nk/tail" (tail G, y or dy; the tile buffers are dynamic shared
-    memory, csrc/delta_g.cu delta_smem_bytes)."""
+    "family/mode/nk/tail" (the tile buffers are dynamic shared memory,
+    csrc/tile.cuh tile_smem_bytes)."""
     out, cur = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            t = re.search(r"delta_g_kernelILi(\d+)ELi(\d)ELi(\d)E",
-                          m.group(1))
-            cur = (f"{t[1]}/nk{t[2]}/" + ("G", "y", "dy")[int(t[3])]
-                   if t else None)
-            if cur:
-                out[cur] = {}
+            cur = None
+            for fam, tails in PTXAS_KERNELS.items():
+                t = re.search(fam + r"_kernelILi(\d+)ELi(\d)ELi(\d)E",
+                              m.group(1))
+                if t:
+                    cur = f"{fam}/{t[1]}/nk{t[2]}/{tails[int(t[3])]}"
+                    out[cur] = {}
             continue
         if cur is None:
             continue
@@ -190,11 +200,11 @@ def _delta_ptxas(log: str) -> dict:
     return out
 
 
-def _built_delta_ptxas() -> dict:
-    """_delta_ptxas of the log of the library in build/kernels."""
+def _built_ptxas() -> dict:
+    """_ptxas of the log of the library in build/kernels."""
     from porousfreezethaw_tpu_torch.ops.cuda import build
     log = build.BUILD_DIR / (build.LIB_NAME + ".log")
-    return _delta_ptxas(log.read_text()) if log.exists() else {}
+    return _ptxas(log.read_text()) if log.exists() else {}
 
 
 # --------------------------------------------------------------------------
@@ -495,10 +505,52 @@ def phase_kernels(dev) -> dict:
                    + (", one attempt = 5 launches"
                       if kern == "fused_attempt" else ", per launch")
                    + TIMED_BY))
-    for kern in ("delta_g", "delta_g_dy"):
-        out[kern]["ptxas"] = _delta_row_ptxas(kern)
+    for kern in out:
+        out[kern]["ptxas"] = _row_ptxas(kern)
         out[kern]["copy_ms"] = _copy_ms(out[kern]["bound_ms"], dev)
+    emit("delta_digest", sha256=_delta_digest(dev))
     return out
+
+
+def _delta_digest(dev) -> str:
+    """sha256 of the delta kernels' outputs (K2, K2', and K2s on a z4 shard
+    with and without the Dirichlet top; every tail, calc modes 0/1/2/10/11)
+    on seeded inputs at MR and at the odd shape, with the eps max of each
+    tail.  It uses only the delta wrappers, so running it over another
+    tree's package compares the two builds of the kernel bit for bit."""
+    from porousfreezethaw_tpu_torch.core.grid import GridGeometry
+    from porousfreezethaw_tpu_torch.models.freezing import physics
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
+
+    _, prm = _mr_params()
+    digest = hashlib.sha256()
+    h, t = 0.05, prm.phase_switch_time - 0.025
+    D1 = physics.dirichlet_top(t, prm)
+    dDi = float(np.float32(physics.dirichlet_top(t + h, prm) - D1))
+    for shape in (MR_SHAPE, ODD_SHAPE):
+        geom = GridGeometry(0.03, 0.03, 0.06, shape[2], shape[1], shape[0])
+        w, ks = _inputs(shape, dev, np.random.default_rng(SEED + 7))
+        zq = shape[0] // 4
+        for mode in (0, 1, 2, 10, 11):
+            spec = st.StencilSpec.of(geom, prm, mode)
+            for cs, s5 in DELTA_CASES.values():
+                for tail in (("y", "dy") if s5 else ("y",)):
+                    kk = list(zip(cs, ks))
+                    outs = [st.delta_g(spec, h, D1, dDi, w, kk, stage5=s5,
+                                       emit=tail)]
+                    ws, kz, g = _shard_case(w, ks, len(cs), (zq, 2 * zq),
+                                            slice(None))
+                    for is_top in (False, True):
+                        outs.append(st.delta_g_shard(
+                            spec, h, D1, dDi, ws, list(zip(cs, kz)), g,
+                            is_top=is_top, stage5=s5, emit=tail))
+                    for o in outs:
+                        o = o if s5 else (o,)
+                        digest.update(o[0].cpu().numpy().tobytes())
+                        if s5:
+                            digest.update(torch.amax(o[1]).cpu().numpy()
+                                          .tobytes())
+    return digest.hexdigest()
 
 
 def _copy_ms(bound_ms, dev):
@@ -514,16 +566,21 @@ def _copy_ms(bound_ms, dev):
     return ms
 
 
-def _delta_row_ptxas(kern: str) -> dict:
-    """The ptxas report of the delta instantiations of the kernel summary
-    row ``kern`` (delta_g or delta_g_shard: the G and y_spec tails; *_dy:
-    the dy tail): all calc modes on a line of their own, those of the
-    timed calc mode 0 returned for the row."""
-    tails = ("dy",) if kern.endswith("_dy") else ("G", "y")
-    mine = {k: v for k, v in _built_delta_ptxas().items()
-            if k.split("/")[2] in tails}
-    emit("delta_ptxas", kernel=kern, instantiations=mine)
-    return {k: v for k, v in mine.items() if k.startswith("0/")}
+def _row_ptxas(kern: str) -> dict:
+    """The ptxas report of the instantiations of the kernel summary row
+    ``kern``: the stage kernel's for K1, K1s and K3 (one body), the
+    attempt kernel's for K4, the delta kernel's G and y_spec tails for
+    delta_g and delta_g_shard and its dy tail for the *_dy rows; all calc
+    modes on a line of their own, those of the timed calc mode 0 returned
+    for the row."""
+    fam = ("delta_g" if kern.startswith("delta_g")
+           else "fused_attempt" if kern == "fused_attempt" else "fused_stage")
+    tails = (("dy",) if kern.endswith("_dy") else ("G", "y")
+             if fam == "delta_g" else ("K", "y"))
+    mine = {k: v for k, v in _built_ptxas().items()
+            if k.split("/")[0] == fam and k.split("/")[3] in tails}
+    emit("ptxas", kernel=kern, instantiations=mine)
+    return {k: v for k, v in mine.items() if k.split("/")[1] == "0"}
 
 
 # --------------------------------------------------------------------------
@@ -953,16 +1010,16 @@ def _mesh_kernels(dev):
               ((Z // 2, Z), slice(0, half + 1), (0, half, 0)),
               ((0, Z // 2), slice(half - 1, None), (1, half, half)))
     top = ((Z - zq, Z), slice(None), (0, MR_SHAPE[1], 0))
-    # at the edges of the delta kernel's tiles: a z4 shard of one own row;
-    # the top three planes (fewer than a chunk) with 13 own rows at the y
-    # chain end
+    # at the edges of the tiles: a z4 shard of one own row; the top three
+    # planes (fewer than a chunk; the interior pass is one plane) with 13
+    # own rows at the y chain end
     edges = (((zq, 2 * zq), slice(half - 1, half + 2), (1, 1, half), False),
              ((Z - 3, Z), slice(86, None), (1, 13, 87), True))
     for mode in (0, 1, 2):
         spec = st.StencilSpec.of(geom, prm, mode)
         for t in (prm.phase_switch_time - 0.5 * h,
                   prm.phase_switch_time + 1.0):
-            for planes, rows, window in shards:
+            for planes, rows, window in shards + tuple(e[:3] for e in edges):
                 for cs, s5 in STAGE_CASES.values():
                     ws, kk, g = _shard_case(w, ks, len(cs), planes, rows)
                     kk = list(zip(cs, kk))
@@ -1078,8 +1135,9 @@ def _mesh_bitwise(dev):
 
 def _mesh_times(dev):
     """Kernel and plain times of one z4 shard launch at MR (zl = 50), beside
-    the bytes bound of the launch; (ms, plain_ms, bound, bytes) by
-    kernel."""
+    the bytes bound of the launch: (ms, plain_ms, bound, bytes, device_ms,
+    L2-cold device_ms) by kernel; and the device ms of K3's interior and
+    edge passes apart and of one launch's floor."""
     from porousfreezethaw_tpu_torch.core.grid import GridGeometry
     from porousfreezethaw_tpu_torch.models.freezing import physics
     from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
@@ -1107,6 +1165,17 @@ def _mesh_times(dev):
                  prev=(prev,))
     cases["fused_stage_split"] = [(split, _shard_cost(STAGE_OPS, ws0, 0, ny,
                                                       False))]
+    # K3's two passes on their own, and one launch's floor: a kernel that
+    # writes one float
+    prev0 = st.fused_stage_shard(spec, t, h, ws0, [], None, window=win,
+                                 part="interior")
+    one = torch.empty(1, device=dev)
+    passes = {"interior": lambda: st.fused_stage_shard(
+                  spec, t, h, ws0, [], None, window=win, part="interior"),
+              "edge": lambda: st.fused_stage_shard(
+                  spec, t, h, ws0, [], g0, window=win, part="edge",
+                  prev=(prev0,)),
+              "launch_floor": lambda: one.fill_(0.0)}
     cases["delta_g_shard"] = []
     for cs, s5 in DELTA_CASES.values():
         ws, kk, g = _shard_case(w, ks, len(cs), planes, rows)
@@ -1155,6 +1224,9 @@ def _mesh_times(dev):
         timing[impl] = row
         emit("mesh_kernel_times", impl=impl,
              shard=[zq] + list(MR_SHAPE[1:]), ms=row)
+    split_ms = {k: _queued_ms(f, 10) for k, f in passes.items()}
+    emit("mesh_kernel_times", impl="kernel_device_split",
+         shard=[zq] + list(MR_SHAPE[1:]), ms=split_ms)
     cold_ms = float(np.mean([_queued_ms(lambda c=c: c(st.delta_g_shard),
                                         2 * COLD_SETS) for c in cold]))
     emit("mesh_kernel_times", impl="kernel_device_l2_cold",
@@ -1170,7 +1242,7 @@ def _mesh_times(dev):
                      _bound(nbytes, ops), nbytes,
                      timing["kernel_device"][kern],
                      cold_ms if kern == "delta_g_shard" else None)
-    return out
+    return out, split_ms
 
 
 def _queued_ms(fn, reps):
@@ -1403,7 +1475,7 @@ def phase_mesh(dev):
 
     stats = _mesh_kernels(dev)
     _mesh_bitwise(dev)
-    times = _mesh_times(dev)
+    times, split_ms = _mesh_times(dev)
     _mesh_solves(dev)
     launches = _mesh_goldens(dev)
     launches["fused_stage_shard"] = _mesh_bench(dev)
@@ -1437,8 +1509,12 @@ def phase_mesh(dev):
             timed=f"{timed} on one z4 shard of {MR_SHAPE} "
                   f"({MR_SHAPE[0] // 4} planes), {nbytes / 1e6:.1f} MB per "
                   f"launch{TIMED_BY}")
-    for kern in ("delta_g_shard", "delta_g_shard_dy"):
-        out[kern]["ptxas"] = _delta_row_ptxas(kern)
+    for kern in out:
+        out[kern]["ptxas"] = _row_ptxas(kern)
+    out["fused_stage_split"].update(
+        device_ms_interior=split_ms["interior"],
+        device_ms_edge=split_ms["edge"],
+        launch_floor_ms=split_ms["launch_floor"])
     cold = times["delta_g_shard"][5]
     out["delta_g_shard"].update(
         device_ms_l2_cold=cold,

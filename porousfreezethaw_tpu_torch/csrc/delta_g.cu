@@ -49,19 +49,11 @@
 // bytes do.  The design therefore spends as few instructions as it can on
 // moving data, and keeps every lane busy:
 //
-// * One block per (x, y) tile of TILE_X x TILE_Y own points, one thread per
-//   point, marching a chunk of planes; the chunk is chosen at launch so that
-//   the blocks fill the card in whole waves (delta_grid).
-// * Each plane's rows of raw inputs over the tile and its one-point x/y
-//   halo are copied to shared memory with cp.async in whole chunks of 16
-//   bytes (8 or 4 where the rows are not 16-byte aligned, as at X = 50),
-//   the 16-byte copies through L2 only: each element is read from device
-//   memory once per plane, apart from the halo.  The input rows follow the
-//   y mirror, decided on the global row; a tile cell past the x edge reads
-//   the edge's column, so the compute needs no boundary case.
-// * A ring of RING raw planes: RING - 1 planes are in flight while the
-//   block assembles one and computes the one before it; one barrier per
-//   plane.
+// * The tile engine of tile.cuh: one block per tile of 50 x 10 own points,
+//   one thread per point, marching a chunk of planes sized so that the
+//   blocks fill the card in whole waves; each plane's raw input rows over
+//   the tile and its halo copied to shared memory with cp.async (16, 8 or 4
+//   bytes), a ring of RING planes in flight, one barrier per plane.
 // * Each thread assembles (u, p, gl, a, b) of its own point once per plane
 //   (the first threads also a halo cell) into shared memory, for two
 //   planes, z and z+1; it reads its four in-plane neighbours from there and
@@ -72,7 +64,7 @@
 //   unrolled without guards.
 //
 // On the H100 this runs at about 43% of the bytes bound at MR (PERF.md).
-#include "freezing.cuh"
+#include "tile.cuh"
 
 namespace pft {
 
@@ -104,8 +96,10 @@ __device__ __forceinline__ float fmul(float a, float b) {
 template <int MODE>
 constexpr bool uncontracted = MODE == SIGMAP || MODE == SIGMAP_FROZEN_U;
 
-constexpr int RAW = 9;     // raw planes: w's (u, p, gl), then each K's (u, p)
 constexpr int NPT = 5;     // assembled planes: u, p, gl, a, b
+// raw planes in flight: RING - 1 while a plane is computed
+constexpr int RING = 3;
+static_assert(RING >= 3, "bad ring");
 
 struct DeltaArgs {
     const float* plane[RAW];  // the raw input planes at z = 0: w's u, p, gl
@@ -121,56 +115,8 @@ struct DeltaArgs {
     int tz;                // planes per block (the chunk)
 };
 
-// The tile of own points of one block (x by y) and the depth of the ring of
-// raw planes in flight.  50 x 10 fills every lane at the grids' widths of
-// 50, 100 and 200, and was the fastest of the tiles compared at MR, LR and
-// on a z4 shard of MR (PERF.md).
-constexpr int TILE_X = 50, TILE_Y = 10;
-constexpr int RING = 3;
-constexpr int TILE_POINTS = TILE_X * TILE_Y;
-constexpr int TILE_THREADS = (TILE_POINTS + 31) / 32 * 32;
-// the blocks an SM should hold: ptxas keeps a thread's registers to 64
-constexpr int BLOCKS_PER_SM = TILE_THREADS < 1024 ? 1024 / TILE_THREADS : 1;
-constexpr int HALO_X = TILE_X + 2;                  // the tile with its halo
-constexpr int ROWS = TILE_Y + 2;
-constexpr int HALO_CELLS = HALO_X * ROWS;
-constexpr int HALO_RING = HALO_CELLS - TILE_POINTS; // cells around the tile
-// a raw row: the tile's HALO_X columns from a start aligned down to 4
-// floats, so that whole 16-byte chunks of a row are copied
-constexpr int PITCH = (HALO_X + 3 + 3) / 4 * 4;
-constexpr int RAW_PLANE = ROWS * PITCH;
-static_assert(RING >= 3 && HALO_RING <= TILE_THREADS, "bad delta tile");
-
-// dynamic shared memory of a launch with nk inputs: RING raw planes of
-// 3 + 2 nk rows blocks, two assembled planes of NPT values per tile cell
 constexpr int delta_smem_bytes(int nk) {
-    return 4 * (RING * (3 + 2 * nk) * RAW_PLANE + 2 * NPT * HALO_CELLS);
-}
-
-
-// cp.async of VEC floats from device to shared memory (16 bytes through L2
-// only), its commit and wait
-template <int VEC>
-__device__ __forceinline__ void copy_async(float* dst, const float* src) {
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    if constexpr (VEC == 4)
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                     :: "r"(d), "l"(src) : "memory");
-    else if constexpr (VEC == 2)
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
-                     :: "r"(d), "l"(src) : "memory");
-    else
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-                     :: "r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void copy_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// waits until at most N of this thread's newest groups of copies are
-// pending
-template <int N>
-__device__ __forceinline__ void copy_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+    return tile_smem_bytes<NPT, RING>(nk);
 }
 
 // (u, p, gl) and the increment (a, b) of the raw values r of one point.
@@ -401,111 +347,13 @@ __device__ __forceinline__ void rhs_delta_point(
          / fmul<RN>(cp_n, cp_o);
 }
 
-// Where a block's planes come from and go to.  A raw plane in shared
-// memory holds the ROWS rows of the tile with its halo; a row holds the
-// floats [xa, xa + PITCH) of an input row, xa = x0 - 1 aligned down to a
-// multiple of the copy width.  The input rows follow the y mirror, decided
-// on the global row; the x mirror is left to the readers: a tile cell past
-// the grid's edge reads the edge's column.  Thread t < TILE_POINTS owns
-// the tile cell of point t; thread t < HALO_RING also assembles halo cell t
-// of the ring around the tile (the row below, the row above, the left
-// column, the right column).
-struct TileMap {
-    int xa;                // the global x of raw column 0
-    int ctr, halo;         // tile cells of this thread (halo < 0: none)
-    int ctr_raw, halo_raw; // their places in a raw plane
-};
-
-__device__ __forceinline__ int raw_cell(int X, int x0, int xa, int cell) {
-    const int r = cell / HALO_X;
-    const int xs = min(max(x0 - 1 + cell - r * HALO_X, 0), X - 1);
-    return r * PITCH + xs - xa;
-}
-
-__device__ __forceinline__ TileMap tile_map(int X, int x0, int vec) {
-    const int t = threadIdx.x;
-    TileMap m{((x0 - 1 + vec) / vec - 1) * vec, 0, -1, 0, 0};
-    if (t < TILE_POINTS)
-        m.ctr = (t / TILE_X + 1) * HALO_X + t % TILE_X + 1;
-    if (t < HALO_RING) {
-        constexpr int LEFT = 2 * HALO_X, RIGHT = LEFT + TILE_Y;
-        m.halo = t < HALO_X ? t
-            : t < LEFT ? (TILE_Y + 1) * HALO_X + t - HALO_X
-            : t < RIGHT ? (t - LEFT + 1) * HALO_X
-            : (t - RIGHT + 1) * HALO_X + HALO_X - 1;
-        m.halo_raw = raw_cell(X, x0, m.xa, m.halo);
-    }
-    m.ctr_raw = raw_cell(X, x0, m.xa, m.ctr);
-    return m;
-}
-
-// The offset within an input plane of the row of tile row r: own row yo0 -
-// 1 + r, clamped to the shard's rows and its neighbour rows, the mirror
-// decided on the global row.
-__device__ __forceinline__ int row_offset(const ShardArgs& s, int X, int yo0,
-                                          int r) {
-    const int yc = min(max(yo0 - 1 + r, -1), s.Yl);     // own row
-    const int gy = min(max(s.y0 + yc, 0), s.Yg - 1);    // global row
-    return (s.r0 + gy - s.y0) * X;
-}
-
-// Starts the copies of rows [r0, r0 + rows) of one plane into raw, VEC
-// floats at a time: the raw planes q of the plane are at base + q *
-// qstride (a ghost stack), or at a.plane[q] + zoff.  Whole chunks of a row
-// lie inside [0, X) or outside it, as VEC divides X; those outside, or
-// past the tile's last column, are not copied.
-template <int NK, int VEC>
-__device__ __forceinline__ void copy_rows(const DeltaArgs& a,
-                                          const float* base, int64_t qstride,
-                                          int64_t zoff, const int* rowoff,
-                                          int xa, int xlim, int r0, int rows,
-                                          float* raw) {
-    constexpr int NR = 3 + 2 * NK, CHUNKS = PITCH / VEC;
-#pragma unroll 1
-    for (int i = threadIdx.x; i < rows * CHUNKS; i += TILE_THREADS) {
-        const int r = r0 + i / CHUNKS, j = i % CHUNKS;
-        const int x = xa + j * VEC;
-        if (x < 0 || x >= xlim) continue;
-        const int64_t off = zoff + rowoff[r] + x;
-        float* dst = raw + r * PITCH + j * VEC;
-#pragma unroll
-        for (int q = 0; q < NR; ++q)
-            copy_async<VEC>(dst + q * RAW_PLANE,
-                            (base ? base + q * qstride : a.plane[q]) + off);
-    }
-}
-
-// Starts the copies of plane pz (z0 - 1 <= pz <= z1) into raw and commits
-// them as one group: all ROWS rows of an own plane, the tile's own rows of
-// the planes below and above the chunk.  Below plane 0 and above plane Z-1
-// the plane is the shard's ghost stack (3 + 2 NK, Y, X), or the mirror.
-template <int NK>
-__device__ __forceinline__ void stage_plane(const DeltaArgs& a,
-                                            const ShardArgs& s,
-                                            const int* rowoff, int xa,
-                                            int xlim, int pz, bool whole,
-                                            float* raw) {
-    const int64_t P = a.g.plane();
-    const float* ghost = pz < 0 ? s.glo : pz >= a.g.Z ? s.ghi : nullptr;
-    const int64_t zoff = ghost ? 0 : min(max(pz, 0), a.g.Z - 1) * P;
-    const int r0 = whole ? 0 : 1, rows = whole ? ROWS : TILE_Y;
-    if (a.vec == 4)
-        copy_rows<NK, 4>(a, ghost, P, zoff, rowoff, xa, xlim, r0, rows, raw);
-    else if (a.vec == 2)
-        copy_rows<NK, 2>(a, ghost, P, zoff, rowoff, xa, xlim, r0, rows, raw);
-    else
-        copy_rows<NK, 1>(a, ghost, P, zoff, rowoff, xa, xlim, r0, rows, raw);
-    copy_commit();
-}
-
 // The point at place i of the raw buffer raw; its raw tail inputs (w's u,
 // p, then the (u, p) of K1, G3 and G4) go to tl when TL.
 template <int NK, bool TL = false>
 __device__ __forceinline__ DPt raw_point(const DeltaArgs& a, const float* raw,
                                          int i, float* tl = nullptr) {
     float r[3 + 2 * NK];
-#pragma unroll
-    for (int q = 0; q < 3 + 2 * NK; ++q) r[q] = raw[q * RAW_PLANE + i];
+    raw_values<NK>(raw, i, r);
     if constexpr (TL) {
         tl[0] = r[0];
         tl[1] = r[1];
@@ -645,76 +493,17 @@ delta_g_kernel(const Consts c, const DeltaArgs a, const ShardArgs s) {
     if (STAGE5) block_max_store<TILE_THREADS>(mx, a.eps);
 }
 
-// The launch grid: the tiles of own points in x and y, and the chunks of
-// tz planes in z.  All blocks of a launch should run in one wave, or in
-// whole waves: a block's time is about its planes plus one (the pipeline's
-// start and the planes around the chunk), so the chunk count minimises
-// waves x (tz + 1) over the card's resident blocks of this kernel.
-struct DeltaGrid {
-    dim3 grid;
-    int tz;
-};
-
-template <int MODE, int NK, int TAIL>
-static int delta_grid(int Z, int Yl, int X, DeltaGrid& out) {
-    constexpr int bytes = delta_smem_bytes(NK);
-    constexpr int MAX_DEVICES = 64;
-    static int resident[MAX_DEVICES] = {};      // blocks on the card
-    int dev = 0, per_sm = 0, sms = 0;
-    cudaError_t rc = cudaGetDevice(&dev);
-    if (rc == cudaSuccess && (dev >= MAX_DEVICES || !resident[dev])) {
-        // the most shared memory an SM has, so that as many blocks are
-        // resident as the occupancy query counts; above 48 KB a block gets
-        // it only after opting in
-        rc = cudaFuncSetAttribute(
-            delta_g_kernel<MODE, NK, TAIL>,
-            cudaFuncAttributePreferredSharedMemoryCarveout,
-            cudaSharedmemCarveoutMaxShared);
-        if (rc == cudaSuccess && bytes > 48 * 1024)
-            rc = cudaFuncSetAttribute(
-                delta_g_kernel<MODE, NK, TAIL>,
-                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-        if (rc == cudaSuccess)
-            rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &per_sm, delta_g_kernel<MODE, NK, TAIL>, TILE_THREADS,
-                bytes);
-        if (rc == cudaSuccess)
-            rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                        dev);
-        if (rc == cudaSuccess && dev < MAX_DEVICES)
-            resident[dev] = max(per_sm * sms, 1);
-    }
-    if (rc != cudaSuccess) return (int)rc;
-    const int cap = dev < MAX_DEVICES ? resident[dev] : max(per_sm * sms, 1);
-    const long long tiles = (long long)((X + TILE_X - 1) / TILE_X)
-                            * ((Yl + TILE_Y - 1) / TILE_Y);
-    // for each wave count, the most chunks that fit it
-    int best = 1;
-    long long best_cost = -1;
-    for (long long w = (tiles + cap - 1) / cap; w * cap < tiles * Z + cap;
-         ++w) {
-        const int nz = (int)min((long long)Z, w * cap / tiles);
-        const long long cost = (tiles * nz + cap - 1) / cap
-                               * ((Z + nz - 1) / nz + 1);
-        if (best_cost < 0 || cost < best_cost) {
-            best = nz;
-            best_cost = cost;
-        }
-    }
-    out.tz = (Z + best - 1) / best;
-    out.grid = dim3((X + TILE_X - 1) / TILE_X, (Yl + TILE_Y - 1) / TILE_Y,
-                    (Z + out.tz - 1) / out.tz);
-    return 0;
-}
-
 // Computes the grid of a launch; with out, only stores it there, else
 // launches, when a tail's grid has no more blocks than eps has slots.
 template <int MODE, int NK, int TAIL>
 static int launch_kernel(const Consts& c, DeltaArgs a, const ShardArgs& sa,
-                         cudaStream_t s, DeltaGrid* out) {
-    DeltaGrid dg;
-    const int rc = delta_grid<MODE, NK, TAIL>(a.g.Z, sa.Yl, a.g.X, dg);
+                         cudaStream_t s, TileGrid* out) {
+    static int resident[MAX_DEVICES] = {};      // blocks on the card
+    int cap = 0;
+    const int rc = resident_blocks(delta_g_kernel<MODE, NK, TAIL>,
+                                   delta_smem_bytes(NK), resident, cap);
     if (rc) return rc;
+    const TileGrid dg = tile_grid(cap, a.g.Z, sa.Yl, a.g.X);
     if (out) {
         *out = dg;
         return 0;
@@ -732,7 +521,7 @@ static int launch_kernel(const Consts& c, DeltaArgs a, const ShardArgs& sa,
 template <int MODE>
 static int launch_mode(const Consts& c, const DeltaArgs& a,
                        const ShardArgs& sa, int nk, int tail, cudaStream_t s,
-                       DeltaGrid* out) {
+                       TileGrid* out) {
     if (tail == 2) return launch_kernel<MODE, 3, 2>(c, a, sa, s, out);
     if (tail == 1) return launch_kernel<MODE, 3, 1>(c, a, sa, s, out);
     if (nk == 1) return launch_kernel<MODE, 1, 0>(c, a, sa, s, out);
@@ -742,7 +531,7 @@ static int launch_mode(const Consts& c, const DeltaArgs& a,
 
 static int launch(const Consts& c, const DeltaArgs& a, const ShardArgs& sa,
                   int mode, int nk, int tail, cudaStream_t s,
-                  DeltaGrid* out = nullptr) {
+                  TileGrid* out = nullptr) {
     switch (mode) {
         case GRADP: return launch_mode<GRADP>(c, a, sa, nk, tail, s, out);
         case SIGMAP: return launch_mode<SIGMAP>(c, a, sa, nk, tail, s, out);
@@ -771,12 +560,7 @@ static int delta_args(DeltaArgs& a, int nk, int tail, float h, float D1,
         a.plane[q] = q < 3 ? w + q * V
             : q < 3 + 2 * nk ? k[(q - 3) / 2] + ((q - 3) % 2) * V : nullptr;
     for (int q = 0; q < 3; ++q) a.hc[q] = q < nk ? h * coefs[q] : 0.0f;
-    // the widest copy that every input row allows
-    uintptr_t addr = 0;
-    for (int q = 0; q < 3 + 2 * nk; ++q)
-        addr |= reinterpret_cast<uintptr_t>(a.plane[q]);
-    a.vec = X % 4 == 0 && addr % 16 == 0 ? 4
-        : X % 2 == 0 && addr % 8 == 0 ? 2 : 1;
+    a.vec = copy_width(a.plane, 3 + 2 * nk, X);
     a.h = h;
     a.D1 = D1;
     a.dDi = dDi;
@@ -808,9 +592,9 @@ int pft_delta_g(const float* consts, int mode, int nk, int tail, float h,
     int bad = delta_args(a, nk, tail, h, D1, dDi, coefs, w, k0, k1, k2, out,
                          eps, eps_n, Z, Y, X);
     if (bad) return bad;
-    const ShardArgs whole{nullptr, nullptr, PART_ALL, 0, Y, 0, Y, 1};
-    return launch(*reinterpret_cast<const Consts*>(consts), a, whole, mode,
-                  nk, tail, static_cast<cudaStream_t>(stream));
+    return launch(*reinterpret_cast<const Consts*>(consts), a,
+                  whole_grid(Y), mode, nk, tail,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // K2s: the delta stage on one shard, every tail.  Shapes and the y window
@@ -829,9 +613,7 @@ int pft_delta_g_shard(const float* consts, int mode, int nk, int tail,
     ShardArgs sa{glo, ghi, PART_ALL, r0, Yl, y0, Yg, is_top};
     bad = shard_check(sa, Z, Y);
     if (bad) return bad;
-    const uintptr_t ghosts = reinterpret_cast<uintptr_t>(glo)
-                             | reinterpret_cast<uintptr_t>(ghi);
-    while (a.vec > 1 && ghosts % (4 * a.vec)) a.vec /= 2;
+    a.vec = ghost_width(a.vec, glo, ghi);
     return launch(*reinterpret_cast<const Consts*>(consts), a, sa, mode,
                   nk, tail, static_cast<cudaStream_t>(stream));
 }
@@ -843,9 +625,9 @@ long long pft_delta_eps_blocks(int mode, int tail, int Z, int Yl, int X) {
     if (tail < 1 || tail > 2 || Z < 1 || Yl < 1 || X < 1) return -1;
     DeltaArgs a{};
     a.g = Grid{Z, Yl, X};
-    ShardArgs sa{nullptr, nullptr, PART_ALL, 0, Yl, 0, Yl, 1};
-    DeltaGrid dg;
-    if (launch(Consts{}, a, sa, mode, 3, tail, nullptr, &dg)) return -1;
+    TileGrid dg;
+    if (launch(Consts{}, a, whole_grid(Yl), mode, 3, tail, nullptr, &dg))
+        return -1;
     return (long long)dg.grid.x * dg.grid.y * dg.grid.z;
 }
 

@@ -1,27 +1,18 @@
 // Shared device code of the freezing-model stencil kernels
 // (fused_stage.cu, fused_attempt.cu, delta_g.cu): the host-computed
-// constants, the cell-local material blends, the launch geometry and the
-// NaN-propagating block max.
+// constants, the cell-local material blends, the shard options and the
+// NaN-propagating block max.  How a block's planes reach shared memory and
+// how a launch's grid is sized is the tile engine of tile.cuh.
 //
 // Layout: every field is a contiguous float32 array (nv, Z, Y, X) with x
-// fastest; plane = Y*X, variable stride = Z*Y*X.  One thread owns one
-// (x, y) column and marches over ZCHUNK planes of it, keeping the z-1, z and
-// z+1 values of the combined fields in registers; the four in-plane
-// neighbours are read from global memory (L1/L2 hits for the most part).
-// Mirror boundaries are clamped indices; the temperature's z-top neighbour
-// is a Dirichlet ghost.
+// fastest; plane = Y*X, variable stride = Z*Y*X.  Mirror boundaries are
+// clamped indices; the temperature's z-top neighbour is a Dirichlet ghost.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace pft {
-
-// Block shape and z-chunk; the host side sizes the eps-partials buffer with
-// pft_eps_blocks(), which uses the same numbers.
-constexpr int BX = 32;
-constexpr int BY = 4;
-constexpr int ZCHUNK = 8;
 
 // Constants computed in float64 on the host (ops/cuda/stencil.py,
 // StencilSpec.packed) and rounded once to float32.  The order of the fields
@@ -80,50 +71,33 @@ __device__ __forceinline__ float sshape(const Consts& c, float x) {
     return x <= c.p_eps0 ? 0.0f : (x >= c.p_eps1 ? 1.0f : mid);
 }
 
-// Launch geometry shared by the kernels.
+// The shape of a launch's input planes.
 struct Grid {
     int Z, Y, X;
     __host__ __device__ int64_t plane() const { return (int64_t)Y * X; }
     __host__ __device__ int64_t var() const { return (int64_t)Z * Y * X; }
 };
 
-inline dim3 launch_grid(int Z, int Y, int X) {
-    return dim3((X + BX - 1) / BX, (Y + BY - 1) / BY,
-                (Z + ZCHUNK - 1) / ZCHUNK);
-}
-
-// The shard options of the stage and delta kernels (SHARD in stage.cuh and
-// delta_g.cu): ghost stacks, the z range and the y window.
+// The shard options of the stage and delta kernels (stage.cuh, delta_g.cu):
+// ghost stacks, the z range and the y window.  A single-device launch is a
+// shard that holds the whole grid: no ghost stacks, own rows [0, Y), is_top.
 struct ShardArgs {
     const float* glo;      // ghost stack below plane 0, (3 + 2 nk, Y, X):
     const float* ghi;      // w's 3 planes, then each K's (u, p); above Z-1
     int part;              // planes: 0 all, 1 interior [1, Z-1), 2 edge 0, Z-1
+                           // (stage.cuh; the delta kernel takes all)
     int r0, Yl;            // own rows [r0, r0 + Yl) of the Y input rows
     int y0, Yg;            // global row of own row 0, global Y
-    int is_top;            // delta_g.cu: the shard holds the global top
+    int is_top;            // the Dirichlet overwrites of the plane above Z-1
+                           // (the stage's shard entry passes 0: its ghi
+                           // holds the Dirichlet top of the top shard)
 };
 
 constexpr int PART_ALL = 0, PART_INTERIOR = 1, PART_EDGE = 2;
 
-// The planes [z_begin, z_end) of block z-index bz for a launch over part;
-// the edge part has two blocks in z, plane 0 and plane Z-1.
-__device__ __forceinline__ void part_planes(int part, int Z, int bz,
-                                            int& z_begin, int& z_end) {
-    if (part == PART_EDGE) {
-        z_begin = bz == 0 ? 0 : Z - 1;
-        z_end = z_begin + 1;
-        return;
-    }
-    const int lo = part == PART_INTERIOR ? 1 : 0;
-    const int hi = part == PART_INTERIOR ? Z - 1 : Z;
-    z_begin = lo + bz * ZCHUNK;
-    z_end = min(z_begin + ZCHUNK, hi);
-}
-
-inline dim3 shard_grid(int part, int Z, int Yl, int X) {
-    dim3 g = launch_grid(part == PART_INTERIOR ? Z - 2 : Z, Yl, X);
-    if (part == PART_EDGE) g.z = 2;
-    return g;
+// The ShardArgs of a single-device launch over Y rows
+inline ShardArgs whole_grid(int Y) {
+    return ShardArgs{nullptr, nullptr, PART_ALL, 0, Y, 0, Y, 1};
 }
 
 // Checks the shard options against the input shape (Z, Y, X); returns 0 or
@@ -142,7 +116,7 @@ inline int shard_check(const ShardArgs& s, int Z, int Y) {
 
 // NaN-propagating max over the block of THREADS threads (a multiple of 32);
 // thread 0 writes it to out[block].
-template <int THREADS = BX * BY>
+template <int THREADS>
 __device__ __forceinline__ void block_max_store(float m, float* out) {
     __shared__ float warp_max[THREADS / 32];
     for (int off = 16; off > 0; off >>= 1)

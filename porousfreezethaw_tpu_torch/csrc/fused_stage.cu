@@ -6,62 +6,87 @@
 // is stage_body of stage.cuh: K = f(t_s, w + sum_a (h*c_a) K_a), or with
 // STAGE5 the Merson tail (y_spec and the eps partials).
 //
-// What bounds it on Hopper: memory traffic.  A classic attempt moves about
-// 47 float32 single-variable planes (w read per stage, every K input, the K
-// outputs, y_spec) against a few hundred flops per cell, far below the
-// card's flop/byte balance.  This first design keeps the traffic to one
-// pass over each input per stage: one thread per (x, y) column, x fastest
-// so a warp loads 128 contiguous bytes, marching ZCHUNK planes with the
-// z-1/z/z+1 combined values held in registers; in-plane neighbours are
-// recomputed from global memory and served mostly by L1/L2.  Shared-memory
-// tiling, TMA and whole-attempt fusion are later work.
+// One kernel serves both entries.  The shard entry pft_fused_stage_shard is
+// K1s, the stage on one shard of a device mesh (Pallas shard_ghosts and
+// plane_rows/row_window, stencil.py:401-465, :697-703), and K3, its interior
+// and edge parts (make_fused_stage -> build_call, stencil.py:494-660,
+// pallas_call at :642): the interior pass covers planes [1, Z-1) and reads
+// no ghost, so the halo copies overlap it; the edge pass writes planes 0
+// and Z-1 into the interior pass's output and its eps partials into the
+// slots after the interior's.  The single-device entry pft_fused_stage (K1)
+// is the same kernel on a shard that holds the whole grid (stage.cuh), so
+// ptxas compiles one body for K1, K1s and K3, and a sharded stage equals
+// the single-device stage bit for bit.
 //
-// The shard entry pft_fused_stage_shard is stage_body with SHARD (see
-// stage.cuh): K1s, the stage on one shard of a device mesh (Pallas
-// shard_ghosts and plane_rows/row_window, stencil.py:401-465, :697-703), and
-// K3, its interior and edge parts (make_fused_stage -> build_call,
-// stencil.py:494-660, pallas_call at :642): the interior pass covers planes
-// [1, Z-1) and reads no ghost, so the halo copies overlap it; the edge pass
-// writes planes 0 and Z-1 into the interior pass's output and its eps
-// partials into the slots after the interior's.  The single-device
-// instantiation above is unchanged.  The same memory-bound design; a shard
-// of zl planes reads its nk+1 inputs plus 2 ghost planes of each.
+// What bounds it on Hopper: the bytes, 3 + 2 nk planes read and 2 written
+// per launch (40 MB at MR for nk = 0, 0.012 ms at 3.35 TB/s; a shard's
+// launch also reads the 2 ghost planes of each input), against about 160
+// float32 operations per point.  The design (stage.cuh, tile.cuh) reads
+// each input element from device memory once per plane, apart from the
+// tile's halo and the planes around a chunk, and sizes the grid to whole
+// waves of the card.  At nk = 0, K1's launch on the main path, the cost per
+// point that does not scale with the bytes dominates: about 2.1x a tensor
+// copy of its bytes on the H100 (stage.cuh, PERF.md).  K3's edge pass, two
+// planes, takes about twice one launch's floor.
 #include "stage.cuh"
 
 namespace pft {
 
-template <int MODE, bool STAGE5>
-__global__ void __launch_bounds__(BX * BY)
-fused_stage_kernel(const Consts c, const StageArgs a) {
-    stage_body<MODE, STAGE5>(c, a);
+// TAIL: 0 = K, 1 = the stage-5 tail (y_spec and eps); the tail takes
+// NK = 3 (K1, K3, K4).
+template <int MODE, int NK, int TAIL>
+__global__ void __launch_bounds__(TILE_THREADS, BLOCKS_PER_SM)
+fused_stage_kernel(const Consts c, const StageArgs a, const ShardArgs s) {
+    stage_body<MODE, NK, TAIL == 1>(c, a, s);
+}
+
+// Computes the grid of a launch; with out, only stores it there, else
+// launches, when a tail's grid has no more blocks than eps has slots.
+template <int MODE, int NK, int TAIL>
+static int launch_kernel(const Consts& c, StageArgs a, const ShardArgs& sa,
+                         cudaStream_t s, TileGrid* out) {
+    static int resident[MAX_DEVICES] = {};      // blocks on the card
+    int cap = 0;
+    const int rc = resident_blocks(fused_stage_kernel<MODE, NK, TAIL>,
+                                   stage_smem_bytes(NK), resident, cap);
+    if (rc) return rc;
+    const TileGrid sg = stage_grid(cap, sa.part, a.g.Z, sa.Yl, a.g.X);
+    if (out) {
+        *out = sg;
+        return 0;
+    }
+    if (TAIL && (int64_t)sg.grid.x * sg.grid.y * sg.grid.z > a.eps_n)
+        return 1012;
+    a.tz = sg.tz;
+    fused_stage_kernel<MODE, NK, TAIL><<<sg.grid, TILE_THREADS,
+                                         stage_smem_bytes(NK), s>>>(c, a, sa);
+    return (int)cudaGetLastError();
 }
 
 template <int MODE>
-static void launch_mode(const Consts& c, const StageArgs& a, bool stage5,
-                        cudaStream_t s) {
-    dim3 grid = launch_grid(a.g.Z, a.g.Y, a.g.X), block(BX, BY);
-    if (stage5)
-        fused_stage_kernel<MODE, true><<<grid, block, 0, s>>>(c, a);
-    else
-        fused_stage_kernel<MODE, false><<<grid, block, 0, s>>>(c, a);
+static int launch_mode(const Consts& c, const StageArgs& a,
+                       const ShardArgs& sa, int nk, int tail, cudaStream_t s,
+                       TileGrid* out) {
+    if (tail) return launch_kernel<MODE, 3, 1>(c, a, sa, s, out);
+    if (nk == 0) return launch_kernel<MODE, 0, 0>(c, a, sa, s, out);
+    if (nk == 1) return launch_kernel<MODE, 1, 0>(c, a, sa, s, out);
+    if (nk == 2) return launch_kernel<MODE, 2, 0>(c, a, sa, s, out);
+    return launch_kernel<MODE, 3, 0>(c, a, sa, s, out);
 }
 
-template <int MODE, bool STAGE5>
-__global__ void __launch_bounds__(BX * BY)
-fused_stage_shard_kernel(const Consts c, const StageArgs a,
-                         const ShardArgs s) {
-    stage_body<MODE, STAGE5, true>(c, a, s);
-}
-
-template <int MODE>
-static void launch_shard_mode(const Consts& c, const StageArgs& a,
-                              const ShardArgs& sa, bool stage5,
-                              cudaStream_t s) {
-    dim3 grid = shard_grid(sa.part, a.g.Z, sa.Yl, a.g.X), block(BX, BY);
-    if (stage5)
-        fused_stage_shard_kernel<MODE, true><<<grid, block, 0, s>>>(c, a, sa);
-    else
-        fused_stage_shard_kernel<MODE, false><<<grid, block, 0, s>>>(c, a, sa);
+static int launch(const Consts& c, const StageArgs& a, const ShardArgs& sa,
+                  int mode, int nk, int tail, cudaStream_t s,
+                  TileGrid* out = nullptr) {
+    switch (mode) {
+        case GRADP: return launch_mode<GRADP>(c, a, sa, nk, tail, s, out);
+        case SIGMAP: return launch_mode<SIGMAP>(c, a, sa, nk, tail, s, out);
+        case TEMP: return launch_mode<TEMP>(c, a, sa, nk, tail, s, out);
+        case GRADP_FROZEN_U:
+            return launch_mode<GRADP_FROZEN_U>(c, a, sa, nk, tail, s, out);
+        case SIGMAP_FROZEN_U:
+            return launch_mode<SIGMAP_FROZEN_U>(c, a, sa, nk, tail, s, out);
+        default: return 1004;
+    }
 }
 
 }  // namespace pft
@@ -72,38 +97,26 @@ extern "C" {
 
 int pft_num_consts(void) { return NUM_CONSTS; }
 
-long long pft_eps_blocks(int Z, int Y, int X) {
-    dim3 g = launch_grid(Z, Y, X);
-    return (long long)g.x * g.y * g.z;
-}
-
 const char* pft_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 
 // K (or y_spec + eps partials with stage5) of one classic Merson stage.
 // consts and coefs are host arrays; every other pointer is device memory.
-// Returns cudaGetLastError() after the launch; 1000 + n for bad arguments.
+// eps has eps_n slots, pft_stage_eps_blocks of the launch.  Returns
+// cudaGetLastError() after the launch; 1000 + n for bad arguments (1012:
+// eps is too short for the launch's grid).
 int pft_fused_stage(const float* consts, int mode, int nk, int stage5,
                     float t, float h, const float* coefs, const float* w,
                     const float* k0, const float* k1, const float* k2,
                     float* out, float* eps, int Z, int Y, int X,
-                    void* stream) {
+                    void* stream, long long eps_n) {
     StageArgs a;
     int bad = stage_args(a, nk, stage5, t, h, coefs, w, k0, k1, k2, out,
-                         eps, Z, Y, X);
+                         eps, eps_n, Z, Y, X);
     if (bad) return bad;
-    Consts c = *reinterpret_cast<const Consts*>(consts);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (mode) {
-        case GRADP: launch_mode<GRADP>(c, a, stage5, s); break;
-        case SIGMAP: launch_mode<SIGMAP>(c, a, stage5, s); break;
-        case TEMP: launch_mode<TEMP>(c, a, stage5, s); break;
-        case GRADP_FROZEN_U: launch_mode<GRADP_FROZEN_U>(c, a, stage5, s); break;
-        case SIGMAP_FROZEN_U: launch_mode<SIGMAP_FROZEN_U>(c, a, stage5, s); break;
-        default: return 1004;
-    }
-    return (int)cudaGetLastError();
+    return launch(*reinterpret_cast<const Consts*>(consts), a, whole_grid(Y),
+                  mode, nk, stage5, static_cast<cudaStream_t>(stream));
 }
 
 // K1s/K3: the stage on one shard.  w and k* are (nv, Z, Y, X) with the
@@ -114,35 +127,36 @@ int pft_fused_stage_shard(const float* consts, int mode, int nk, int stage5,
                           float t, float h, const float* coefs,
                           const float* w, const float* k0, const float* k1,
                           const float* k2, float* out, float* eps, int Z,
-                          int Y, int X, void* stream, const float* glo,
-                          const float* ghi, int part, int r0, int Yl, int y0,
-                          int Yg) {
+                          int Y, int X, void* stream, long long eps_n,
+                          const float* glo, const float* ghi, int part,
+                          int r0, int Yl, int y0, int Yg) {
     StageArgs a;
     int bad = stage_args(a, nk, stage5, t, h, coefs, w, k0, k1, k2, out,
-                         eps, Z, Y, X);
+                         eps, eps_n, Z, Y, X);
     if (bad) return bad;
+    // the Dirichlet top of the top shard is in ghi
     ShardArgs sa{glo, ghi, part, r0, Yl, y0, Yg, 0};
     bad = shard_check(sa, Z, Y);
     if (bad) return bad;
-    Consts c = *reinterpret_cast<const Consts*>(consts);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (mode) {
-        case GRADP: launch_shard_mode<GRADP>(c, a, sa, stage5, s); break;
-        case SIGMAP: launch_shard_mode<SIGMAP>(c, a, sa, stage5, s); break;
-        case TEMP: launch_shard_mode<TEMP>(c, a, sa, stage5, s); break;
-        case GRADP_FROZEN_U:
-            launch_shard_mode<GRADP_FROZEN_U>(c, a, sa, stage5, s); break;
-        case SIGMAP_FROZEN_U:
-            launch_shard_mode<SIGMAP_FROZEN_U>(c, a, sa, stage5, s); break;
-        default: return 1004;
-    }
-    return (int)cudaGetLastError();
+    a.vec = ghost_width(a.vec, glo, ghi);
+    return launch(*reinterpret_cast<const Consts*>(consts), a, sa, mode, nk,
+                  stage5, static_cast<cudaStream_t>(stream));
 }
 
-// eps partial slots of one shard launch: the blocks of its grid
-long long pft_shard_eps_blocks(int part, int Z, int Yl, int X) {
-    dim3 g = shard_grid(part, Z, Yl, X);
-    return (long long)g.x * g.y * g.z;
+// eps partial slots of a stage-5 launch of either entry over part (0 all,
+// 1 interior, 2 edge) of Z planes and Yl own rows on the current device:
+// the blocks of its grid; -1 for bad arguments or a failed query.
+long long pft_stage_eps_blocks(int mode, int part, int Z, int Yl, int X) {
+    if (part < PART_ALL || part > PART_EDGE || Z < (part ? 3 : 1) || Yl < 1
+            || X < 1)
+        return -1;
+    StageArgs a{};
+    a.g = Grid{Z, Yl, X};
+    ShardArgs sa = whole_grid(Yl);
+    sa.part = part;
+    TileGrid sg;
+    if (launch(Consts{}, a, sa, mode, 3, 1, nullptr, &sg)) return -1;
+    return (long long)sg.grid.x * sg.grid.y * sg.grid.z;
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
 // The classic Merson stage of the freezing model, shared by fused_stage.cu
-// (K1: the stage on a plain state) and fused_attempt.cu (K4: the same stage
-// on one slot of a double-buffered state).  Both kernels instantiate
-// stage_body, so their arithmetic is the same code and their results agree
-// bit for bit.
+// (K1, K1s and K3: the stage on a plain state or a shard of it) and
+// fused_attempt.cu (K4: the same stage on one slot of a double-buffered
+// state).  Every kernel instantiates stage_body, so their arithmetic is the
+// same code and their results agree bit for bit.
 //
 //   K = f(t_s, aux),  aux = w + sum_a (h*c_a) K_a  over (u, p); gl static
 //
@@ -15,64 +15,113 @@
 // max of |0.2 K1 - 0.9 K3 + 0.8 K4 - 0.1 K5| per block (the host takes the
 // max over the partials).
 //
-// With SHARD the body runs on one shard of a device mesh (K1s and K3 of
-// fused_stage.cu, parallel/fused.py): the z neighbours below plane 0 and
-// above plane Z-1 come from caller-supplied ghost stacks of raw edge planes,
-// one per input, combined with the same arithmetic as the shard's own planes
-// (so a sharded stage equals the single-device stage bit for bit); the
-// chain-end boundaries, the Dirichlet top included, are in the ghost
-// content.  The inputs may carry ghost rows in y: the shard's own rows are
-// [r0, r0 + Yl) and the y mirror is decided on the global row y0 + row of
-// the global Y, so a chain-end ghost row is never read.  The output and the
-// eps partials cover the own rows only, over the planes of ``part``.
+// The body runs on one shard of a device mesh (parallel/fused.py): the z
+// neighbours below plane 0 and above plane Z-1 come from caller-supplied
+// ghost stacks of raw edge planes, one per input, combined with the same
+// arithmetic as the shard's own planes (so a sharded stage equals the
+// single-device stage bit for bit); the chain-end boundaries, the Dirichlet
+// top included, are in the ghost content.  The inputs may carry ghost rows
+// in y: the shard's own rows are [r0, r0 + Yl) and the y mirror is decided
+// on the global row y0 + row of the global Y, so a chain-end ghost row is
+// never read.  The output and the eps partials cover the own rows only,
+// over the planes of ``part``: all, the interior [1, Z-1), which reads no
+// ghost, or the edge planes 0 and Z-1.  A single-device launch is the body
+// on a shard that holds the whole grid: own rows [0, Y), no ghost stacks,
+// the mirror below plane 0 and, with is_top, the Dirichlet combined ghost
+// above plane Z-1 (u := D(t_s), p and gl mirrored).
+//
+// What bounds it on Hopper.  Bytes: a launch reads w (3 planes) and nk K
+// inputs (2 planes each) once and writes 2 planes: 40 MB at MR (100 x 100 x
+// 200) for nk = 0, 0.012 ms at 3.35 TB/s, and an attempt's five launches
+// 328 MB.  Operations: about 160 float32 operations per point
+// (chip_smoke.py STAGE_OPS) and 20 per K input, 0.005 ms at MR at 67
+// TFLOP/s, well under the bytes.  The design is the delta kernel's, on the
+// tile engine of tile.cuh (tiles of 50 x 10 own points, each input plane's
+// rows over the tile and its halo copied once to shared memory with
+// cp.async, a ring of planes in flight, a z-chunk sized to whole waves), so
+// that each input element is read from device memory once per plane, apart
+// from the halo and the planes around a chunk:
+//
+// * Each thread assembles aux = (u, p, gl) of its own point once per plane
+//   (the first threads also a halo cell) into shared memory, for two
+//   planes, z and z+1; it reads its four in-plane neighbours from there and
+//   keeps z-1, z and z+1 of its own column in registers.  The stage-5 tail
+//   takes w, K1, K3 and K4 at its point from the raw tile: a raw buffer is
+//   refilled only after the barrier that follows its plane's computation,
+//   so the ring holds one plane more than the delta kernel's for the same
+//   planes in flight.
+// * nk is a template parameter, so the copies and the assembly are
+//   unrolled without guards.
+//
+// On the H100 (PERF.md) K1 at nk = 0 takes about 2.1x a tensor copy of its
+// bytes, the stage-5 tail about 1.35x: the cost per point that does not
+// scale with the bytes (the point arithmetic with its IEEE divisions, the
+// assembly and the barrier of each plane) bounds the launches with few
+// inputs, the bytes those with many.
 #pragma once
 
-#include "freezing.cuh"
+#include "tile.cuh"
 
 namespace pft {
 
 struct Pt { float u, p, gl; };
 
+constexpr int NPT = 3;     // assembled planes: u, p, gl
+// raw planes in the ring: RING - 2 in flight while a plane is computed, as
+// the buffer of the computed plane is kept for the stage-5 tail
+constexpr int RING = 4;
+static_assert(RING >= 3, "bad ring");
+
 struct StageArgs {
-    const float* w;        // (3, Z, Y, X)
-    const float* k[3];     // nk inputs, each (2, Z, Y, X)
+    const float* plane[RAW];  // the raw input planes at z = 0: w's u, p, gl
+                              // (3, Z, Y, X), then the (u, p) of each K
+                              // input, each (2, Z, Y, X)
     float hc[3];           // h*c_a, formed in float32
-    int nk;
     float t, h;
-    float* out;            // K (2, Z, Y, X), or y_spec with STAGE5
+    float* out;            // K (2, Z, Yl, X), or y_spec with STAGE5
     float* eps;            // per-block partial max (STAGE5)
+    int64_t eps_n;         // its slots
     Grid g;
+    int vec;               // floats per copy: 4, 2 or 1 (alignment of rows)
+    int tz;                // planes per block (the chunk)
 };
 
-// w + sum_a (h c_a) K_a at element i of the planes w (variable stride wV)
-// and k0..k2 (stride kV), accumulated in the Pallas order
-__device__ __forceinline__ Pt aux_of(const StageArgs& a, const float* w,
-                                     int64_t wV, const float* k0,
-                                     const float* k1, const float* k2,
-                                     int64_t kV, int64_t i) {
-    const float* k[3] = {k0, k1, k2};
-    float u = w[i], p = w[wV + i];
+constexpr int stage_smem_bytes(int nk) {
+    return tile_smem_bytes<NPT, RING>(nk);
+}
+
+// aux = w + sum_a (h c_a) K_a of the raw values r of one point, accumulated
+// in the Pallas order (stencil.py _core).  The multiply-adds are explicit,
+// so every call site rounds alike.
+template <int NK>
+__device__ __forceinline__ Pt assemble(const StageArgs& a, const float* r) {
+    float u = r[0], p = r[1];
 #pragma unroll
-    for (int q = 0; q < 3; ++q) {
-        if (q < a.nk) {
-            u = u + a.hc[q] * k[q][i];
-            p = p + a.hc[q] * k[q][kV + i];
-        }
+    for (int q = 0; q < NK; ++q) {
+        u = __fmaf_rn(a.hc[q], r[3 + 2 * q], u);
+        p = __fmaf_rn(a.hc[q], r[4 + 2 * q], p);
     }
-    return Pt{u, p, w[2 * wV + i]};
+    return Pt{u, p, r[2]};
 }
 
-// aux at (z, y, x) of the state
-__device__ __forceinline__ Pt aux_at(const StageArgs& a, int64_t i) {
-    const int64_t V = a.g.var();
-    return aux_of(a, a.w, V, a.k[0], a.k[1], a.k[2], V, i);
+// The point at place i of the raw buffer raw
+template <int NK>
+__device__ __forceinline__ Pt raw_point(const StageArgs& a, const float* raw,
+                                        int i) {
+    float r[3 + 2 * NK];
+    raw_values<NK>(raw, i, r);
+    return assemble<NK>(a, r);
 }
 
-// aux at column col of a ghost stack: the same combination of raw planes
-__device__ __forceinline__ Pt aux_ghost(const StageArgs& a, const float* g,
-                                        int64_t col) {
-    const int64_t P = a.g.plane();
-    return aux_of(a, g, P, g + 3 * P, g + 5 * P, g + 7 * P, P, col);
+__device__ __forceinline__ Pt tile_point(const float* pt, int cell) {
+    return Pt{pt[cell], pt[HALO_CELLS + cell], pt[2 * HALO_CELLS + cell]};
+}
+
+__device__ __forceinline__ void store_point(float* pt, int cell,
+                                            const Pt& v) {
+    pt[cell] = v.u;
+    pt[HALO_CELLS + cell] = v.p;
+    pt[2 * HALO_CELLS + cell] = v.gl;
 }
 
 __device__ __forceinline__ float face(const Consts& c, const Pt& n,
@@ -128,84 +177,147 @@ __device__ __forceinline__ void rhs_point(const Consts& c, const Pt& o,
     du = (div / rho(c, p, gl) + c.L * dp) / cp(c, p, gl);
 }
 
-// The whole stage for the (x, y) column of this thread over its ZCHUNK
-// planes; the kernels are this body with their own pointer set-up.
-template <int MODE, bool STAGE5, bool SHARD = false>
+// The planes [z0, z1) of block z-index bz for a launch over part with
+// chunks of tz planes; the edge part has two blocks in z, plane 0 and plane
+// Z-1.
+__device__ __forceinline__ void part_planes(int part, int Z, int tz, int bz,
+                                            int& z0, int& z1) {
+    if (part == PART_EDGE) {
+        z0 = bz == 0 ? 0 : Z - 1;
+        z1 = z0 + 1;
+        return;
+    }
+    const int lo = part == PART_INTERIOR ? 1 : 0;
+    const int hi = part == PART_INTERIOR ? Z - 1 : Z;
+    z0 = lo + bz * tz;
+    z1 = min(z0 + tz, hi);
+}
+
+// The whole stage for the tile of this block over its chunk of planes; the
+// kernels are this body with their own pointer set-up.
+template <int MODE, int NK, bool STAGE5>
 __device__ __forceinline__ void stage_body(const Consts& c,
                                            const StageArgs& a,
-                                           const ShardArgs& s = ShardArgs{}) {
-    const int x = blockIdx.x * BX + threadIdx.x;
-    const int yo = blockIdx.y * BY + threadIdx.y;   // own row
-    const int X = a.g.X, Y = a.g.Y, Z = a.g.Z;
-    const int64_t P = a.g.plane(), V = a.g.var();
+                                           const ShardArgs& s) {
+    constexpr int NR = 3 + 2 * NK;
+    extern __shared__ __align__(16) float smem[];
+    __shared__ int rowoff[ROWS];
+    // RING raw planes, then the assembled planes of two consecutive z
+    float* const raw = smem;
+    float* const pts = smem + RING * NR * RAW_PLANE;
+    const int X = a.g.X, Z = a.g.Z;
+    const int x0 = blockIdx.x * TILE_X, yo0 = blockIdx.y * TILE_Y;
     int z0, z1;
-    if (SHARD) {
-        part_planes(s.part, Z, blockIdx.z, z0, z1);
-    } else {
-        z0 = blockIdx.z * ZCHUNK;
-        z1 = min(z0 + ZCHUNK, Z);
-    }
-    const int Yo = SHARD ? s.Yl : Y;
+    part_planes(s.part, Z, a.tz, blockIdx.z, z0, z1);
+    const int tid = threadIdx.x;
+    const int x = x0 + tid % TILE_X, yo = yo0 + tid / TILE_X;  // own row yo
+    const bool point = tid < TILE_POINTS;
+    const bool own = point && x < X && yo < s.Yl;
+    const TileMap m = tile_map(X, x0, a.vec);
+    const int xlim = min(X, x0 + TILE_X + 1);
+    if (tid < ROWS) rowoff[tid] = row_offset(s, X, yo0, tid);
+    __syncthreads();
     // the output's plane and variable strides (own rows only)
-    const int64_t oP = (int64_t)Yo * X, oV = (int64_t)Z * oP;
-    float m = 0.0f;
-    if (x < X && yo < Yo) {
-        const int xm = x > 0 ? x - 1 : x, xp = x < X - 1 ? x + 1 : x;
-        int y, ym, yp;
-        if (SHARD) {
-            const int gy = s.y0 + yo;
-            y = s.r0 + yo;
-            ym = gy > 0 ? y - 1 : y;
-            yp = gy < s.Yg - 1 ? y + 1 : y;
-        } else {
-            y = yo;
-            ym = y > 0 ? y - 1 : y;
-            yp = y < Y - 1 ? y + 1 : y;
+    const int64_t oP = (int64_t)s.Yl * X, oV = (int64_t)Z * oP;
+
+    // planes k = 0 .. n-1 are z0 - 1 .. z1; plane k lives in the raw
+    // buffer k % RING and, assembled, in pts[k % 2].  The raw buffer of
+    // plane k is refilled after the barrier that follows its computation
+    // (the stage-5 tail reads it then): RING - 2 planes are in flight while
+    // a plane is computed.
+    const int n = z1 - z0 + 2;
+    auto raw_of = [&](int k) { return raw + (k % RING) * NR * RAW_PLANE; };
+    auto pts_of = [&](int k) { return pts + (k & 1) * NPT * HALO_CELLS; };
+    auto stage = [&](int k) {
+        if (k < n)
+            stage_plane<NK>(a, s, rowoff, m.xa, xlim, z0 - 1 + k,
+                            k > 0 && k < n - 1, raw_of(k));
+        else
+            copy_commit();
+    };
+#pragma unroll
+    for (int k = 0; k < RING; ++k) stage(k);
+    copy_wait<RING - 2>();                  // planes 0 and 1 have arrived
+    __syncthreads();
+    Pt below{}, cur{};
+    if (point) {
+        below = raw_point<NK>(a, raw_of(0), m.ctr_raw);
+        cur = raw_point<NK>(a, raw_of(1), m.ctr_raw);
+        store_point(pts_of(1), m.ctr, cur);
+    }
+    if (m.halo >= 0)
+        store_point(pts_of(1), m.halo,
+                    raw_point<NK>(a, raw_of(1), m.halo_raw));
+    float mx = 0.0f;
+#pragma unroll 1
+    for (int k = 1; k < n - 1; ++k) {
+        const int z = z0 - 1 + k;
+        copy_wait<RING - 3>();              // plane k + 1 has arrived
+        // pts_of(k) is whole, pts_of(k + 1) and the raw buffer of plane
+        // k - 1 are free
+        __syncthreads();
+        stage(k - 1 + RING);
+        // plane k + 1: the next own plane, or the plane above the chunk
+        // (above the top of a single-device launch: u := D, p and gl the
+        // mirror)
+        Pt above{};
+        if (point) {
+            above = raw_point<NK>(a, raw_of(k + 1), m.ctr_raw);
+            if (k + 1 < n - 1)
+                store_point(pts_of(k + 1), m.ctr, above);
+            else if (z1 == Z && s.is_top)
+                above.u = a.t < c.phase_switch_time ? c.top_temp1
+                                                    : c.top_temp2;
         }
-        const float D = a.t < c.phase_switch_time ? c.top_temp1 : c.top_temp2;
-        const int64_t col = (int64_t)y * X + x;
-        Pt below = (SHARD && z0 == 0)
-            ? aux_ghost(a, s.glo, col)
-            : aux_at(a, (int64_t)(z0 > 0 ? z0 - 1 : 0) * P + col);
-        Pt cur = aux_at(a, (int64_t)z0 * P + col);
-        for (int z = z0; z < z1; ++z) {
-            const int64_t i = (int64_t)z * P + col;
-            const int64_t o = (int64_t)z * oP + (int64_t)yo * X + x;
-            // mirror for p and gl, Dirichlet ghost for u at the top; a
-            // shard reads its ghost stack instead
-            Pt above = z + 1 < Z ? aux_at(a, i + P)
-                       : (SHARD ? aux_ghost(a, s.ghi, col)
-                                : Pt{D, cur.p, cur.gl});
-            const int64_t row = (int64_t)z * P;
-            Pt nxm = aux_at(a, row + (int64_t)y * X + xm);
-            Pt nxp = aux_at(a, row + (int64_t)y * X + xp);
-            Pt nym = aux_at(a, row + (int64_t)ym * X + x);
-            Pt nyp = aux_at(a, row + (int64_t)yp * X + x);
+        if (k + 1 < n - 1 && m.halo >= 0)
+            store_point(pts_of(k + 1), m.halo,
+                        raw_point<NK>(a, raw_of(k + 1), m.halo_raw));
+        if (own) {
+            const float* pt = pts_of(k);
             float du, dp;
-            rhs_point<MODE>(c, cur, nxm, nxp, nym, nyp, below, above, du, dp);
+            rhs_point<MODE>(c, cur, tile_point(pt, m.ctr - 1),
+                            tile_point(pt, m.ctr + 1),
+                            tile_point(pt, m.ctr - HALO_X),
+                            tile_point(pt, m.ctr + HALO_X), below, above, du,
+                            dp);
+            const int64_t o = (int64_t)z * oP + (int64_t)yo * X + x;
             if (!STAGE5) {
                 a.out[o] = du;
                 a.out[oV + o] = dp;
             } else {
-                // k[0], k[1], k[2] are K1, K3, K4 of the stage-5 combination
+                // w, K1, K3 and K4 of the stage-5 combination at this point
+                const float* r = raw_of(k) + m.ctr_raw;
                 const float h3 = a.h / 3.0f;
                 const float k5[2] = {du, dp};
 #pragma unroll
                 for (int v = 0; v < 2; ++v) {
-                    const int64_t j = v * V + i;
-                    const float k1 = a.k[0][j], k3 = a.k[1][j], k4 = a.k[2][j];
+                    const float k1 = r[(3 + v) * RAW_PLANE];
+                    const float k3 = r[(5 + v) * RAW_PLANE];
+                    const float k4 = r[(7 + v) * RAW_PLANE];
                     float err = 0.2f * k1 - 0.9f * k3 + 0.8f * k4
                                 - 0.1f * k5[v];
-                    m = nan_max(m, fabsf(err));
-                    a.out[v * oV + o] =
-                        a.w[j] + h3 * (0.5f * (k1 + k5[v]) + 2.0f * k4);
+                    mx = nan_max(mx, fabsf(err));
+                    a.out[v * oV + o] = r[v * RAW_PLANE]
+                                        + h3 * (0.5f * (k1 + k5[v])
+                                                + 2.0f * k4);
                 }
             }
-            below = cur;
-            cur = above;
         }
+        below = cur;
+        cur = above;
     }
-    if (STAGE5) block_max_store(m, a.eps);
+    if (STAGE5) block_max_store<TILE_THREADS>(mx, a.eps);
+}
+
+// The grid of a launch over part of Z planes and Yl own rows for cap
+// resident blocks: the interior and all parts in chunks sized to whole
+// waves, the edge part one block per tile and edge plane.
+inline TileGrid stage_grid(int cap, int part, int Z, int Yl, int X) {
+    if (part != PART_EDGE)
+        return tile_grid(cap, part == PART_INTERIOR ? Z - 2 : Z, Yl, X);
+    TileGrid g = tile_grid(cap, 1, Yl, X);
+    g.grid.z = 2;
+    return g;
 }
 
 // Fills the argument block of one stage; the kernels' C entries share it.
@@ -213,19 +325,24 @@ __device__ __forceinline__ void stage_body(const Consts& c,
 inline int stage_args(StageArgs& a, int nk, int stage5, float t, float h,
                       const float* coefs, const float* w, const float* k0,
                       const float* k1, const float* k2, float* out,
-                      float* eps, int Z, int Y, int X) {
+                      float* eps, long long eps_n, int Z, int Y, int X) {
     if (nk < 0 || nk > 3) return 1001;
     if (stage5 && nk != 3) return 1002;
     if (Z < 1 || Y < 1 || X < 1) return 1003;
-    a.w = w;
-    a.k[0] = k0; a.k[1] = k1; a.k[2] = k2;
+    const int64_t V = (int64_t)Z * Y * X;
+    const float* k[3] = {k0, k1, k2};
+    for (int q = 0; q < RAW; ++q)
+        a.plane[q] = q < 3 ? w + q * V
+            : q < 3 + 2 * nk ? k[(q - 3) / 2] + ((q - 3) % 2) * V : nullptr;
     for (int q = 0; q < 3; ++q) a.hc[q] = q < nk ? h * coefs[q] : 0.0f;
-    a.nk = nk;
+    a.vec = copy_width(a.plane, 3 + 2 * nk, X);
     a.t = t;
     a.h = h;
     a.out = out;
     a.eps = eps;
+    a.eps_n = eps_n;
     a.g = Grid{Z, Y, X};
+    a.tz = 0;
     return 0;
 }
 

@@ -26,7 +26,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
 SOURCES = ("fused_stage.cu", "fused_attempt.cu", "delta_g.cu")
-HEADERS = ("freezing.cuh", "stage.cuh")
+HEADERS = ("freezing.cuh", "tile.cuh", "stage.cuh")
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 LIB_NAME = "libpft_kernels.so"
 
@@ -110,26 +110,25 @@ def build(force: bool = False) -> BuildResult:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    cll = ctypes.c_longlong
     lib.pft_num_consts.argtypes = []
     lib.pft_num_consts.restype = ci
-    lib.pft_eps_blocks.argtypes = [ci, ci, ci]
-    lib.pft_eps_blocks.restype = ctypes.c_longlong
     lib.pft_error_string.argtypes = [ci]
     lib.pft_error_string.restype = ctypes.c_char_p
     # consts, mode, nk, stage5, t, h, coefs, w, k0, k1, k2, out, eps,
-    # Z, Y, X, stream
+    # Z, Y, X, stream, eps_n (the slots of eps)
     lib.pft_fused_stage.argtypes = [vp, ci, ci, ci, cf, cf, vp, vp, vp, vp,
-                                    vp, vp, vp, ci, ci, ci, vp]
+                                    vp, vp, vp, ci, ci, ci, vp, cll]
     lib.pft_fused_stage.restype = ci
     # consts, mode, nk, tail, t, h, coefs, y2, cur, k0, k1, k2, out, eps,
-    # Z, Y, X, stream
+    # Z, Y, X, stream, eps_n
     lib.pft_fused_attempt.argtypes = [vp, ci, ci, ci, cf, cf, vp, vp, vp, vp,
-                                      vp, vp, vp, vp, ci, ci, ci, vp]
+                                      vp, vp, vp, vp, ci, ci, ci, vp, cll]
     lib.pft_fused_attempt.restype = ci
     # consts, mode, nk, tail, h, D1, dDi, coefs, w, k0, k1, k2, out, eps,
-    # Z, Y, X, stream, eps_n (the slots of eps)
+    # Z, Y, X, stream, eps_n
     lib.pft_delta_g.argtypes = [vp, ci, ci, ci, cf, cf, cf, vp, vp, vp, vp,
-                                vp, vp, vp, ci, ci, ci, vp, ctypes.c_longlong]
+                                vp, vp, vp, ci, ci, ci, vp, cll]
     lib.pft_delta_g.restype = ci
     # the shard entries: the arguments of their single-device entry, then
     # glo, ghi, part (stage) or is_top (delta), r0, Yl, y0, Yg
@@ -138,10 +137,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pft_fused_stage_shard.restype = ci
     lib.pft_delta_g_shard.argtypes = lib.pft_delta_g.argtypes + shard
     lib.pft_delta_g_shard.restype = ci
-    lib.pft_shard_eps_blocks.argtypes = [ci, ci, ci, ci]
-    lib.pft_shard_eps_blocks.restype = ctypes.c_longlong
+    # the eps slots of a tail launch: (mode, part, Z, Yl, X),
+    # (mode, Z, Y, X) and (mode, tail, Z, Yl, X)
+    lib.pft_stage_eps_blocks.argtypes = [ci, ci, ci, ci, ci]
+    lib.pft_stage_eps_blocks.restype = cll
+    lib.pft_attempt_eps_blocks.argtypes = [ci, ci, ci, ci]
+    lib.pft_attempt_eps_blocks.restype = cll
     lib.pft_delta_eps_blocks.argtypes = [ci, ci, ci, ci, ci]
-    lib.pft_delta_eps_blocks.restype = ctypes.c_longlong
+    lib.pft_delta_eps_blocks.restype = cll
     return lib
 
 

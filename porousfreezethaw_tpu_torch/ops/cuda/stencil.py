@@ -269,15 +269,12 @@ def _kernel_call(fn_name: str, spec: StencilSpec, scalars, state_ptrs,
                  dims=None, eps=None, extra=()):
     """Launch ``fn_name`` of the kernel library on ``device``'s current
     stream, writing K/G/y_spec/dy into ``out`` (None where the kernel
-    writes its state instead); returns the eps partials of a tail
-    (``tail`` > 0), else None.  ``dims`` is the (Z, Y, X) of the inputs
-    (the grid's by default), ``eps`` a given buffer for the partials and
-    ``extra`` the arguments after the stream (the shard entries')."""
+    writes its state instead) and a tail's (``tail`` > 0) eps partials into
+    ``eps``, whose slot count the entry checks against its grid.  ``dims``
+    is the (Z, Y, X) of the inputs (the grid's by default) and ``extra``
+    the arguments after the slot count (the shard entries')."""
     lib = _library()
     Z, Y, X = dims or spec.geom.shape
-    if tail and eps is None:
-        eps = torch.empty((lib.pft_eps_blocks(Z, Y, X),),
-                          dtype=torch.float32, device=device)
     nk = len(ks)
     coefs = np.zeros(3, dtype=np.float32)
     coefs[:nk] = [c for c, _ in ks]
@@ -289,12 +286,29 @@ def _kernel_call(fn_name: str, spec: StencilSpec, scalars, state_ptrs,
             *scalars, coefs.ctypes.data, *state_ptrs, *kptrs,
             None if out is None else out.data_ptr(),
             None if eps is None else eps.data_ptr(), Z, Y, X, stream,
-            *extra)
+            0 if eps is None else eps.numel(), *extra)
     if rc != 0:
         msg = (lib.pft_error_string(rc).decode() if rc < 1000
                else "invalid arguments")
         raise KernelLaunchError(f"{fn_name} failed: {rc} ({msg})")
-    return eps
+
+
+@functools.lru_cache(maxsize=256)
+def _eps_blocks(fn_name: str, device: torch.device, *args) -> int:
+    """The eps partial slots of a tail launch: ``fn_name`` of the kernel
+    library (pft_stage_eps_blocks, pft_attempt_eps_blocks,
+    pft_delta_eps_blocks), which sizes the launch's grid for the card."""
+    with torch.cuda.device(device):
+        n = getattr(_library(), fn_name)(*args)
+    if n < 1:
+        raise KernelLaunchError(f"{fn_name}{args} failed")
+    return n
+
+
+def _eps(fn_name: str, device: torch.device, *args) -> torch.Tensor:
+    """An eps partials buffer with the slots of ``_eps_blocks``."""
+    return torch.empty((_eps_blocks(fn_name, device, *args),),
+                       dtype=torch.float32, device=device)
 
 
 def _k_out(spec: StencilSpec, device: torch.device) -> torch.Tensor:
@@ -310,8 +324,10 @@ def fused_stage(spec: StencilSpec, t: float, h: float, w: torch.Tensor,
         return fused_stage_plain(spec, t, h, w, ks, stage5)
     scalars = (float(np.float32(t)), float(np.float32(h)))
     out = _k_out(spec, w.device)
-    eps = _kernel_call("pft_fused_stage", spec, scalars, (w.data_ptr(),),
-                       w.device, ks, int(stage5), out)
+    eps = (_eps("pft_stage_eps_blocks", w.device, int(spec.mode), 0,
+                *spec.geom.shape) if stage5 else None)
+    _kernel_call("pft_fused_stage", spec, scalars, (w.data_ptr(),), w.device,
+                 ks, int(stage5), out, eps=eps)
     fused_stage.launches += 1
     return (out, eps) if stage5 else out
 
@@ -337,9 +353,11 @@ def fused_attempt(spec: StencilSpec, t: float, h: float, y2: torch.Tensor,
         return fused_attempt_plain(spec, t, h, y2, cur, ks, tail)
     scalars = (float(np.float32(t)), float(np.float32(h)))
     out = None if tail else _k_out(spec, y2.device)
-    eps = _kernel_call("pft_fused_attempt", spec, scalars,
-                       (y2.data_ptr(), cur.data_ptr()), y2.device, ks,
-                       int(tail), out)
+    eps = (_eps("pft_attempt_eps_blocks", y2.device, int(spec.mode),
+                *spec.geom.shape) if tail else None)
+    _kernel_call("pft_fused_attempt", spec, scalars,
+                 (y2.data_ptr(), cur.data_ptr()), y2.device, ks, int(tail),
+                 out, eps=eps)
     fused_attempt.launches += 1
     return eps if tail else out
 
@@ -363,10 +381,10 @@ def delta_g(spec: StencilSpec, h: float, D1: float, dDi: float,
     scalars = tuple(float(np.float32(v)) for v in (h, D1, dDi))
     out = _k_out(spec, w.device)
     tail = 2 if emit == "dy" else int(stage5)
-    eps = (_delta_eps(spec, tail, *spec.geom.shape, w.device) if stage5
-           else None)
+    eps = (_eps("pft_delta_eps_blocks", w.device, int(spec.mode), tail,
+                *spec.geom.shape) if stage5 else None)
     _kernel_call("pft_delta_g", spec, scalars, (w.data_ptr(),), w.device, ks,
-                 tail, out, eps=eps, extra=(_slots(eps),))
+                 tail, out, eps=eps)
     if emit == "dy":
         delta_g.launches_dy += 1
     else:
@@ -376,31 +394,6 @@ def delta_g(spec: StencilSpec, h: float, D1: float, dDi: float,
 
 delta_g.launches = 0
 delta_g.launches_dy = 0
-
-
-def _delta_eps(spec: StencilSpec, tail: int, Z: int, Yl: int, X: int,
-               device: torch.device) -> torch.Tensor:
-    """The eps partials buffer of a delta kernel's tail over Yl own rows:
-    one slot per block of its launch grid, which csrc/delta_g.cu sizes for
-    the card."""
-    n = _delta_eps_blocks(int(spec.mode), tail, Z, Yl, X, device)
-    return torch.empty((n,), dtype=torch.float32, device=device)
-
-
-def _slots(eps) -> int:
-    """The slots of an eps partials buffer (0 for none), which the delta
-    entries check against their launch grid."""
-    return 0 if eps is None else eps.numel()
-
-
-@functools.lru_cache(maxsize=256)
-def _delta_eps_blocks(mode: int, tail: int, Z: int, Yl: int, X: int,
-                      device: torch.device) -> int:
-    with torch.cuda.device(device):
-        n = _library().pft_delta_eps_blocks(mode, tail, Z, Yl, X)
-    if n < 1:
-        raise KernelLaunchError(f"pft_delta_eps_blocks failed for {Z, Yl, X}")
-    return n
 
 
 # ---------------------------------------------------------------------------
@@ -577,20 +570,24 @@ def fused_stage_shard(spec: StencilSpec, t: float, h: float,
         return fused_stage_shard_plain(spec, t, h, w, ks, ghosts,
                                        window=window, stage5=stage5,
                                        part=part, prev=prev)
-    lib = _library()
     r0, Yl, y0 = _window(w, window)
     zl, Ye, X = w.shape[1:]
-    n_int = lib.pft_shard_eps_blocks(1, zl, Yl, X)
+    slots = functools.partial(_eps_blocks, "pft_stage_eps_blocks", w.device,
+                              int(spec.mode))
     if part == "edge":
         out, eps = (tuple(prev) + (None,))[:2]
-        view = eps[n_int:] if stage5 else None
     else:
         out = torch.empty((K_VARS, zl, Yl, X), dtype=torch.float32,
                           device=w.device)
-        n_eps = (lib.pft_shard_eps_blocks(0, zl, Yl, X) if part == "all"
-                 else n_int + lib.pft_shard_eps_blocks(2, zl, Yl, X))
-        eps = view = (torch.empty((n_eps,), dtype=torch.float32,
-                                  device=w.device) if stage5 else None)
+        n_eps = (slots(0, zl, Yl, X) if part == "all"
+                 else slots(1, zl, Yl, X) + slots(2, zl, Yl, X))
+        eps = (torch.empty((n_eps,), dtype=torch.float32, device=w.device)
+               if stage5 else None)
+    # the interior pass's slots come first, the edge pass's follow them
+    view = eps
+    if stage5 and part != "all":
+        n_int = slots(1, zl, Yl, X)
+        view = eps[n_int:] if part == "edge" else eps[:n_int]
     scalars = (float(np.float32(t)), float(np.float32(h)))
     _kernel_call("pft_fused_stage_shard", spec, scalars, (w.data_ptr(),),
                  w.device, ks, int(stage5), out, dims=(zl, Ye, X), eps=view,
@@ -628,10 +625,11 @@ def delta_g_shard(spec: StencilSpec, h: float, D1: float, dDi: float,
                       device=w.device)
     scalars = tuple(float(np.float32(v)) for v in (h, D1, dDi))
     tail = 2 if emit == "dy" else int(stage5)
-    eps = _delta_eps(spec, tail, zl, Yl, X, w.device) if stage5 else None
+    eps = (_eps("pft_delta_eps_blocks", w.device, int(spec.mode), tail, zl,
+                Yl, X) if stage5 else None)
     _kernel_call("pft_delta_g_shard", spec, scalars, (w.data_ptr(),),
                  w.device, ks, tail, out, dims=(zl, Ye, X), eps=eps,
-                 extra=(_slots(eps),) + _ghost_ptrs(ghosts) + (
+                 extra=_ghost_ptrs(ghosts) + (
                      int(is_top), r0, Yl, y0, spec.geom.n2))
     if emit == "dy":
         delta_g_shard.launches_dy += 1

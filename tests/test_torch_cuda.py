@@ -29,13 +29,14 @@ from porousfreezethaw_tpu_torch.solvers.merson import (
 pytestmark = pytest.mark.cuda
 
 SHAPE = (19, 23, 37)     # (n3, n2, n1): odd sizes catch edge indexing
-# shapes at the edges of the delta kernel's tiles (csrc/delta_g.cu: 50 x 10
-# points, a chunk of planes chosen at launch): x and y smaller than a tile
-# and z than any chunk; x and y one or more past a multiple of the tile;
-# rows that allow 4-byte copies only (odd x), 8-byte (x = 26) and 16-byte
-# (x = 52)
+# shapes at the edges of the tiles of the stage and delta kernels
+# (csrc/tile.cuh: 50 x 10 points, a chunk of planes chosen at launch): x and
+# y smaller than a tile and z than any chunk; x and y one or more past a
+# multiple of the tile; rows that allow 4-byte copies only (odd x), 8-byte
+# (x = 26) and 16-byte (x = 52); and 20 tiles of 37 planes, whose grid on
+# the card takes chunks of several planes with a shorter last chunk
 EDGE_SHAPES = ((2, 3, 7), (13, 17, 51), (5, 11, 33), (6, 13, 52),
-               (9, 21, 26))
+               (9, 21, 26), (37, 100, 100))
 
 
 @pytest.fixture(scope="module")
@@ -86,7 +87,7 @@ def _close(got, ref):
 @pytest.mark.parametrize("mode", [0, 1, 2, 10, 11])
 def test_kernels_match_plain(dev, mode):
     """Every kernel against its plain version at the odd shape and at the
-    edges of the delta kernel's tiles."""
+    edges of the tiles of the stage and delta kernels."""
     prm = _params()
     for shape in (SHAPE,) + EDGE_SHAPES:
         _kernels_match_plain(dev, prm, mode, shape)
@@ -174,7 +175,7 @@ def test_delta_tail_refuses_a_short_eps_buffer(dev, fn):
     spec = st.StencilSpec.of(geom, prm, 0)
     w, ks = _inputs(dev)
     kk = [(1.0, ks[0]), (-1.5, ks[1]), (2.0, ks[2])]
-    n = st._delta_eps_blocks(0, 1, *SHAPE, dev)
+    n = st._eps_blocks("pft_delta_eps_blocks", dev, 0, 1, *SHAPE)
     out = torch.empty((2,) + SHAPE, dtype=torch.float32, device=dev)
     ghost = torch.zeros((9,) + SHAPE[1:], dtype=torch.float32, device=dev)
     shard = (() if fn == "pft_delta_g" else
@@ -184,12 +185,52 @@ def test_delta_tail_refuses_a_short_eps_buffer(dev, fn):
         eps = torch.empty((slots,), dtype=torch.float32, device=dev)
         call = lambda: st._kernel_call(  # noqa: E731
             fn, spec, (0.05, -25.0, 0.0), (w.data_ptr(),), dev, kk, 1, out,
-            eps=eps, extra=(slots,) + shard)
+            eps=eps, extra=shard)
         if ok:
             call()
         else:
             with pytest.raises(st.KernelLaunchError, match="invalid"):
                 call()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("fn", ["pft_fused_stage", "pft_fused_stage_shard",
+                                "pft_fused_attempt"])
+def test_stage_tail_refuses_a_short_eps_buffer(dev, fn):
+    """The stage entries (K1, K1s/K3 in each part, K4) launch a tail only
+    when the eps buffer has a slot for every block of its grid."""
+    prm = _params()
+    geom = GridGeometry(0.03, 0.03, 0.06, SHAPE[2], SHAPE[1], SHAPE[0])
+    spec = st.StencilSpec.of(geom, prm, 0)
+    w, ks = _inputs(dev)
+    kk = [(0.5, ks[0]), (-1.5, ks[1]), (2.0, ks[2])]
+    out = torch.empty((2,) + SHAPE, dtype=torch.float32, device=dev)
+    ghost = torch.zeros((9,) + SHAPE[1:], dtype=torch.float32, device=dev)
+    if fn == "pft_fused_attempt":
+        y2 = torch.stack([w, w])
+        cur = torch.zeros(1, dtype=torch.int32, device=dev)
+        cases = [((y2.data_ptr(), cur.data_ptr()), (),
+                  st._eps_blocks("pft_attempt_eps_blocks", dev, 0, *SHAPE))]
+    else:
+        cases = [((w.data_ptr(),),
+                  () if fn == "pft_fused_stage" else
+                  (ghost.data_ptr(), ghost.data_ptr(), part, 0, SHAPE[1], 0,
+                   SHAPE[1]),
+                  st._eps_blocks("pft_stage_eps_blocks", dev, 0, part,
+                                 *SHAPE))
+                 for part in ((0,) if fn == "pft_fused_stage"
+                              else (0, 1, 2))]
+    for ptrs, shard, n in cases:
+        for slots, ok in ((n, True), (n - 1, False)):
+            eps = torch.empty((slots,), dtype=torch.float32, device=dev)
+            call = lambda: st._kernel_call(  # noqa: E731
+                fn, spec, (100.0, 0.05), ptrs, dev, kk, 1, out, eps=eps,
+                extra=shard)
+            if ok:
+                call()
+            else:
+                with pytest.raises(st.KernelLaunchError, match="invalid"):
+                    call()
     torch.cuda.synchronize()
 
 
@@ -251,10 +292,15 @@ def _shard_inputs(w, ks, nk, lo, hi, rows):
 # shards of SHAPE: (planes [lo, hi), input rows, window (r0, Yl, y0)).  An
 # interior shard with own rows 5..12; the top shard with them; the top with
 # one own row; the bottom two planes (fewer than a chunk) with one own row
-# at the y chain start; 14 planes with the 12 own rows of the y chain end
+# at the y chain start; 14 planes with the 12 own rows of the y chain end;
+# a z4 shard (5 planes) of one own row; a shard of 3 planes, whose interior
+# pass is one plane; 13 own rows at the y chain end (a tile and 3 rows)
 SHARDS = ((6, 13, slice(4, 14), (1, 8, 5)), (12, 19, slice(4, 14), (1, 8, 5)),
           (12, 19, slice(4, 7), (1, 1, 5)), (0, 2, slice(0, 2), (0, 1, 0)),
-          (3, 17, slice(10, None), (1, 12, 11)))
+          (3, 17, slice(10, None), (1, 12, 11)),
+          (5, 10, slice(10, 13), (1, 1, 11)),
+          (8, 11, slice(4, 14), (1, 8, 5)),
+          (2, 16, slice(9, None), (1, 13, 10)))
 
 
 @pytest.mark.parametrize("mode", [0, 1, 2, 10, 11])
