@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                       # all phases
     python3 chip_smoke.py --phases env,build,kernels
-    python3 chip_smoke.py --phases env,build,kernels,solve,bench,app,mesh,profile
+    python3 chip_smoke.py --phases env,build,kernels,solve,bench,app,mesh,dem,profile
+    python3 chip_smoke.py --phases env,dem_settle   # the DEM settle, ~40 min
 
 Run from the root of a checkout.  Phases, one JSON line each:
 
@@ -42,18 +43,29 @@ Run from the root of a checkout.  Phases, one JSON line each:
             cold in L2, K3's interior and edge passes each on its own,
             beside one launch's floor;
             sharded against single-device bit for bit at MR on z1, z2,
-            z4, z2,y2 and y2 (overlap on and off); their times; MR solves
+            z4, z2,y2, y2 and z2,y3 (y windows of unequal height; overlap
+            on and off); their times; MR solves
             of 100 attempts at z4 and z2,y2 against the single-device
             paths (the same counts and state bits); the LR GradP golden
             through run_iteration at z4 (plain and compensated) and
             through the app with --mesh z1, each giving the counts and
             snapshot bytes of the run without a mesh; the bench's MR mesh
             rows
+8. dem      the spheres DEM (plain PyTorch, no kernel of its own): the
+            dense right-hand side of the four variants at n = 200 on the
+            card against the port's on the CPU (f64 to 1e-12 of max|ref|
+            per leaf, f32 to 1e-5); a short f64 friction_angular solve to
+            t = 10 * 8/399 on the card and on the CPU (equal step counts;
+            ms/attempt, wall and device); the bench's dense dem_200 and
+            dem_2000 rows (f32) at reduced steps
 
 and, only when asked for, ``profile``: torch.profiler over 100 attempts
 at LR and at MR, through DeltaAttempt and FusedAttempt, and at MR through
 ShardedDeltaAttempt on a z4 mesh of the card (the device's busy share and
-the time by kernel).
+the time by kernel); ``dem_settle``: the settle of VALIDATION.md (200
+spheres, friction_angular, f64, T = 8, 400 snapshots) through the spheres
+app on the card, its final positions and their eps_s at res = 100, held
+to the reference ensemble (0.60 < eps_s < 0.72, scripts/dem_settle_bed.py).
 
 The launches in the kernel summary come from the run that is each
 kernel's main path, with the counters set to 0 just before it: the plain
@@ -87,8 +99,8 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "build", "kernels", "solve", "bench", "app", "mesh")
-OPTIONAL_PHASES = ("profile",)
+PHASES = ("env", "build", "kernels", "solve", "bench", "app", "mesh", "dem")
+OPTIONAL_PHASES = ("profile", "dem_settle")
 SEED = 20251016
 # the increment form's golden (reference log, LR GradP snapshot 1) and the
 # f64 golden (reference log, LR Temp snapshot 1; tests/test_golden_lr.py)
@@ -800,16 +812,7 @@ def phase_profile(dev) -> None:
                                     attempt_fn=att)
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
-        rows = []
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0.0)
-            rows.append((float(us), e.key, e.count))
-        rows.sort(reverse=True)
-        device_us = sum(r[0] for r in rows)
+        device_us, _, rows = _device_time(prof)
         measured = bool(rows) and device_us > 0
         emit("profile", attempt=cls.__name__, grid=list(geom.shape),
              mesh=None if mesh is None else "z4 on one card",
@@ -934,7 +937,9 @@ def phase_app(dev) -> dict:
 # --------------------------------------------------------------------------
 
 # (spec, shards) of the bitwise checks; the solves use z4 and z2,y2
-MESH_SPECS = (("z1", 1), ("z2", 2), ("z4", 4), ("z2,y2", 4), ("y2", 2))
+# z2,y3 splits MR's 100 rows into y windows of 34, 33 and 33
+MESH_SPECS = (("z1", 1), ("z2", 2), ("z4", 4), ("z2,y2", 4), ("y2", 2),
+              ("z2,y3", 6))
 MESH_ATTEMPTS = 100
 MESH_KERNELS = ("fused_stage_shard", "fused_stage_split", "delta_g_shard",
                 "delta_g_shard_dy")
@@ -1522,6 +1527,226 @@ def phase_mesh(dev):
     return out, launches
 
 
+# --------------------------------------------------------------------------
+# phase 8: the spheres DEM
+# --------------------------------------------------------------------------
+
+DEM_VARIANTS = ("basic", "basic_WB", "friction", "friction_angular")
+DEM_N = 200
+# the first ten snapshot intervals of the production case (T = 8, 400
+# snapshots)
+DEM_SHORT_T = 10 * 8.0 / 399
+# the short solve's end state, card against CPU, per leaf relative to
+# max|CPU| (f64; the same accept/reject sequence leaves only rounding)
+DEM_STATE_TOL = 1e-10
+# f32 on the card against f32 on the CPU, relative to max|ref| per leaf:
+# the two order their float32 sums differently and nvcc contracts
+# multiply-adds
+DEM_F32_TOL = 1e-5
+# (n, timed attempts, warm attempts) of the bench rows
+DEM_BENCH_ROWS = ((200, 400, 100), (2000, 100, 20))
+
+
+def _dem_state(cfg, seed):
+    """tests/test_dem.py's state at n spheres: the dense icond with random
+    velocities and spins, and two spheres pushed into contact."""
+    from porousfreezethaw_tpu_torch.models.dem import icond_dense
+    state, _ = icond_dense(cfg, seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    state["vel"] = rng.standard_normal((cfg.n, 3))
+    if cfg.angular:
+        state["angvel"] = 5.0 * rng.standard_normal((cfg.n, 3))
+    state["pos"][1] = state["pos"][0] + [2 * cfg.r * 0.9, 0, 0]
+    return state
+
+
+def _device_time(prof):
+    """(summed device us, kernel launches, top rows) of a torch.profiler
+    run; (0, 0, []) when it recorded no device time."""
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        rows.append((float(us), e.key, e.count))
+    rows.sort(reverse=True)
+    return sum(r[0] for r in rows), sum(r[2] for r in rows), rows
+
+
+def _dem_rhs_checks(dev):
+    from porousfreezethaw_tpu_torch.models.dem import DEMConfig, make_dem_rhs
+    out = []
+    for variant in DEM_VARIANTS:
+        cfg = DEMConfig(variant=variant, n=DEM_N)
+        state = _dem_state(cfg, SEED)
+        for dtype, tol in ((torch.float64, 1e-12),
+                           (torch.float32, DEM_F32_TOL)):
+            ref = make_dem_rhs(cfg, dtype=dtype, device="cpu")(0.0, {
+                k: torch.as_tensor(v, dtype=dtype) for k, v in
+                state.items()})
+            got = make_dem_rhs(cfg, dtype=dtype, device=dev)(0.0, {
+                k: torch.as_tensor(v, dtype=dtype, device=dev) for k, v in
+                state.items()})
+            errs = {}
+            for k, r in ref.items():
+                g = got[k].cpu()
+                if g.dtype != dtype or g.shape != r.shape:
+                    raise AssertionError(f"dem rhs {variant}/{k}: "
+                                         f"{g.dtype} {tuple(g.shape)}")
+                scale = float(r.abs().max())
+                errs[k] = float((g - r).abs().max()) / max(scale, 1e-300)
+            row = dict(variant=variant, dtype=str(dtype)[6:], n=DEM_N,
+                       tol=tol, max_rel_err=errs)
+            emit("dem_rhs", **row)
+            out.append(row)
+            bad = {k: e for k, e in errs.items() if not e <= tol}
+            if bad:
+                raise AssertionError(f"dem rhs {variant} {dtype}: {bad} "
+                                     f"above {tol}")
+    return out
+
+
+def _dem_short_solve(dev):
+    """friction_angular, n = 200, f64, dense icond seed 0, to DEM_SHORT_T on
+    the card and on the CPU: equal counts; ms/attempt, wall and (under
+    torch.profiler, the same solve again) device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from porousfreezethaw_tpu_torch.models.dem import (
+        DEMConfig, icond_dense, make_dem_rhs)
+    from porousfreezethaw_tpu_torch.solvers.merson import (
+        MersonParams, merson_init, merson_solve)
+
+    cfg = DEMConfig(variant="friction_angular", n=DEM_N)
+    y0, _ = icond_dense(cfg, seed=0)
+    params = MersonParams(delta=cfg.delta, h_min=cfg.ht_min)
+
+    def run(device):
+        rhs = make_dem_rhs(cfg, dtype=torch.float64, device=device)
+        st = merson_init({k: torch.as_tensor(v, device=device)
+                          for k, v in y0.items()}, 0.0, cfg.ht)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, status = merson_solve(rhs, st, DEM_SHORT_T, params)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return st, status, time.perf_counter() - t0
+
+    card, status, wall = run(dev)
+    cpu, cpu_status, cpu_wall = run(torch.device("cpu"))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        again, _, prof_wall = run(dev)
+    device_us, kernels, rows = _device_time(prof)
+    diff = max(float((card.y[k].cpu() - cpu.y[k]).abs().max())
+               for k in y0)
+    # per leaf, the card's state against the CPU's relative to max|CPU|
+    rel = {k: float((card.y[k].cpu() - cpu.y[k]).abs().max())
+           / max(float(cpu.y[k].abs().max()), 1e-300) for k in y0}
+    n = card.steps_total
+    rec = dict(variant="friction_angular", n=DEM_N, dtype="f64",
+               t=card.t, steps=card.steps, attempts=n,
+               cpu_steps=cpu.steps, cpu_attempts=cpu.steps_total,
+               wall_s=wall, ms_per_attempt=1e3 * wall / n,
+               cpu_wall_s=cpu_wall, cpu_ms_per_attempt=1e3 * cpu_wall / n,
+               profiled_wall_s=prof_wall,
+               device_ms_per_attempt=(device_us / 1e3 / n if device_us
+                                      else "not measured"),
+               kernels_per_attempt=kernels / n if device_us else None,
+               device_busy_share=(device_us / 1e6 / prof_wall if device_us
+                                  else "not measured"),
+               max_abs_state_diff=diff, max_rel_state_diff=rel,
+               state_tol=DEM_STATE_TOL,
+               top=[dict(kernel=k[:60], count=c, us=us)
+                    for us, k, c in rows[:8]])
+    emit("dem_solve", **rec)
+    if not (status == cpu_status == 0 and again.steps_total == n
+            and (card.steps, n) == (cpu.steps, cpu.steps_total)):
+        raise AssertionError(f"dem short solve: card {card.steps}/{n} "
+                             f"status {status}, CPU {cpu.steps}/"
+                             f"{cpu.steps_total} status {cpu_status}")
+    bad = {k: e for k, e in rel.items() if not e <= DEM_STATE_TOL}
+    if bad:
+        raise AssertionError(f"dem short solve: state {bad} above "
+                             f"{DEM_STATE_TOL} of max|CPU| per leaf")
+    return rec
+
+
+def _dem_bench(dev):
+    from porousfreezethaw_tpu_torch import bench
+    recs = []
+    for n, steps, warm in DEM_BENCH_ROWS:
+        args = bench.parse_args(["--suite", "dem", "--device", str(dev),
+                                 "--steps", str(steps), "--warm-steps",
+                                 str(warm)])
+        torch.cuda.reset_peak_memory_stats(dev)
+        rec = bench.bench_dem(args, n_spheres=n)
+        rec["peak_memory_mb"] = torch.cuda.max_memory_allocated(dev) / 1e6
+        emit("dem_bench", **rec)
+        if not (rec["value"] > 0 and rec["metric"]
+                == f"dem_{n}_particle_rhs_evals_per_s"
+                and rec["device"] == torch.cuda.get_device_name(dev)):
+            raise AssertionError(f"dem bench row {n}: {rec}")
+        recs.append(rec)
+    return recs
+
+
+def phase_dem(dev) -> None:
+    """The spheres DEM on the card: its right-hand side against the CPU's,
+    a short solve against the CPU's step counts, the bench's DEM rows."""
+    _dem_rhs_checks(dev)
+    _dem_short_solve(dev)
+    _dem_bench(dev)
+
+
+def phase_dem_settle(dev) -> None:
+    """Optional: VALIDATION.md's settle through the spheres app on the
+    card (seed 0), its final positions, and their eps_s at res = 100 on
+    the card, beside the repo's records: eps_s 0.6529 (JAX) and 0.6549
+    (the reference's run), ensemble 0.64-0.71; z-extent 0.078-1.340; JAX's
+    170,206 / 205,471 steps."""
+    import contextlib
+
+    from porousfreezethaw_tpu_torch.analysis import eps_s
+    from porousfreezethaw_tpu_torch.apps import spheres
+
+    out = os.path.join(REPO, "chiprun_out", "dem_settle")
+    os.makedirs(out, exist_ok=True)
+    final = os.path.join(out, "spheres_final_positions.txt")
+    log_path = os.path.join(out, "spheres.log")
+    t0 = time.perf_counter()
+    # the app's console lines go to the log as they come, so that a run cut
+    # short still shows how far it got
+    with open(log_path, "w", buffering=1) as log, \
+            contextlib.redirect_stdout(log):
+        rc = spheres.main([
+            "--variant", "friction_angular", "--n", "200", "--precision",
+            "f64", "--icond", "dense", "--seed", "0", "--snapshots", "400",
+            "--final-time", "8", "--device", str(dev), "--device-buffer",
+            "8", "--output", os.path.join(out, "OUTPUT"),
+            "--final-positions", final])
+    wall = time.perf_counter() - t0
+    with open(log_path) as f:
+        text = f.read()
+    steps = re.findall(r"(\d+) R-K steps \((\d+) total\)", text)
+    pos = np.loadtxt(final)
+    val = eps_s(pos, r=0.1, res=100, device=dev)
+    rec = dict(rc=rc, wall_s=wall, steps=int(steps[-1][0]),
+               attempts=int(steps[-1][1]),
+               ms_per_attempt=1e3 * wall / int(steps[-1][1]), eps_s=val,
+               z_extent=[float(pos[:, 2].min()), float(pos[:, 2].max())],
+               records=dict(eps_s_jax=0.6529, eps_s_reference=0.6549,
+                            ensemble=[0.64, 0.71],
+                            z_extent_jax=[0.078, 1.340],
+                            steps_jax=[170206, 205471]))
+    emit("dem_settle", **rec)
+    if rc != 0 or not 0.60 < val < 0.72:
+        raise AssertionError(f"dem settle: {rec}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1560,8 +1785,12 @@ def main(argv=None) -> int:
         mesh_kernels, mesh_launches = phase_mesh(dev)
         kernels.update(mesh_kernels)
         launches.update(mesh_launches)
+    if "dem" in phases:
+        phase_dem(dev)
     if "profile" in phases:
         phase_profile(dev)
+    if "dem_settle" in phases:
+        phase_dem_settle(dev)
 
     for name in set(kernels) & set(launches):
         kernels[name]["launches"] = launches[name]

@@ -246,14 +246,15 @@ def run_iteration(
         log("Device mesh: %s\n", mesh.shape)
         nz, ny = mesh.shape.get("z", 1), mesh.shape.get("y", 1)
         axes = set(mesh.axis_names)
-        fits = (total_n3 % nz == 0 and total_n3 // nz >= 2
-                and n2 % ny == 0)
+        # z splits into equal parts; y into unequal windows of >= 1 row
+        fits = total_n3 % nz == 0 and total_n3 // nz >= 2 and n2 >= ny
         if not (f32 and noise is None and fits
                 and (axes == {"z"} or (axes == {"z", "y"} and use_delta))):
             # the JAX app's GSPMD fallback over the plain right-hand side
             raise NotImplementedError(
-                "--mesh: this mesh path (f64, a noise field, a mesh the grid "
-                "does not divide, or the classic stage on a z,y mesh) is not "
+                "--mesh: this mesh path (f64, a noise field, an n3 that z "
+                "does not divide into shards of >= 2 planes, an n2 of fewer "
+                "rows than y, or the classic stage on a z,y mesh) is not "
                 "ported yet")
         if axes == {"z"} and use_delta:
             attempt_fn = ShardedDeltaAttempt(geom, solver_params, calc_mode,

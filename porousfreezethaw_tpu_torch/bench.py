@@ -32,17 +32,27 @@ without a GPU; nothing falls back to the CPU.
 ``--no-overlap``), a mesh with a y axis the 2-D increment-form attempt
 (``ShardedDeltaAttempt2D``); the metric gets ``_sharded_<spec>``.
 
+``--suite dem [--n-spheres N]`` is ``bench.py``'s DEM suite: the
+adaptive Merson solve of the ``friction_angular`` dense bed of N spheres
+(``icond_dense``, seed 0; a proportionally smaller radius past 400) in
+f32, the dense pair term, ``--warm-steps`` then ``--steps`` attempted
+steps (20000 each to 400 spheres, 2000 past), under its metric
+``dem_{N}_particle_rhs_evals_per_s`` (particle*RHS-evals/s/chip against
+the MATLAB twin's 820 at N = 200, BASELINE.md).
+
 ``--matrix`` runs the LR/MR/HR x GradP/SigmaP1-P/Temp rows, the MR GradP
-delta row and the MR GradP mesh rows (``z1`` and ``z1,y1``), each in its
-own process, and prints one JSON line per row and the MR GradP row again as
-the last line.  The matrix's DEM rows and ``--suite dem`` are not ported
-yet and raise.  The matrix writes a file only where ``--out`` names one.
+delta row, the MR GradP mesh rows (``z1`` and ``z1,y1``) and the DEM rows,
+each in its own process, and prints one JSON line per row and the MR GradP
+row again as the last line.  The DEM rows of the ``cell_lanes`` strategy
+raise "not ported yet": they wait for a GPU cell list.  The matrix writes
+a file only where ``--out`` names one.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -58,6 +68,7 @@ from .cases import freezing_params_text
 from .config import parse_param_file
 from .core.device import field_dtype, numpy_dtype, resolve_device
 from .core.grid import GridGeometry
+from .models.dem import DEMConfig, icond_dense, make_dem_rhs
 from .models.freezing import (
     FreezingParams, build_glass_field, build_initial_conditions, make_rhs,
     read_ball_positions, shift_temperature_origin)
@@ -84,6 +95,11 @@ BASELINES = {
 MODE_NAMES = {0: "gradp", 1: "sigmap", 2: "temp"}
 GRID_NAMES = {100: "lr", 200: "mr", 400: "hr"}
 UNIT = "cell*RHS-evals/s/chip"
+DEM_UNIT = "particle*RHS-evals/s/chip"
+# the MATLAB twin, 200-sphere dense porous-bed case: 200 particles x
+# 151,969 f-evals / 37,059 s (BASELINE.md spheres_200_dense.log), as in
+# bench.py
+BASELINE_DEM_PARTICLE_EVALS_PER_S = 820.0
 HEADLINE = "freezing_gradp_cell_rhs_evals_per_s"
 REPO_BALLS = (Path(__file__).resolve().parents[1] / "data"
               / "spheres_positions.txt")
@@ -266,13 +282,70 @@ def bench_freezing(args, grid_nodes=None, calc_mode=None) -> dict:
     }
 
 
+def bench_dem(args, n_spheres=None) -> dict:
+    """One timed DEM row (bench.py's ``bench_dem``, dense); returns its
+    record."""
+    n = n_spheres or args.n_spheres
+    device = resolve_device(args.device)
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    log(f"device: {device} ({name})")
+    # large-n beds use a proportionally smaller radius, like a finer bed
+    r = 0.1 if n <= 400 else 0.1 * (200.0 / n) ** (1.0 / 3.0)
+    cfg = DEMConfig(variant="friction_angular", n=n, r=r)
+    y0, _ = icond_dense(cfg, seed=0)
+    rhs = make_dem_rhs(cfg, dtype=torch.float32, device=device)
+    steps = args.steps or (20000 if n <= 400 else 2000)
+    warm = args.warm_steps or steps
+    params = MersonParams(delta=cfg.delta, h_min=cfg.ht_min,
+                          max_steps=steps, handle_nan=True)
+    state = merson_init({k: torch.as_tensor(v, dtype=torch.float32,
+                                            device=device)
+                         for k, v in y0.items()}, 0.0, cfg.ht)
+    log(f"warmup: {warm} attempted steps (n={n}, neighbor=dense)...")
+    state = merson_solve(rhs, state, 1e9, dataclasses.replace(
+        params, max_steps=warm))[0]
+    _sync(device)
+    before, before_ok = state.steps_total, state.steps
+    log(f"timing {steps} attempted steps (t={state.t:.3f}s sim)...")
+    with _profiled(args.profile_dir, device):
+        _sync(device)
+        t0 = time.perf_counter()
+        state = merson_solve(rhs, state, 1e9, params)[0]
+        _sync(device)
+        wall = time.perf_counter() - t0
+    done = state.steps_total - before
+    value = 5.0 * cfg.n * done / wall
+    log(f"{done} attempts, {wall:.2f}s -> {value:.3e} particle*RHS-evals/s "
+        f"(t={state.t:.3f}s sim)")
+    if not all(bool(torch.isfinite(v).all()) for v in state.y.values()):
+        raise RuntimeError("the benchmark solve produced a non-finite state")
+    return {
+        "metric": f"dem_{n}_particle_rhs_evals_per_s",
+        "value": value,
+        "unit": DEM_UNIT,
+        "vs_baseline": (value / BASELINE_DEM_PARTICLE_EVALS_PER_S
+                        if n == 200 else None),
+        "ms_per_attempt": wall / done * 1e3,
+        "device": name,
+        "neighbor": "dense",
+        "dtype": "f32",
+        "n_spheres": n,
+        "attempts": done,
+        "accepted": state.steps - before_ok,
+        "warm_attempts": before,
+        "t_sim": state.t,
+    }
+
+
 # --------------------------------------------------------------------------
 # the matrix
 # --------------------------------------------------------------------------
 
 def matrix_specs():
     """(row spec, label) of bench.py's matrix; each row runs in its own
-    process.  The DEM rows are not ported yet."""
+    process.  The DEM rows of the cell_lanes strategy are not ported
+    yet."""
     specs = [(f"freezing:{gn}:{cm}", f"freezing_{gn}_{cm}")
              for gn in (100, 200, 400) for cm in (0, 1, 2)]
     specs.append(("freezing:200:0:delta", "freezing_200_0_delta"))
@@ -290,9 +363,12 @@ def matrix_specs():
 def bench_row(args, spec: str) -> dict:
     """One matrix row in this process (``--row``)."""
     parts = spec.split(":")
-    if parts[0] != "freezing":
-        raise NotPortedError(f"matrix row {spec}: the DEM suite is not "
-                             "ported yet")
+    if parts[0] == "dem":
+        if parts[2] != "dense":
+            raise NotPortedError(
+                f"matrix row {spec}: the {parts[2]} strategy is not ported "
+                "yet; it waits for the GPU cell list (ROADMAP)")
+        return bench_dem(args, n_spheres=int(parts[1]))
     extra = parts[3] if len(parts) > 3 else ""
     if extra == "delta":
         args.fused = "delta"
@@ -361,6 +437,13 @@ def parse_args(argv=None):
         description=__doc__.splitlines()[0])
     ap.add_argument("--suite", choices=["freezing", "dem"],
                     default="freezing")
+    ap.add_argument("--n-spheres", type=int, default=200,
+                    help="spheres of the DEM bed (--suite dem)")
+    ap.add_argument("--neighbor", choices=["dense", "cell_list",
+                                           "cell_roll", "cell_lanes"],
+                    default="dense",
+                    help="DEM neighbor strategy (--suite dem); only "
+                         "'dense' is ported")
     ap.add_argument("--matrix", action="store_true",
                     help="the LR/MR/HR x GradP/SigmaP/Temp matrix and the "
                          "MR GradP delta row, one JSON line each (each row "
@@ -403,13 +486,18 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.suite == "dem":
-        raise NotPortedError("--suite dem: the DEM suite is not ported yet")
     if args.row:
         print(json.dumps(bench_row(args, args.row)), flush=True)
         return 0
     if args.matrix:
         return run_matrix(args)
+    if args.suite == "dem":
+        if args.neighbor != "dense":
+            raise NotPortedError(
+                f"--neighbor {args.neighbor}: not ported yet; the cell "
+                "strategies wait for the GPU cell list (ROADMAP)")
+        print(json.dumps(bench_dem(args)), flush=True)
+        return 0
     print(json.dumps(bench_freezing(args)), flush=True)
     return 0
 

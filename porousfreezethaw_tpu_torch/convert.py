@@ -7,7 +7,9 @@ objects meet as plain Python and numpy values:
   JAX package into this package's ``FreezingParams``;
 * ``state_from_reference(w, t, h, steps, steps_total, device)`` turns a
   numpy ``(3, n3, n2, n1)`` state and the ``MersonState`` scalars into this
-  package's ``MersonState``.
+  package's ``MersonState``;
+* ``dem_state_from_reference(y, t, h, steps, steps_total)`` does the same
+  for a DEM state, a dict of ``(n, 3)`` arrays ({pos, vel[, angvel]}).
 
 On disk the carrier is the NetCDF snapshot: every snapshot the JAX app
 writes is a checkpoint this package's app resumes through
@@ -50,4 +52,28 @@ def state_from_reference(w, t, h, steps, steps_total,
     # buffer
     y = torch.tensor(arr, dtype=dtype, device=device)
     return MersonState(t=float(t), h=float(h), y=y, steps=int(steps),
+                       steps_total=int(steps_total))
+
+
+def dem_state_from_reference(y: Mapping[str, object], t, h, steps,
+                             steps_total, device: torch.device | str = "cpu",
+                             dtype: Optional[torch.dtype] = None
+                             ) -> MersonState:
+    """``y`` maps 'pos', 'vel' and optionally 'angvel' to ``(n, 3)``
+    arrays (numpy, or a JAX array's host copy); ``dtype`` defaults to each
+    array's own float dtype.  The scalars are read as Python numbers."""
+    keys = set(y)
+    if not ({"pos", "vel"} <= keys <= {"pos", "vel", "angvel"}):
+        raise ValueError(f"a DEM state has pos, vel[, angvel], got "
+                         f"{sorted(keys)}")
+    out = {}
+    for k in ("pos", "vel", "angvel"):
+        if k not in y:
+            continue
+        arr = np.asarray(y[k])
+        if arr.ndim != 2 or arr.shape[1] != 3:
+            raise ValueError(f"{k} must be (n, 3), got {arr.shape}")
+        # a copy, as in state_from_reference
+        out[k] = torch.tensor(arr, dtype=dtype, device=device)
+    return MersonState(t=float(t), h=float(h), y=out, steps=int(steps),
                        steps_total=int(steps_total))

@@ -26,13 +26,17 @@ class DeviceError(RuntimeError):
 
 def resolve_device(name: str | torch.device) -> torch.device:
     """``torch.device`` for ``name`` ('cuda', 'cuda:1', 'cpu'); raises
-    :class:`DeviceError` when a CUDA device is asked for and none exists."""
+    :class:`DeviceError` when a CUDA device is asked for and none exists.
+    A bare 'cuda' gets the current device's index, as every tensor's
+    device has one, so that the result compares equal to ``x.device``."""
     dev = torch.device(name)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise DeviceError(
                 f"device {str(name)!r} requested but torch.cuda.is_available() "
                 "is False")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
         if dev.index is not None and dev.index >= torch.cuda.device_count():
             raise DeviceError(
                 f"device {str(name)!r} requested but only "

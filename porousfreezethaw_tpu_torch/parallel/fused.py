@@ -51,7 +51,7 @@ from ..models.freezing.parameters import FreezingParams
 from ..ops.cuda.stencil import (
     K_VARS, N_VARS, StencilSpec, commit, delta_g_shard, fused_stage_shard,
     ghost_planes)
-from .sharding import Mesh
+from .sharding import Mesh, split_rows
 
 Shards = List[torch.Tensor]
 
@@ -59,7 +59,8 @@ Shards = List[torch.Tensor]
 def halo_bytes_per_attempt(geom: GridGeometry, nz: int = 1, ny: int = 1, *,
                            delta: bool = False, dtype_bytes: int = 4) -> int:
     """Halo copies of one Merson attempt per shard, both directions, in the
-    plain layout (shards of n3/nz planes and n2/ny rows).
+    plain layout (shards of n3/nz planes and, for the largest y window,
+    ceil(n2/ny) rows).
 
     z: each stage receives one raw edge plane of w (3 variables) and of
     every K entering its combination (2 each) from each z-neighbour; the
@@ -68,7 +69,7 @@ def halo_bytes_per_attempt(geom: GridGeometry, nz: int = 1, ny: int = 1, *,
     the two ghost rows, and y adds one raw edge row per side of w once per
     attempt and of K1, G2, G3 and G4 once each (the increment form)."""
     stage_k = (0, 1, 2, 2, 3) if delta else (0, 1, 2, 3, 3)
-    rows = geom.n2 // ny + (2 if ny > 1 else 0)
+    rows = -(-geom.n2 // ny) + (2 if ny > 1 else 0)
     z = sum(ghost_planes(nk) for nk in stage_k) * 2 * rows * geom.n1
     y = ((N_VARS + 4 * K_VARS) * 2 * (geom.n3 // nz) * geom.n1
          if ny > 1 else 0)
@@ -77,7 +78,9 @@ def halo_bytes_per_attempt(geom: GridGeometry, nz: int = 1, ny: int = 1, *,
 
 class _Topology:
     """The shards of a z (and, with ``y_axis``, y) decomposition: their
-    devices, positions and windows, the halo copies and their streams."""
+    devices, positions and windows, the halo copies and their streams.
+    z splits into equal parts; y into the windows of ``split_rows``, where
+    the first ``n2 % ny`` shards hold one row more."""
 
     def __init__(self, geom: GridGeometry, mesh: Mesh, z_axis: str = "z",
                  y_axis: Optional[str] = None):
@@ -91,10 +94,11 @@ class _Topology:
         if geom.n3 % self.nz:
             raise ValueError(f"n3={geom.n3} not divisible by mesh "
                              f"{z_axis}={self.nz}")
-        if geom.n2 % self.ny:
-            raise ValueError(f"n2={geom.n2} not divisible by mesh "
+        if geom.n2 < self.ny:
+            raise ValueError(f"n2={geom.n2} has fewer rows than mesh "
                              f"{y_axis}={self.ny}")
-        self.zl, self.yl = geom.n3 // self.nz, geom.n2 // self.ny
+        self.zl = geom.n3 // self.nz
+        self.rows = [split_rows(geom.n2, self.ny, j) for j in range(self.ny)]
         if self.zl < 2:
             raise ValueError(f"shards need >= 2 z planes, have {self.zl}")
         self.extended = y_axis is not None
@@ -117,15 +121,16 @@ class _Topology:
         """Raise unless ``ys`` are this mesh's ``nv``-plane state shards."""
         if len(ys) != self.size:
             raise ValueError(f"expected {self.size} shards, got {len(ys)}")
-        for y, dev in zip(ys, self.devices):
-            want = (nv, self.zl, self.yl)
+        for i, (y, dev) in enumerate(zip(ys, self.devices)):
+            want = (nv, self.zl, self.window(i)[1])
             if tuple(y.shape[:3]) != want or y.device != dev:
                 raise ValueError(f"expected a shard {want} + (n1,) on {dev}, "
                                  f"got {tuple(y.shape)} on {y.device}")
 
     def window(self, i: int):
         """(r0, Yl, y0) of shard ``i``'s inputs (see ops/cuda/stencil.py)."""
-        return (int(self.extended), self.yl, self.pos[i][1] * self.yl)
+        ys = self.rows[self.pos[i][1]]
+        return (int(self.extended), ys.stop - ys.start, ys.start)
 
     def is_top(self, i: int) -> bool:
         return self.pos[i][0] == self.nz - 1

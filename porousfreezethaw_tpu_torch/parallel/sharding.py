@@ -108,28 +108,40 @@ def make_mesh(spec: str = "z", devices: Optional[Sequence] = None, *,
     return Mesh(arr.reshape([s for _, s in axes]), [n for n, _ in axes])
 
 
+def split_rows(n: int, parts: int, j: int) -> slice:
+    """Part ``j`` of ``n`` rows split into ``parts`` windows the way
+    ``np.array_split`` splits them: the first ``n % parts`` windows take
+    one row more."""
+    q, r = divmod(n, parts)
+    start = j * q + min(j, r)
+    return slice(start, start + q + (j < r))
+
+
 def shard_block(mesh: Mesh, i: int, grid: Tuple[int, int, int]
                 ) -> Tuple[slice, slice]:
     """The (z, y) slices of the grid ``(n3, n2, n1)`` that shard ``i``
-    holds: Z over axis ``z`` and Y over axis ``y`` where the mesh has them;
-    other axes replicate."""
+    holds: Z over axis ``z`` in equal parts, Y over axis ``y`` in the
+    windows of :func:`split_rows`, where the mesh has them; other axes
+    replicate."""
     shape, at = mesh.shape, mesh.coords(i)
     zl = grid[0] // shape.get("z", 1)
-    yl = grid[1] // shape.get("y", 1)
-    iz, iy = at.get("z", 0), at.get("y", 0)
-    return slice(iz * zl, (iz + 1) * zl), slice(iy * yl, (iy + 1) * yl)
+    iz = at.get("z", 0)
+    return (slice(iz * zl, (iz + 1) * zl),
+            split_rows(grid[1], shape.get("y", 1), at.get("y", 0)))
 
 
 def shard_freezing_state(w: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
     """The state ``(nv, n3, n2, n1)`` as the list of its shards in mesh
-    order, each a contiguous copy on its device.  The sharded dimensions
-    must be divisible by the mesh axis sizes."""
+    order, each a contiguous copy on its device.  n3 must be divisible by
+    the mesh's z axis; every y window holds at least one row."""
     zsize = mesh.shape.get("z", 1)
     ysize = mesh.shape.get("y", 1)
-    if w.shape[1] % zsize or w.shape[2] % ysize:
-        raise ValueError(
-            f"grid {tuple(w.shape[1:])} not divisible by mesh z={zsize}, "
-            f"y={ysize}")
+    if w.shape[1] % zsize:
+        raise ValueError(f"grid {tuple(w.shape[1:])}: n3 not divisible by "
+                         f"mesh z={zsize}")
+    if w.shape[2] < ysize:
+        raise ValueError(f"grid {tuple(w.shape[1:])}: fewer rows than mesh "
+                         f"y={ysize}")
     out = []
     for i, dev in enumerate(mesh.device_list()):
         zs, ys = shard_block(mesh, i, tuple(w.shape[1:]))
@@ -144,8 +156,12 @@ def gather_freezing_state(shards: Sequence[torch.Tensor], mesh: Mesh,
                           ) -> torch.Tensor:
     """The whole state from its shards, on ``device`` (the first shard's
     by default)."""
-    nv, zl, yl, n1 = shards[0].shape
-    grid = (zl * mesh.shape.get("z", 1), yl * mesh.shape.get("y", 1), n1)
+    nv, zl, _, n1 = shards[0].shape
+    # the rows of one y column of the mesh: the shards at coordinate 0 on
+    # every other axis
+    n2 = sum(s.shape[2] for i, s in enumerate(shards)
+             if all(c == 0 for a, c in mesh.coords(i).items() if a != "y"))
+    grid = (zl * mesh.shape.get("z", 1), n2, n1)
     out = torch.empty((nv,) + grid, dtype=shards[0].dtype,
                       device=device or shards[0].device)
     for i, s in enumerate(shards):

@@ -19,7 +19,10 @@ RK_MPI_SAsolver.c:330-660):
     final-step trimming: h clamped to final_time - t; the *untrimmed*
       estimate is preserved for seamless continuation across calls
 
-The state ``y`` is one tensor.  The controller scalars t, h and eps are
+The state ``y`` is one tensor, or a dict of tensors (the DEM's {pos, vel,
+angvel}), on which every step runs per leaf and eps is the max of the
+leaves' maxima (NaN-propagating, as ``jnp.maximum`` over the JAX
+package's pytree leaves).  The controller scalars t, h and eps are
 Python floats (f64) whatever the field dtype: f32 time accumulation breaks
 down over the reference's 36000 s runs (ulp(36000) in f32 is ~4 ms vs
 steps ~20 ms).  The accept/reject loop runs on the host and reads eps back
@@ -30,6 +33,7 @@ call after each accepted step.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, NamedTuple, Optional
 
@@ -49,7 +53,7 @@ class MersonState(NamedTuple):
 
     t: float
     h: float
-    y: Any                 # solution tensor
+    y: Any                 # solution tensor, or dict of tensors
     steps: int             # successful steps
     steps_total: int       # attempted steps
 
@@ -79,10 +83,26 @@ def merson_init(y0, t0: float = 0.0, h0: float = 1.0) -> MersonState:
                        steps_total=0)
 
 
-def _axpy(a: float, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """y + a*x with the f64 scalar rounded to the field dtype first, so
-    controller scalars never upcast f32 fields."""
-    return y + torch.tensor(a, dtype=x.dtype, device=x.device) * x
+def _axpy(a: float, x, y):
+    """y + a*x per leaf (on a tensor, or on a dict's leaves).  ``a`` goes
+    to the kernel as a scalar argument, which PyTorch rounds to the field
+    dtype first, so f64 controller scalars never upcast f32 fields."""
+    return _leaves(lambda yv, xv: yv + xv * a, y, x)
+
+
+def _leaves(fn, *trees):
+    """``fn`` over the matching leaves of dicts, or on tensors."""
+    if isinstance(trees[0], dict):
+        return {k: fn(*(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _max_of_leaves(per_leaf):
+    """The max of per-leaf maxima (a dict's), NaN-propagating as
+    ``jnp.maximum``; a tensor's own max as it is."""
+    if isinstance(per_leaf, dict):
+        return functools.reduce(torch.maximum, per_leaf.values())
+    return per_leaf
 
 
 def merson_solve(
@@ -98,8 +118,9 @@ def merson_solve(
     """Integrate ``state`` to ``final_time``; returns ``(state, status)``,
     or ``(state, status, (t_trace, h_trace))`` with ``record_trace``.
 
-    ``rhs(t, y) -> dy/dt``.  ``eps_mult`` is an optional tensor of per-cell
-    error multipliers broadcast against ``y`` (chunk_eps_mult).
+    ``rhs(t, y) -> dy/dt``, on a tensor or a dict of tensors.
+    ``eps_mult`` is an optional tensor of per-cell error multipliers
+    broadcast against a tensor ``y`` (chunk_eps_mult).
 
     ``service_callback(t, h, steps) -> int`` is called after every
     accepted step; a nonzero return interrupts the solve, which then
@@ -143,11 +164,17 @@ def merson_solve(
             "this stage_fn emits partial-state K arrays and requires its "
             ".stage5 tail (eps_mult is unsupported with it)")
 
-    def eps_of(K1, K3, K4, K5):
-        err = torch.abs(0.2 * K1 - 0.9 * K3 + 0.8 * K4 - 0.1 * K5)
+    if eps_mult is not None and isinstance(state.y, dict):
+        raise ValueError("eps_mult is a tensor for a tensor state")
+
+    def leaf_eps(k1, k3, k4, k5):
+        err = torch.abs(0.2 * k1 - 0.9 * k3 + 0.8 * k4 - 0.1 * k5)
         if eps_mult is not None:
             err = eps_mult * err
         return torch.amax(err)
+
+    def eps_of(K1, K3, K4, K5):
+        return _max_of_leaves(_leaves(leaf_eps, K1, K3, K4, K5))
 
     n_trace = params.record_trace
     t_tr = [0.0] * n_trace
@@ -188,9 +215,11 @@ def merson_solve(
         else:
             K1 = rhs(t, y)
             K2 = rhs(t + h3, _axpy(h3, K1, y))
-            K3 = rhs(t + h3, _axpy(h6, K1 + K2, y))
-            K4 = rhs(t + h2, _axpy(h8, K1 + 3.0 * K3, y))
-            K5 = rhs(t + h, _axpy(h, 0.5 * K1 - 1.5 * K3 + 2.0 * K4, y))
+            K3 = rhs(t + h3, _axpy(h6, _leaves(torch.add, K1, K2), y))
+            K4 = rhs(t + h2, _axpy(
+                h8, _leaves(lambda a, b: a + 3.0 * b, K1, K3), y))
+            K5 = rhs(t + h, _axpy(h, _leaves(
+                lambda a, b, c: 0.5 * a - 1.5 * b + 2.0 * c, K1, K3, K4), y))
 
         steps_total += 1
         if carry_spec is not None or y_spec is not None:
@@ -225,7 +254,8 @@ def merson_solve(
             elif y_spec is not None:
                 y = y_spec
             else:
-                y = _axpy(h3, 0.5 * (K1 + K5) + 2.0 * K4, y)
+                y = _axpy(h3, _leaves(lambda a, b, c: 0.5 * (a + c)
+                                      + 2.0 * b, K1, K4, K5), y)
         t_new = t + h if do_update else t
         steps_new = steps + 1 if do_update else steps
 

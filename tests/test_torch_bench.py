@@ -1,8 +1,9 @@
 """The port's bench entry point (``python -m porousfreezethaw_tpu_torch.bench``)
 on the CPU at a tiny grid: its one-JSON-line contract and metric names
 against the JAX package's ``bench.py``, the Merson parameters of each
-path, and what it refuses (the DEM suite, which is not
-ported yet, and a GPU it does not have).  ``--matrix`` prints its rows and
+path, the DEM suite's row, and what it refuses (the DEM rows of the
+cell_lanes strategy, which wait for a GPU cell list, and a GPU it does
+not have).  ``--matrix`` prints its rows and
 writes no BENCH_MATRIX.json."""
 
 import json
@@ -88,26 +89,48 @@ def test_metric_names_follow_bench_py():
 
 
 def test_not_ported_yet():
-    """The DEM suite and its matrix rows raise; the mesh rows run (their
-    f64 form is refused: the mesh paths are the f32 kernels')."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        bench.main(["--suite", "dem", "--device", "cpu"])
+    """The cell_lanes strategy, in --suite dem and in the matrix's rows,
+    raises and names the GPU cell list; the mesh rows run (their f64 form
+    is refused: the mesh paths are the f32 kernels')."""
+    with pytest.raises(NotImplementedError, match="GPU cell list"):
+        bench.main(["--suite", "dem", "--neighbor", "cell_lanes",
+                    "--device", "cpu"])
     with pytest.raises(ValueError, match="f32 kernel paths"):
         bench.main(["--mesh", "z", "--device", "cpu", "--dtype", "f64"])
     args = bench.parse_args(TINY)
-    for spec, _ in bench.matrix_specs():
-        if spec.startswith("dem:"):
-            with pytest.raises(NotImplementedError, match="not ported yet"):
-                bench.bench_row(args, spec)
+    lanes = [s for s, _ in bench.matrix_specs() if ":cell_lanes:" in s]
+    assert len(lanes) == 4
+    for spec in lanes:
+        with pytest.raises(NotImplementedError,
+                           match="not ported yet.*GPU cell list"):
+            bench.bench_row(args, spec)
 
 
 def test_not_ported_row_in_its_own_process():
-    """A matrix row runs in a process of its own; an unported one exits
-    non-zero and becomes an error record."""
-    rec = bench.run_row("dem:200:dense:512", "dem_200_dense",
+    """A matrix row runs in a process of its own; an unported one (a
+    cell_lanes row) exits non-zero and becomes an error record."""
+    rec = bench.run_row("dem:4000:cell_lanes:512:8", "dem_4000_cell_lanes_k8",
                         bench.parse_args(TINY))
     assert rec["value"] is None and rec["rc"] != 0
     assert "not ported yet" in rec["error"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--suite", "dem", "--n-spheres", "12"],
+    ["--row", "dem:12:dense:512"]])
+def test_dem_suite(argv, capsys):
+    """--suite dem and a dense DEM matrix row: one JSON line under
+    bench.py's DEM metric name, 5 timed attempts after 5 warm ones of the
+    f32 dense pair term."""
+    assert bench.main(argv + ["--device", "cpu", "--steps", "5",
+                              "--warm-steps", "5"]) == 0
+    rec = last_json(capsys.readouterr().out)
+    assert rec["metric"] == "dem_12_particle_rhs_evals_per_s"
+    assert rec["unit"] == "particle*RHS-evals/s/chip"
+    assert rec["value"] > 0 and rec["vs_baseline"] is None
+    assert (rec["attempts"], rec["warm_attempts"]) == (5, 5)
+    assert (rec["device"], rec["dtype"], rec["neighbor"]) == (
+        "cpu", "f32", "dense")
 
 
 def test_refuses_what_it_cannot_run(monkeypatch):

@@ -84,3 +84,26 @@ def test_dirichlet_switch_changes_top_plane(case):
              - np.asarray(jrhs(T_VALUES[0], jnp.asarray(w))))
     np.testing.assert_allclose(diff, jdiff, rtol=1e-9,
                                atol=1e-9 * np.abs(jdiff).max())
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_rhs_noise_f64_matches_jax(case, mode):
+    """One numpy temperature-noise field passed to both make_rhs: the
+    port's f64 right-hand side equals JAX's to 1e-12 relative (a 1e-3
+    scale floor), and in the models whose p source reads u the noise
+    changes dp/dt."""
+    jprm, prm, jgeom, geom, w = case
+    noise = 0.05 * (np.random.default_rng(12).random(SHAPE) - 0.5)
+    jrhs = jax_make_rhs(jgeom, jprm, calc_mode=mode,
+                        noise=jnp.asarray(noise))
+    rhs = make_rhs(geom, prm, mode, "cpu", noise=noise)
+    quiet = make_rhs(geom, prm, mode, "cpu")
+    for t in T_VALUES:
+        want = np.asarray(jrhs(t, jnp.asarray(w, jnp.float64)))
+        got = rhs(t, torch.from_numpy(w)).numpy()
+        scale = np.maximum(np.abs(want), 1e-3)
+        np.testing.assert_allclose(got / scale, want / scale, rtol=0,
+                                   atol=1e-12)
+        moved = not np.array_equal(got[1], quiet(t, torch.from_numpy(w))
+                                   .numpy()[1])
+        assert moved == (mode != 2)

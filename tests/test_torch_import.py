@@ -24,10 +24,12 @@ def test_port_imports_no_jax():
     interpreter loads neither jax nor porousfreezethaw_tpu."""
     names = [m.name for m in pkgutil.walk_packages(
         porousfreezethaw_tpu_torch.__path__, "porousfreezethaw_tpu_torch.")]
-    assert {"porousfreezethaw_tpu_torch.apps.intertrack",
-            "porousfreezethaw_tpu_torch.bench",
-            "porousfreezethaw_tpu_torch.parallel.fused",
-            "porousfreezethaw_tpu_torch.parallel.sharding"} <= set(names)
+    assert {"porousfreezethaw_tpu_torch." + m for m in (
+        "apps.intertrack", "apps.spheres", "bench", "analysis", "native",
+        "parallel.fused", "parallel.sharding", "models.dem.config",
+        "models.dem.icond", "models.dem.coupling", "models.dem.forces",
+        "solvers.merson", "solvers.rk4", "solvers.dopri", "io.csv_snaps",
+        "io.exporters", "convert")} <= set(names)
     code = (
         "import importlib, sys\n"
         "import porousfreezethaw_tpu_torch.apps.intertrack\n"
@@ -51,6 +53,17 @@ def test_resolve_device_cuda_raises_without_gpu(monkeypatch):
     with pytest.raises(DeviceError):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_resolve_device_gives_cuda_its_index(monkeypatch):
+    """A bare 'cuda' resolves to the indexed device that a tensor made
+    there reports, so device checks such as the freezing RHS's accept it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    assert resolve_device("cuda") == torch.device("cuda", 1)
+    assert resolve_device("cuda:0") == torch.device("cuda", 0)
+    assert resolve_device(torch.device("cuda")) == torch.device("cuda", 1)
 
 
 def test_field_dtype():

@@ -121,6 +121,24 @@ def test_shard_gather_round_trip(case, spec):
         shard_freezing_state(w[:, :7], mesh if nz > 1 else cpu_mesh("y2,z2"))
 
 
+@pytest.mark.parametrize("spec,rows", [("y4", [13, 13, 12, 12]),
+                                       ("z2,y3", [17, 17, 16] * 2)])
+def test_uneven_y_windows(spec, rows):
+    """A y axis that does not divide n2 = 50 splits it as np.array_split
+    does (the first n2 % ny windows one row more); the round trip is exact."""
+    w = torch.arange(3 * 8 * 50 * 12, dtype=torch.float32).reshape(
+        3, 8, 50, 12)
+    mesh = cpu_mesh(spec)
+    shards = shard_freezing_state(w, mesh)
+    assert [s.shape[2] for s in shards] == rows
+    ys = np.array_split(np.arange(50), mesh.shape["y"])
+    for i, s in enumerate(shards):
+        c = mesh.coords(i)
+        z0 = c.get("z", 0) * s.shape[1]
+        assert torch.equal(s, w[:, z0:z0 + s.shape[1], ys[c["y"]]])
+    assert torch.equal(gather_freezing_state(shards, mesh), w)
+
+
 def test_halo_bytes_per_attempt():
     geom = GridGeometry(0.03, 0.03, 0.06, 100, 100, 200)
     # classic: 33 planes per direction, both directions, f32
@@ -171,6 +189,32 @@ def test_delta_attempt_bitwise(case, spec, overlap):
         ya = att_a.commit((y_a, spec_a), acc)
         yb = att_b.commit((y_b, spec_b), acc)
         assert torch.equal(gather_freezing_state(yb, mesh), ya)
+
+
+@pytest.mark.parametrize("spec", ["y4", "z2,y3"])
+def test_uneven_y_attempt_bitwise(case, spec):
+    """The 2-D attempt on y windows of unequal height (n2 = 50 at y4 and
+    z2,y3): y_spec, eps and both commits equal the single-device
+    DeltaAttempt's, in calc modes 0 and 2."""
+    prm, _, _, _ = case
+    shape = (8, 50, 12)
+    geom = GridGeometry(0.03, 0.03, 0.06, shape[2], shape[1], shape[0])
+    rng = np.random.default_rng(12)
+    w = torch.from_numpy(np.stack([
+        rng.uniform(-10, 10, shape), rng.uniform(0, 1, shape),
+        rng.uniform(0, 0.6, shape)]).astype(np.float32))
+    t, h = 100.0, 0.05
+    for mode in (0, 2):
+        att_a, y_a, spec_a, eps_a = _single_attempt(prm, geom, w, mode, t, h)
+        att_b, mesh, y_b, spec_b, eps_b = _sharded_attempt(
+            prm, geom, w, mode, spec, t, h)
+        assert len({s.shape[2] for s in spec_b}) == 2
+        assert torch.equal(gather_freezing_state(spec_b, mesh), spec_a)
+        assert float(eps_b.max()) == float(eps_a.max())
+        for acc in (False, True):
+            ya = att_a.commit((y_a, spec_a), acc)
+            yb = att_b.commit((y_b, spec_b), acc)
+            assert torch.equal(gather_freezing_state(yb, mesh), ya)
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -400,9 +444,27 @@ def test_app_run_iteration_mesh_z2(tmp_path):
                 == (tmp_path / "mesh" / n).read_bytes())
 
 
+def test_app_run_iteration_mesh_uneven_y(tmp_path):
+    """The app's f32 solve on a z2,y4 mesh, whose y axis does not divide
+    the grid's 6 rows: the same counts and byte-identical snapshots as
+    without a mesh."""
+    a, _ = _run_iteration(tmp_path / "single")
+    b, log = _run_iteration(tmp_path / "mesh", mesh_axes="z2,y4",
+                            mesh_devices=[CPU] * 8)
+    assert (a["steps"], a["steps_total"], a["t"]) == (
+        b["steps"], b["steps_total"], b["t"])
+    assert "(sharded over z=2, y=4)" in log
+    names = sorted(p.name for p in (tmp_path / "single").glob("*.ncd"))
+    assert len(names) == 3
+    for n in names:
+        assert ((tmp_path / "single" / n).read_bytes()
+                == (tmp_path / "mesh" / n).read_bytes())
+
+
 def test_app_mesh_refuses_unported_paths(tmp_path):
     """--mesh with f64 or a noise field is the JAX app's GSPMD fallback,
-    which is not ported yet: it raises and runs nothing else."""
+    which is not ported yet: it raises and runs nothing else.  (A grid
+    that the y axis does not divide runs: see the test above.)"""
     pf = parse_param_file(BASE, env={"OUTPUT": str(tmp_path)})
     log = RunLog(pf.setting("logfile"))
     with pytest.raises(NotImplementedError, match="not ported yet"):

@@ -78,7 +78,8 @@ def _close_eps(got, want):
 
 
 def _port(cls_or_fn, prm, geom, w, spec, **kw):
-    mesh = make_mesh(spec, [CPU] * (4 if "," in spec else 2))
+    n = int(np.prod([int(p.strip()[1:] or 1) for p in spec.split(",")]))
+    mesh = make_mesh(spec, [CPU] * n)
     att = cls_or_fn(geom, prm, 0, mesh, **kw)
     return att, mesh, att.pack(shard_freezing_state(torch.from_numpy(w),
                                                     mesh))
@@ -127,17 +128,34 @@ def test_sharded_stage5_matches_jax(tiny):
     _close_eps(float(eps_p.max()), float(jnp.max(eps_j)))
 
 
-def test_2d_attempt_matches_xla(tiny):
-    """The port's ShardedDeltaAttempt2D at z2,y2 against the JAX
-    XlaDeltaAttempt on the whole state: y_spec, eps and the commit."""
-    jprm, prm, jgeom, geom, w = tiny
+@pytest.mark.parametrize("spec", ["z2,y2", "y4"])
+def test_2d_attempt_matches_xla(tiny, spec):
+    """The port's ShardedDeltaAttempt2D against the JAX XlaDeltaAttempt on
+    the whole state: y_spec, eps and the commit.  z2,y2 at the tiny case;
+    y4 at n2 = 50, which y4 splits into windows of 13, 13, 12 and 12 rows,
+    also against the JAX ShardedDeltaAttempt2D (interpret, z1,y4: its y
+    axis splits the plane's 25 lane rows of 128)."""
+    if spec == "y4":
+        jprm, prm, jgeom, geom, w = _case((4, 50, 64), 7)
+    else:
+        jprm, prm, jgeom, geom, w = tiny
     jatt = XlaDeltaAttempt(jgeom, jprm, 0)
     (_, spec_j), eps_j = jatt.attempt(T, H, jnp.asarray(w))
     att, mesh, y = _port(lambda g, p, m, mesh: ShardedDeltaAttempt2D(
-        g, p, m, mesh), prm, geom, w, "z2,y2")
+        g, p, m, mesh), prm, geom, w, spec)
     (_, spec_p), eps_p = att.attempt(T, H, y)
     _close(gather_freezing_state(spec_p, mesh).numpy(), spec_j)
     _close_eps(float(eps_p.max()), float(jnp.max(eps_j)))
+    if spec == "y4":
+        jmesh = jmake_mesh("z1,y4", jax.devices()[:4])
+        jsh = jfused.ShardedDeltaAttempt2D(jgeom, jprm, 0, jmesh, bz=4,
+                                           interpret=True)
+        wp = jax.device_put(jfused.pad_state_2d(jnp.asarray(w), jgeom, 4),
+                            jfused.padded_sharding_2d(jmesh))
+        (_, spec_s), eps_s = jsh.attempt(T, H, jsh.pack(wp))
+        _close(gather_freezing_state(spec_p, mesh).numpy(),
+               jfused.unpad_state_2d(spec_s, jgeom))
+        _close_eps(float(eps_p.max()), float(jnp.max(eps_s)))
     committed = att.commit((y, spec_p), True)
     _close(gather_freezing_state(committed, mesh).numpy(),
            jatt.commit((jnp.asarray(w), spec_j), jnp.asarray(True)))
