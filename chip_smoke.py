@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                       # all phases
     python3 chip_smoke.py --phases env,build,kernels
-    python3 chip_smoke.py --phases env,build,kernels,solve,bench,app,mesh,dem,profile
+    python3 chip_smoke.py --phases env,dem_cells         # the DEM cell list
+    python3 chip_smoke.py --phases env,build,kernels,solve,bench,app,mesh,dem,dem_cells,profile
     python3 chip_smoke.py --phases env,dem_settle   # the DEM settle, ~40 min
 
 Run from the root of a checkout.  Phases, one JSON line each:
@@ -33,7 +34,8 @@ Run from the root of a checkout.  Phases, one JSON line each:
             reference's 3560/4322 steps (5%), with the launch counters
             showing that every attempt went through the kernels; then the
             LR Temp golden in f64 (the plain PyTorch path on the card),
-            held to 1850/2256 (5%)
+            held to 1850/2256 (5%); a short run with --profile-dir whose
+            trace holds CUDA kernel events
 7. mesh     the multi-device paths on virtual shards of the card (a mesh
             whose device list repeats cuda:0): the shard kernels K1s
             (fused_stage_shard), K3 (its interior/edge split,
@@ -51,13 +53,32 @@ Run from the root of a checkout.  Phases, one JSON line each:
             through the app with --mesh z1, each giving the counts and
             snapshot bytes of the run without a mesh; the bench's MR mesh
             rows
+            The plain right-hand side with halo copies (parallel/halo.py,
+            the app's branch for every other mesh) against the
+            single-device plain path: MR GradP f32 classic on z2,y2 (100
+            attempts) and LR GradP f32 with a noise field at z2 (50), the
+            same counts and state bits; the LR Temp golden (f64) through
+            run_iteration at z3 (windows of 34, 33, 33 planes), the
+            single-device run's counts and snapshot bytes
 8. dem      the spheres DEM (plain PyTorch, no kernel of its own): the
             dense right-hand side of the four variants at n = 200 on the
             card against the port's on the CPU (f64 to 1e-12 of max|ref|
             per leaf, f32 to 1e-5); a short f64 friction_angular solve to
             t = 10 * 8/399 on the card and on the CPU (equal step counts;
-            ms/attempt, wall and device); the bench's dense dem_200 and
-            dem_2000 rows (f32) at reduced steps
+            ms/attempt, wall and device); the particle-sharded dense term
+            on p4 virtual shards, its right-hand side and the short
+            solve's counts and state bit for bit against one device; the
+            bench's dense dem_200 and dem_2000 rows (f32) at reduced steps
+9. dem_cells  the DEM cell list (models/dem/forces.py): cell_lanes and
+            cell_list against the dense term at n = 200 (four variants,
+            f64 to 1e-12 of max|dense| per leaf, f32 to 1e-5), at n =
+            4000 (f64) and at n = 20000 (f64, against the dense term
+            sharded over p20 virtual shards); the dense icond's occupancy
+            at 4000-20000 (at most 8); the overflow's NaN (n = 12, K = 8);
+            the short solve with cell_lanes (state within 1e-10 of
+            dense's); the bench's rows dense 4000/6000 and cell_lanes K = 8
+            4000-20000 at reduced attempts, with device ms and launches
+            per attempt (torch.profiler) and peak memory
 
 and, only when asked for, ``profile``: torch.profiler over 100 attempts
 at LR and at MR, through DeltaAttempt and FusedAttempt, and at MR through
@@ -99,7 +120,8 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "build", "kernels", "solve", "bench", "app", "mesh", "dem")
+PHASES = ("env", "build", "kernels", "solve", "bench", "app", "mesh", "dem",
+          "dem_cells")
 OPTIONAL_PHASES = ("profile", "dem_settle")
 SEED = 20251016
 # the increment form's golden (reference log, LR GradP snapshot 1) and the
@@ -864,6 +886,8 @@ def _app_run(dev, golden: str, precision: str, extra: str = "") -> dict:
         launches = _counters(st)
         log = open(os.path.join(out, "intertrack.log")).read()
         files = sorted(f for f in os.listdir(out) if f.endswith(".ncd"))
+        snap = (open(os.path.join(out, "image.001.ncd"), "rb").read()
+                if "image.001.ncd" in files else None)
     finally:
         if old is None:
             os.environ.pop("OUTPUT", None)
@@ -889,6 +913,7 @@ def _app_run(dev, golden: str, precision: str, extra: str = "") -> dict:
     if files != ["image.000.ncd", "image.001.ncd"]:
         raise AssertionError(f"snapshots written: {files}")
     res["log"] = log
+    res["snapshot"] = snap
     return res
 
 
@@ -901,10 +926,48 @@ def _within(res, steps, attempts) -> None:
             f"{steps}/{attempts}")
 
 
-def phase_app(dev) -> dict:
-    """The goldens; returns the launch counters of the main-path runs of
-    fused_stage and delta_g (the plain golden) and delta_g_dy (the
-    compensated one)."""
+def _app_profile(dev) -> None:
+    """The app with --profile-dir on the 12-node GradP case (f32, 3
+    snapshots): its trace must hold CUDA kernel events."""
+    from porousfreezethaw_tpu_torch.apps.intertrack import main
+    from porousfreezethaw_tpu_torch.cases import freezing_params_text
+
+    text = freezing_params_text(grid_nodes=12, calc_mode=0,
+                                final_time_hours=5.0 / 3600.0,
+                                saved_files=3)
+    text += ("\nset ball_positions_file = "
+             + os.path.join(REPO, "data", "spheres_positions.txt") + "\n")
+    out = tempfile.mkdtemp(prefix="pft_chip_smoke_profile_")
+    old = os.environ.get("OUTPUT")
+    try:
+        pfile = os.path.join(out, "Params")
+        with open(pfile, "w") as f:
+            f.write(text)
+        os.environ["OUTPUT"] = out
+        prof = os.path.join(out, "profile")
+        rc = main([pfile, "--precision", "f32", "--device", str(dev),
+                   "--profile-dir", prof])
+        with open(os.path.join(prof, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        if old is None:
+            os.environ.pop("OUTPUT", None)
+        else:
+            os.environ["OUTPUT"] = old
+        shutil.rmtree(out, ignore_errors=True)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    emit("app_profile", rc=rc, events=len(events),
+         cuda_kernel_events=len(kernels),
+         kernel_names=sorted({e["name"][:40] for e in kernels})[:8])
+    if rc != 0 or not kernels:
+        raise AssertionError(f"app --profile-dir: rc={rc}, "
+                             f"{len(kernels)} CUDA kernel events")
+
+
+def phase_app(dev):
+    """The goldens and a profiled run; returns the launch counters of the
+    main-path runs of fused_stage and delta_g (the plain golden) and
+    delta_g_dy (the compensated one), and the LR Temp golden's record."""
     runs = {}
     for key, golden, precision, extra, ref in (
             ("plain", "Params-LR-GradP", "f32", "",
@@ -926,10 +989,12 @@ def phase_app(dev) -> dict:
                                  f"{res['launches']}, want {want}")
         if key == "compensated" and "(compensated commit)" not in res["log"]:
             raise AssertionError("the app ignored compensated_commit 1")
-        runs[key] = res["launches"]
-    return {"fused_stage": runs["plain"]["fused_stage"],
-            "delta_g": runs["plain"]["delta_g"],
-            "delta_g_dy": runs["compensated"]["delta_g_dy"]}
+        runs[key] = res
+    _app_profile(dev)
+    launches = {"fused_stage": runs["plain"]["launches"]["fused_stage"],
+                "delta_g": runs["plain"]["launches"]["delta_g"],
+                "delta_g_dy": runs["compensated"]["launches"]["delta_g_dy"]}
+    return launches, runs["f64"]
 
 
 # --------------------------------------------------------------------------
@@ -1468,12 +1533,132 @@ def _mesh_bench(dev) -> int:
     return k1s
 
 
-def phase_mesh(dev):
+# the LR Temp f64 golden's counts on one card, for phase mesh run without
+# phase app
+TEMP_DEVICE_COUNTS = (1824, 2256)
+# attempts of the plain mesh solves against the single-device plain path
+PLAIN_MR_ATTEMPTS, PLAIN_NOISE_ATTEMPTS = 100, 50
+
+
+def _temp_golden_z3(dev, single=None) -> dict:
+    """The LR Temp golden (f64) to snapshot 1 through run_iteration on a
+    z3 mesh of the card: n3 = 100 in windows of 34, 33 and 33 planes, the
+    plain right-hand side with halo copies; the counts and snapshot bytes
+    of the single-device run ``single`` (phase app's record), or without
+    it the counts TEMP_DEVICE_COUNTS."""
+    from porousfreezethaw_tpu_torch.apps.intertrack import run_iteration
+    from porousfreezethaw_tpu_torch.config import parse_param_file
+    from porousfreezethaw_tpu_torch.io.rklog import RunLog
+
+    text = open(os.path.join(REPO, "tests", "golden",
+                             "Params-LR-Temp")).read()
+    text = re.sub(r"final_time\s+\S+", "final_time 10*hours/99", text)
+    text = re.sub(r"saved_files\s+\S+", "saved_files 2", text)
+    text += ("\nset ball_positions_file = "
+             + os.path.join(REPO, "data", "spheres_positions.txt") + "\n")
+    out = tempfile.mkdtemp(prefix="pft_chip_smoke_temp_z3_")
+    old = os.environ.get("OUTPUT")
+    try:
+        os.environ["OUTPUT"] = out
+        pf = parse_param_file(text)
+        log = RunLog(pf.setting("logfile"))
+        t0 = time.perf_counter()
+        stats = run_iteration(pf, log, device=dev, dtype=torch.float64,
+                              mesh_axes="z3", mesh_devices=[dev] * 3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log.close()
+        text_log = open(os.path.join(out, "intertrack.log")).read()
+        snap = open(os.path.join(out, "image.001.ncd"), "rb").read()
+    finally:
+        if old is None:
+            os.environ.pop("OUTPUT", None)
+        else:
+            os.environ["OUTPUT"] = old
+        shutil.rmtree(out, ignore_errors=True)
+    want = ((single["steps"], single["attempts"]) if single
+            else TEMP_DEVICE_COUNTS)
+    got = (stats["steps"], stats["steps_total"])
+    same_bytes = (snap == single["snapshot"] if single
+                  else "not compared (phase app did not run)")
+    rec = dict(golden="Params-LR-Temp", precision="f64", mesh="z3",
+               windows=[34, 33, 33], steps=got[0], attempts=got[1],
+               single_device=list(want), snapshot_equal=same_bytes,
+               wall_s=wall, ms_per_attempt=1e3 * wall / got[1],
+               halo_path="Plain right-hand side with halo copies"
+               in text_log)
+    emit("mesh_plain_golden", **rec)
+    if got != want or same_bytes is False or not rec["halo_path"]:
+        raise AssertionError(f"LR Temp golden at z3: {rec}")
+    return rec
+
+
+def _plain_solve(rhs, y, v, h0, attempts, growth):
+    """``attempts`` attempts of the plain path from ``y``; (state, ms per
+    attempt)."""
+    from porousfreezethaw_tpu_torch.solvers.merson import (
+        MersonParams, merson_init, merson_solve)
+    params = MersonParams(delta=v["delta"], h_min=v["tau_min"],
+                          handle_nan=True, max_steps=attempts,
+                          accept_growth_min=growth)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = merson_solve(rhs, merson_init(y, 0.0, h0), 1e9, params)
+    torch.cuda.synchronize()
+    return state, 1e3 * (time.perf_counter() - t0) / state.steps_total
+
+
+def _mesh_plain_solves(dev) -> dict:
+    """The plain halo path against the single-device plain path, f32 with
+    the app's classic settings (growth 1.05, NaN backoff): MR GradP on
+    z2,y2 for PLAIN_MR_ATTEMPTS attempts, and LR GradP with a noise field
+    (u_noise_amp 0.01) at z2 for PLAIN_NOISE_ATTEMPTS; the same counts, t,
+    h and state bits."""
+    from porousfreezethaw_tpu_torch.models.freezing.equation import (
+        make_noise_field, make_rhs)
+    from porousfreezethaw_tpu_torch.parallel import (
+        gather_freezing_state, make_mesh, shard_freezing_state)
+    from porousfreezethaw_tpu_torch.parallel.halo import make_halo_rhs
+
+    out = {}
+    for name, grid_nodes, spec, shards, amp, attempts in (
+            ("mr_classic_z2,y2", 200, "z2,y2", 4, 0.0, PLAIN_MR_ATTEMPTS),
+            ("lr_noise_z2", 100, "z2", 2, 0.01, PLAIN_NOISE_ATTEMPTS)):
+        geom, prm, v, y0, h0 = _mr_state(dev, grid_nodes)
+        prm = dataclasses.replace(prm, u_noise_amp=amp)
+        noise = make_noise_field(geom, prm, 0, dtype=np.float32)
+        mesh = make_mesh(spec, [dev] * shards)
+        a, ms_a = _plain_solve(make_rhs(geom, prm, 0, dev, noise=noise),
+                               y0, v, h0, attempts, 1.05)
+        b, ms_b = _plain_solve(make_halo_rhs(geom, prm, 0, mesh, noise),
+                               shard_freezing_state(y0, mesh),
+                               v, h0, attempts, 1.05)
+        yb = gather_freezing_state(b.y, mesh)
+        same = ((a.steps, a.steps_total, a.t, a.h)
+                == (b.steps, b.steps_total, b.t, b.h)
+                and torch.equal(a.y, yb))
+        out[name] = dict(grid=list(geom.shape), mesh=spec,
+                         noise=noise is not None, steps=b.steps,
+                         attempts=b.steps_total, t=b.t, bitwise=same,
+                         ms_per_attempt=ms_b, single_ms_per_attempt=ms_a)
+        emit("mesh_plain_solve", path=name, **out[name])
+        if not same or b.steps_total != attempts:
+            raise AssertionError(f"plain mesh solve {name}: sharded "
+                                 f"{b.steps}/{b.steps_total} t={b.t}, "
+                                 f"single {a.steps}/{a.steps_total} "
+                                 f"t={a.t}, state equal "
+                                 f"{torch.equal(a.y, yb)}")
+    return out
+
+
+def phase_mesh(dev, temp_f64=None):
     """The multi-device freezing paths on virtual shards of the card:
     the shard kernels against their plain versions and their times, the
     sharded paths against the single-device ones bit for bit, MR solves,
-    the LR golden and the bench's mesh rows.  Returns the kernel summary
-    rows of K1s, K3, K2s and K2s-dy and their main-path launches."""
+    the plain halo path against the single-device plain path (the LR
+    Temp golden at z3 against ``temp_f64``, phase app's run), the LR
+    golden and the bench's mesh rows.  Returns the kernel summary rows of
+    K1s, K3, K2s and K2s-dy and their main-path launches."""
     from porousfreezethaw_tpu_torch.core.grid import GridGeometry
     from porousfreezethaw_tpu_torch.parallel.fused import (
         halo_bytes_per_attempt)
@@ -1482,6 +1667,8 @@ def phase_mesh(dev):
     _mesh_bitwise(dev)
     times, split_ms = _mesh_times(dev)
     _mesh_solves(dev)
+    _mesh_plain_solves(dev)
+    _temp_golden_z3(dev, temp_f64)
     launches = _mesh_goldens(dev)
     launches["fused_stage_shard"] = _mesh_bench(dev)
     geom = GridGeometry(0.03, 0.03, 0.06, MR_SHAPE[2], MR_SHAPE[1],
@@ -1545,6 +1732,8 @@ DEM_STATE_TOL = 1e-10
 DEM_F32_TOL = 1e-5
 # (n, timed attempts, warm attempts) of the bench rows
 DEM_BENCH_ROWS = ((200, 400, 100), (2000, 100, 20))
+# the particle mesh of phase dem: virtual shards of the card
+DEM_MESH = "p4"
 
 
 def _dem_state(cfg, seed):
@@ -1663,6 +1852,7 @@ def _dem_short_solve(dev):
                top=[dict(kernel=k[:60], count=c, us=us)
                     for us, k, c in rows[:8]])
     emit("dem_solve", **rec)
+    rec["state"] = card.y
     if not (status == cpu_status == 0 and again.steps_total == n
             and (card.steps, n) == (cpu.steps, cpu.steps_total)):
         raise AssertionError(f"dem short solve: card {card.steps}/{n} "
@@ -1694,12 +1884,63 @@ def _dem_bench(dev):
     return recs
 
 
-def phase_dem(dev) -> None:
+def _dem_mesh(dev, short) -> None:
+    """The particle-sharded dense term on DEM_MESH virtual shards of the
+    card at n = 200, f64: the right-hand side of the four variants bit for
+    bit against the single-device one; the short solve's counts (and state
+    bits) on the mesh equal the single-device ones of ``short``."""
+    from porousfreezethaw_tpu_torch.models.dem import (
+        DEMConfig, icond_dense, make_dem_rhs)
+    from porousfreezethaw_tpu_torch.parallel import (
+        gather_dem_state, make_mesh, shard_dem_state)
+    from porousfreezethaw_tpu_torch.solvers.merson import (
+        MersonParams, merson_init, merson_solve)
+
+    mesh = make_mesh(DEM_MESH, [dev] * int(DEM_MESH[1:]))
+    bitwise = {}
+    for variant in DEM_VARIANTS:
+        cfg = DEMConfig(variant=variant, n=DEM_N)
+        y = {k: torch.as_tensor(v, device=dev)
+             for k, v in _dem_state(cfg, SEED).items()}
+        want = make_dem_rhs(cfg, device=dev)(0.0, y)
+        got = gather_dem_state(make_dem_rhs(cfg, mesh=mesh)(
+            0.0, shard_dem_state(y, mesh)))
+        bitwise[variant] = all(torch.equal(got[k], want[k]) for k in want)
+    cfg = DEMConfig(variant="friction_angular", n=DEM_N)
+    y0, _ = icond_dense(cfg, seed=0)
+    y = shard_dem_state({k: torch.as_tensor(v, device=dev)
+                         for k, v in y0.items()}, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, status = merson_solve(make_dem_rhs(cfg, mesh=mesh),
+                              merson_init(y, 0.0, cfg.ht), DEM_SHORT_T,
+                              MersonParams(delta=cfg.delta,
+                                           h_min=cfg.ht_min))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    full = gather_dem_state(st.y)
+    same = all(torch.equal(full[k], short["state"][k]) for k in full)
+    rec = dict(mesh=DEM_MESH, n=DEM_N, rhs_bitwise=bitwise,
+               steps=st.steps, attempts=st.steps_total,
+               single_device=[short["steps"], short["attempts"]],
+               state_bitwise=same,
+               ms_per_attempt=1e3 * wall / st.steps_total)
+    emit("dem_mesh", **rec)
+    if not (all(bitwise.values()) and status == 0 and same
+            and [st.steps, st.steps_total] == rec["single_device"]):
+        raise AssertionError(f"dem mesh: {rec}")
+
+
+def phase_dem(dev) -> dict:
     """The spheres DEM on the card: its right-hand side against the CPU's,
-    a short solve against the CPU's step counts, the bench's DEM rows."""
+    a short solve against the CPU's step counts, the sharded dense term
+    against the single-device one, the bench's DEM rows.  Returns the
+    short solve's record."""
     _dem_rhs_checks(dev)
-    _dem_short_solve(dev)
+    short = _dem_short_solve(dev)
+    _dem_mesh(dev, short)
     _dem_bench(dev)
+    return short
 
 
 def phase_dem_settle(dev) -> None:
@@ -1747,6 +1988,218 @@ def phase_dem_settle(dev) -> None:
         raise AssertionError(f"dem settle: {rec}")
 
 
+# --------------------------------------------------------------------------
+# phase 9: the DEM cell list
+# --------------------------------------------------------------------------
+
+# cell_lanes against the dense term, per leaf relative to max|dense|: f64
+# as tests/test_dem_celllist.py holds JAX's; f32 as the card's f32 against
+# the CPU's (the two sum the neighbours in other orders)
+CELL_TOL_F64, CELL_TOL_F32 = 1e-12, DEM_F32_TOL
+# the bench's capacity of the cell rows, and the larger beds' checks
+CELL_K = 8
+CELL_SIZES = (4000, 6000, 10000, 20000)
+# the beds whose cell_lanes RHS is held to dense: one card holds the dense
+# (n, n, 3) f64 temporaries at 4000; at 20000 the oracle is sharded
+CELL_CHECK_SIZES = (4000, 20000)
+# (n, neighbor, capacity) of the bench rows, at reduced attempts
+CELL_BENCH_ROWS = ((4000, "dense", 0), (4000, "cell_lanes", CELL_K),
+                   (6000, "dense", 0), (6000, "cell_lanes", CELL_K),
+                   (10000, "cell_lanes", CELL_K),
+                   (20000, "cell_lanes", CELL_K))
+CELL_BENCH_STEPS, CELL_BENCH_WARM, CELL_PROFILED = 60, 20, 10
+
+
+def _bed(n, seed=SEED, moving=True):
+    """The bench's bed of n spheres (icond_dense, seed 0, the bench's
+    radius) with random velocities and spins when ``moving``; its config."""
+    from porousfreezethaw_tpu_torch.models.dem import DEMConfig, icond_dense
+    r = 0.1 if n <= 400 else 0.1 * (200.0 / n) ** (1.0 / 3.0)
+    cfg = DEMConfig(variant="friction_angular", n=n, r=r)
+    y, _ = icond_dense(cfg, seed=0)
+    if moving:
+        rng = np.random.RandomState(seed)
+        y["vel"] = 0.5 * rng.standard_normal((n, 3))
+        y["angvel"] = rng.standard_normal((n, 3))
+    return cfg, y
+
+
+def _rel_errs(got, ref):
+    return {k: float((got[k] - ref[k]).abs().max())
+            / max(float(ref[k].abs().max()), 1e-300) for k in ref}
+
+
+def _cells_rhs(dev) -> None:
+    """cell_lanes (and cell_list) against the dense term on the card: the
+    four variants at n = 200 (f64 and f32), n = 4000 (f64, dense), n =
+    20000 (f64, against the dense term sharded over p20 virtual shards:
+    one card holds no (n, n, 3) f64 temporary of 9.6 GB); the dense
+    icond's occupancy at 4000-20000 within half the default capacity;
+    the overflow's NaN."""
+    from porousfreezethaw_tpu_torch.models.dem import (
+        DEMConfig, make_cell_list, make_dem_rhs)
+    from porousfreezethaw_tpu_torch.parallel import (
+        gather_dem_state, make_mesh, shard_dem_state)
+
+    def on_dev(y, dtype):
+        return {k: torch.as_tensor(v, dtype=dtype, device=dev)
+                for k, v in y.items()}
+
+    cases = [(v, DEM_N, dtype, nb, 16) for v in DEM_VARIANTS
+             for dtype in (torch.float64, torch.float32)
+             for nb in ("cell_lanes", "cell_list")]
+    cases += [("friction_angular", n, torch.float64, "cell_lanes", CELL_K)
+              for n in CELL_CHECK_SIZES]
+    for variant, n, dtype, nb, cap in cases:
+        if n == DEM_N:
+            cfg = DEMConfig(variant=variant, n=n)
+            y = on_dev(_dem_state(cfg, SEED), dtype)
+        else:
+            cfg, y = _bed(n)
+            y = on_dev(y, dtype)
+        torch.cuda.reset_peak_memory_stats(dev)
+        cells = make_dem_rhs(cfg, dtype=dtype, neighbor=nb,
+                             cell_capacity=cap, device=dev)
+        got = cells(0.0, y)
+        torch.cuda.synchronize()
+        cell_peak = torch.cuda.max_memory_allocated(dev) / 1e6
+        if n <= CELL_CHECK_SIZES[0]:
+            oracle = "dense"
+            ref = make_dem_rhs(cfg, dtype=dtype, device=dev)(0.0, y)
+        else:
+            spec = f"p{n // 1000}"
+            oracle = "dense on " + spec
+            mesh = make_mesh(spec, [dev] * (n // 1000))
+            ref = gather_dem_state(make_dem_rhs(cfg, dtype=dtype, mesh=mesh)(
+                0.0, shard_dem_state(y, mesh)))
+        tol = CELL_TOL_F64 if dtype == torch.float64 else CELL_TOL_F32
+        errs = _rel_errs(got, ref)
+        row = dict(variant=variant, n=n, dtype=str(dtype)[6:], neighbor=nb,
+                   capacity=cap, oracle=oracle, tol=tol, max_rel_err=errs,
+                   occupancy=cells.neighbor_struct.cell_occupancy(y["pos"]),
+                   cell_peak_memory_mb=cell_peak)
+        emit("dem_cells_rhs", **row)
+        bad = {k: e for k, e in errs.items() if not e <= tol}
+        if bad:
+            raise AssertionError(f"dem cells rhs {row}: {bad} above {tol}")
+    occ = {}
+    for n in CELL_SIZES:
+        cfg, y = _bed(n, moving=False)
+        occ[n] = make_cell_list(cfg, device=dev).cell_occupancy(y["pos"])
+    emit("dem_cells_occupancy", capacity=16, occupancy=occ)
+    if max(occ.values()) > 8:
+        raise AssertionError(f"dense icond occupancy {occ} above 8")
+    cfg = DEMConfig(variant="friction_angular", n=12, r=0.1)
+    rng = np.random.RandomState(0)
+    y = on_dev({"pos": 0.15 + 0.01 * rng.random_sample((12, 3)),
+                "vel": rng.standard_normal((12, 3)),
+                "angvel": rng.standard_normal((12, 3))}, torch.float64)
+    rhs = make_dem_rhs(cfg, neighbor="cell_lanes", cell_capacity=8,
+                       device=dev)
+    out = rhs(0.0, y)
+    poisoned = bool(out["vel"].isnan().all() and out["angvel"].isnan().all())
+    emit("dem_cells_overflow", n=12, capacity=8,
+         occupancy=rhs.neighbor_struct.cell_occupancy(y["pos"]),
+         nan=poisoned)
+    if not poisoned:
+        raise AssertionError("cell_lanes overflow did not poison with NaN")
+
+
+def _cells_short_solve(dev, short) -> None:
+    """The short f64 solve of phase dem with cell_lanes: its end state
+    within DEM_STATE_TOL of the dense one's (``short``, the card's) per
+    leaf; the counts beside dense's."""
+    from porousfreezethaw_tpu_torch.models.dem import (
+        DEMConfig, icond_dense, make_dem_rhs)
+    from porousfreezethaw_tpu_torch.solvers.merson import (
+        MersonParams, merson_init, merson_solve)
+
+    cfg = DEMConfig(variant="friction_angular", n=DEM_N)
+    y0, _ = icond_dense(cfg, seed=0)
+    rhs = make_dem_rhs(cfg, neighbor="cell_lanes", device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, status = merson_solve(
+        rhs, merson_init({k: torch.as_tensor(v, device=dev)
+                          for k, v in y0.items()}, 0.0, cfg.ht),
+        DEM_SHORT_T, MersonParams(delta=cfg.delta, h_min=cfg.ht_min))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rel = _rel_errs(st.y, short["state"])
+    rec = dict(neighbor="cell_lanes", n=DEM_N, dtype="f64", t=st.t,
+               steps=st.steps, attempts=st.steps_total,
+               dense=[short["steps"], short["attempts"]],
+               max_rel_state_diff=rel, state_tol=DEM_STATE_TOL,
+               ms_per_attempt=1e3 * wall / st.steps_total,
+               dense_ms_per_attempt=short["ms_per_attempt"])
+    emit("dem_cells_solve", **rec)
+    bad = {k: e for k, e in rel.items() if not e <= DEM_STATE_TOL}
+    if status != 0 or bad:
+        raise AssertionError(f"cell_lanes short solve: {rec}")
+
+
+def _cells_bench(dev) -> list:
+    """The bench's DEM rows at 4000-20000 (dense and cell_lanes, f32) at
+    reduced attempts: ms/attempt (bench.bench_dem), peak memory, and, from
+    torch.profiler over CELL_PROFILED attempts from the bed, device ms and
+    kernel launches per attempt."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from porousfreezethaw_tpu_torch import bench
+    from porousfreezethaw_tpu_torch.models.dem import make_dem_rhs
+    from porousfreezethaw_tpu_torch.solvers.merson import (
+        MersonParams, merson_init, merson_solve)
+
+    recs = []
+    for n, nb, cap in CELL_BENCH_ROWS:
+        args = bench.parse_args([
+            "--suite", "dem", "--device", str(dev), "--steps",
+            str(CELL_BENCH_STEPS), "--warm-steps", str(CELL_BENCH_WARM)])
+        torch.cuda.reset_peak_memory_stats(dev)
+        rec = bench.bench_dem(args, n_spheres=n, neighbor=nb,
+                              cell_capacity=cap or None)
+        rec["peak_memory_mb"] = torch.cuda.max_memory_allocated(dev) / 1e6
+        cfg, y0 = _bed(n, moving=False)
+        rhs = make_dem_rhs(cfg, dtype=torch.float32, neighbor=nb,
+                           cell_capacity=cap or 16, device=dev)
+        st = merson_init({k: torch.as_tensor(v, dtype=torch.float32,
+                                             device=dev)
+                          for k, v in y0.items()}, 0.0, cfg.ht)
+        params = MersonParams(delta=cfg.delta, h_min=cfg.ht_min,
+                              handle_nan=True, max_steps=CELL_PROFILED)
+        merson_solve(rhs, st, 1e9, params)          # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            done = merson_solve(rhs, st, 1e9, params)[0].steps_total
+            torch.cuda.synchronize()
+        device_us, kernels, rows = _device_time(prof)
+        rec.update(
+            label=f"dem_{n}_{nb}" + (f"_k{cap}" if cap else ""),
+            device_ms_per_attempt=(device_us / 1e3 / done if device_us
+                                   else "not measured"),
+            launches_per_attempt=kernels / done if device_us else None,
+            top=[dict(kernel=k[:50], count=c, us=us)
+                 for us, k, c in rows[:5]])
+        emit("dem_cells_bench", **rec)
+        suffix = "_celllanes" if nb == "cell_lanes" else ""
+        if not (rec["value"] > 0 and rec["metric"]
+                == f"dem_{n}{suffix}_particle_rhs_evals_per_s"):
+            raise AssertionError(f"dem cells bench row {n} {nb}: {rec}")
+        recs.append(rec)
+    return recs
+
+
+def phase_dem_cells(dev, short=None) -> None:
+    """The DEM cell list on the card: its right-hand side against the
+    dense term up to n = 20000, the occupancy and the overflow guard, the
+    short solve against dense's (``short``, phase dem's record, or run
+    here), the bench's cell rows beside dense."""
+    _cells_rhs(dev)
+    _cells_short_solve(dev, short or _dem_short_solve(dev))
+    _cells_bench(dev)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1769,6 +2222,7 @@ def main(argv=None) -> int:
 
     kernels = {}
     launches = {}
+    temp_f64 = short = None
     if "env" in phases:
         phase_env()
     if "build" in phases:
@@ -1780,13 +2234,16 @@ def main(argv=None) -> int:
     if "bench" in phases:
         launches["fused_attempt"] = phase_bench(dev)["fused_attempt"]
     if "app" in phases:
-        launches.update(phase_app(dev))
+        app_launches, temp_f64 = phase_app(dev)
+        launches.update(app_launches)
     if "mesh" in phases:
-        mesh_kernels, mesh_launches = phase_mesh(dev)
+        mesh_kernels, mesh_launches = phase_mesh(dev, temp_f64)
         kernels.update(mesh_kernels)
         launches.update(mesh_launches)
     if "dem" in phases:
-        phase_dem(dev)
+        short = phase_dem(dev)
+    if "dem_cells" in phases:
+        phase_dem_cells(dev, short)
     if "profile" in phases:
         phase_profile(dev)
     if "dem_settle" in phases:

@@ -11,8 +11,8 @@ trigger file, and post-processing script execution.
 
 CLI:  ``python -m porousfreezethaw_tpu_torch.apps.intertrack param_file
 [master_rank] [ubound_list] [--precision f32|f64] [--device cuda|cpu]
-[--mesh SPEC]`` (``intertrack.c:1304``; master_rank is accepted for
-command-line compatibility and ignored).
+[--mesh SPEC] [--profile-dir DIR]`` (``intertrack.c:1304``; master_rank
+is accepted for command-line compatibility and ignored).
 
 Solver paths: f64 integrates the plain PyTorch right-hand side; f32 without
 a noise field runs the increment-form attempt through the CUDA kernels
@@ -22,12 +22,21 @@ double-f32 commit variant) or the classic fused stage kernel
 with their plain PyTorch versions.
 
 ``--mesh`` (``'z'``, ``'z4'``, ``'z2,y2'``, over the visible devices of
-``--device``) shards the f32 solve: a z mesh runs ``ShardedDeltaAttempt``
-(or, under ``increment_form 0``, the sharded classic stage), a z,y mesh
+``--device``; on the CPU, virtual shards of it) shards the solve.  In f32
+without a noise field, with n3 divisible by z into shards of >= 2 planes
+and n2 >= y, a z mesh runs ``ShardedDeltaAttempt`` (or, under
+``increment_form 0``, the sharded classic stage) and a z,y mesh
 ``ShardedDeltaAttempt2D``, which ignores ``compensated_commit`` as the JAX
-app does.  Snapshots are then written shard by shard.  The JAX app's other
-mesh branch (f64, a noise field, or a mesh the grid does not divide) is
-not ported yet and raises.
+app does.  Every other mesh (f64, a noise field, uneven or thin z
+windows, a y-only mesh, the classic stage on z,y) takes the JAX app's
+GSPMD branch: the plain right-hand side on each shard's block with its
+ghost planes (``parallel/halo.py``), whose step counts and snapshots are
+those of the single-device plain path.
+Snapshots are then written shard by shard.
+
+``--profile-dir DIR`` records the whole run with torch.profiler (CPU
+activities, and CUDA's on the card) into ``DIR/trace.json``, a Chrome
+trace, as the JAX app wraps its run in ``jax.profiler.trace``.
 """
 
 from __future__ import annotations
@@ -44,7 +53,8 @@ import torch
 
 from ..config.params import (
     ParamError, ParamFile, batch_iterations, loop_suffix, parse_param_file)
-from ..core.device import field_dtype, numpy_dtype, resolve_device
+from ..core.device import (
+    field_dtype, numpy_dtype, profile_trace, resolve_device)
 from ..core.grid import GridGeometry
 from ..io.rklog import RKDebugLog, RunLog, format_date, format_time
 from ..io.snapshots import (
@@ -57,12 +67,20 @@ from ..models.freezing.parameters import (
 from ..ops.cuda.stencil import DeltaAttempt, DeltaAttemptComp, make_fused_stage
 from ..parallel.fused import (
     ShardedDeltaAttempt, ShardedDeltaAttempt2D, make_sharded_fused_stage)
+from ..parallel.halo import make_halo_rhs
 from ..parallel.sharding import (
     gather_freezing_state, make_mesh, shard_freezing_state)
 from ..solvers.merson import (
     INTERRUPTED, MersonParams, merson_init, merson_solve)
 
 DEFAULT_BALL_POSITIONS = "data/spheres_positions.txt"  # equation.c:35
+
+
+def kernels_apply(dtype: torch.dtype, noise) -> bool:
+    """Whether the CUDA kernels take the solve: f32 without a noise field
+    (the kernels have no noise term); f64 integrates the plain
+    right-hand side."""
+    return dtype == torch.float32 and noise is None
 
 
 class IntertrackError(RuntimeError):
@@ -226,10 +244,8 @@ def run_iteration(
         w0[0] -= u_shift
         log("Temperature origin shifted by u_star for f32 conditioning.\n")
 
-    rhs = make_rhs(geom, solver_params, calc_mode, device, noise=noise)
-    y0 = torch.as_tensor(np.ascontiguousarray(w0)).to(device)
-    stage_fn = None
-    attempt_fn = None
+    y0 = torch.as_tensor(np.ascontiguousarray(w0))
+    rhs = stage_fn = attempt_fn = None
     # The increment-form (delta) attempt is the f32 default for all
     # models: its exact f(w+d)-f(w) stages remove the f32 stage-state
     # rounding floor from the error estimator (models/freezing/delta.py),
@@ -240,6 +256,7 @@ def run_iteration(
     # compensated (double-f32) commit, off by default: the JAX package's
     # round-5 A/B found it does not reduce the f32 step inflation
     use_comp = bool(pf.vars.get("compensated_commit", 0.0))
+    use_kernels = kernels_apply(dtype, noise)
     mesh = None
     if mesh_axes:
         mesh = make_mesh(mesh_axes, mesh_devices, device=device)
@@ -248,15 +265,15 @@ def run_iteration(
         axes = set(mesh.axis_names)
         # z splits into equal parts; y into unequal windows of >= 1 row
         fits = total_n3 % nz == 0 and total_n3 // nz >= 2 and n2 >= ny
-        if not (f32 and noise is None and fits
+        if not (use_kernels and fits
                 and (axes == {"z"} or (axes == {"z", "y"} and use_delta))):
-            # the JAX app's GSPMD fallback over the plain right-hand side
-            raise NotImplementedError(
-                "--mesh: this mesh path (f64, a noise field, an n3 that z "
-                "does not divide into shards of >= 2 planes, an n2 of fewer "
-                "rows than y, or the classic stage on a z,y mesh) is not "
-                "ported yet")
-        if axes == {"z"} and use_delta:
+            # the JAX app's GSPMD branch: the plain right-hand side on
+            # each shard's block with its ghost planes, any windows
+            rhs = make_halo_rhs(geom, solver_params, calc_mode, mesh,
+                                noise=noise)
+            log("Plain right-hand side with halo copies (sharded over "
+                "z=%d, y=%d)\n", nz, ny)
+        elif axes == {"z"} and use_delta:
             attempt_fn = ShardedDeltaAttempt(geom, solver_params, calc_mode,
                                              mesh, compensated=use_comp)
             log("Increment-form (delta) attempt kernels: ON%s (sharded over "
@@ -270,8 +287,7 @@ def run_iteration(
                                                calc_mode, mesh)
             log("Increment-form (delta) attempt kernels: ON (sharded over "
                 "z=%d, y=%d)\n", nz, ny)
-        y0 = shard_freezing_state(y0, mesh)
-    elif f32 and noise is None:
+    elif use_kernels:
         if use_delta:
             cls = DeltaAttemptComp if use_comp else DeltaAttempt
             attempt_fn = cls(geom, solver_params, calc_mode)
@@ -280,6 +296,10 @@ def run_iteration(
         else:
             stage_fn = make_fused_stage(geom, solver_params, calc_mode)
             log("Fused stage kernel: ON (%s)\n", device.type)
+    else:
+        rhs = make_rhs(geom, solver_params, calc_mode, device, noise=noise)
+    y0 = (shard_freezing_state(y0, mesh) if mesh is not None
+          else y0.to(device))
 
     state = merson_init(y0, starting_time, tau)
     # the classic f32 stage path enables the noise-floor escape (the f32
@@ -465,7 +485,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="'cuda' (default, raises without a GPU) or 'cpu'")
     ap.add_argument("--mesh", default=None,
                     help="device mesh spec over the visible devices of "
-                         "--device, e.g. 'z', 'z4' or 'z2,y2' (f32)")
+                         "--device (virtual shards of the CPU), e.g. 'z', "
+                         "'z4' or 'z2,y2'")
+    ap.add_argument("--profile-dir", default=None,
+                    help="record the whole run with torch.profiler into "
+                         "DIR/trace.json (a Chrome trace)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -501,38 +525,41 @@ def main(argv: Optional[List[str]] = None) -> int:
             len(ubounds), "s" if len(ubounds) > 1 else "", total_iters)
 
     status = 0
-    for loop_iter, loop_values in batch_iterations(ubounds):
-        loop_env = {f"i{q+1}": (loop_values[q] if q < len(loop_values) else 1)
-                    for q in range(20)}
-        loop_env["loopIter"] = loop_iter
-        if ubounds:
-            log("\nSTARTING ITERATION %d OF %d:\n"
-                "----------------------------------------------------------------------\n",
-                loop_iter, total_iters)
-            for q, v in enumerate(loop_values):
-                log("i%d = %d\n", q + 1, v)
-        pf = parse_param_file(text, loop_vars=loop_env)
-        if pf.skipped:
-            log("Iteration %d skipped. Continue...\n", loop_iter)
-            continue
+    with profile_trace(args.profile_dir, device) as trace:
+        if trace:
+            log("Profiler trace -> %s\n", trace)
+        for loop_iter, loop_values in batch_iterations(ubounds):
+            loop_env = {f"i{q+1}": (loop_values[q] if q < len(loop_values)
+                                    else 1) for q in range(20)}
+            loop_env["loopIter"] = loop_iter
+            if ubounds:
+                log("\nSTARTING ITERATION %d OF %d:\n"
+                    "----------------------------------------------------------------------\n",
+                    loop_iter, total_iters)
+                for q, v in enumerate(loop_values):
+                    log("i%d = %d\n", q + 1, v)
+            pf = parse_param_file(text, loop_vars=loop_env)
+            if pf.skipped:
+                log("Iteration %d skipped. Continue...\n", loop_iter)
+                continue
 
-        if pf.setting("debug_logfile") and debug_log is None:
-            debug_log = RKDebugLog(pf.setting("debug_logfile"),
-                                   final_time=pf.get("final_time", 0.0))
+            if pf.setting("debug_logfile") and debug_log is None:
+                debug_log = RKDebugLog(pf.setting("debug_logfile"),
+                                       final_time=pf.get("final_time", 0.0))
 
-        try:
-            run_iteration(
-                pf, log, device=device, dtype=dtype, loop_iter=loop_iter,
-                loop_values=loop_values, loop_ubounds=ubounds or None,
-                debug_log=debug_log, mesh_axes=args.mesh)
-            out_dir_arg = (pf.setting("out_file")
-                           + (loop_suffix(loop_values, ubounds, pf.mnemonics)
-                              if ubounds else ""))
-            run_pproc(pf, log, out_dir_arg, children)
-        except (IntertrackError, ParamError) as exc:
-            log("\nError: %s\nStop.\n", exc)
-            status = 1
-            break
+            try:
+                run_iteration(
+                    pf, log, device=device, dtype=dtype, loop_iter=loop_iter,
+                    loop_values=loop_values, loop_ubounds=ubounds or None,
+                    debug_log=debug_log, mesh_axes=args.mesh)
+                out_dir_arg = pf.setting("out_file") + (
+                    loop_suffix(loop_values, ubounds, pf.mnemonics)
+                    if ubounds else "")
+                run_pproc(pf, log, out_dir_arg, children)
+            except (IntertrackError, ParamError) as exc:
+                log("\nError: %s\nStop.\n", exc)
+                status = 1
+                break
 
     for child in children:
         child.wait()

@@ -15,9 +15,17 @@ CLI example::
 Snapshot numbering starts from 1 (MATLAB compatibility,
 spheres_friction_angular.c:611-613).  The console lines are the JAX
 app's.  ``--device cuda`` is the default and raises without a GPU; nothing
-falls back to the CPU.  The pair term is the dense one; the cell
-strategies (``--neighbor``) and particle sharding (``--mesh``) are not
-ported yet.
+falls back to the CPU.
+
+``--neighbor cell_list|cell_lanes`` runs the pair term on the cell list
+(``models/dem/forces.py``) of ``--cell-capacity`` slots a cell: the solve
+then goes in chunks of 512 attempts (the JAX app's chunk on an
+accelerator), and the fullest cell is checked after every chunk and every
+snapshot; past the capacity the run stops with the JAX app's message (the
+``cell_lanes`` pair term also NaN-poisons there).  ``--mesh SPEC`` (e.g.
+``p2``; virtual shards of the CPU) shards the particles and runs the
+sharded dense pair term, whose results are the single-device ones bit for
+bit.
 """
 
 from __future__ import annotations
@@ -34,9 +42,10 @@ from ..core.device import field_dtype, resolve_device
 from ..io.csv_snaps import snapshot_path, write_dem_snapshot
 from ..io.rklog import format_time
 from ..models.dem import (
-    DEMConfig, icond_2spheres, icond_dense, icond_sparse, make_dem_rhs,
-    write_final_positions)
-from ..solvers.merson import MersonParams, merson_init, merson_solve
+    CellOverflowError, DEMConfig, icond_2spheres, icond_dense, icond_sparse,
+    make_dem_rhs, solve_guarded, write_final_positions)
+from ..parallel.sharding import gather_dem_state, make_mesh, shard_dem_state
+from ..solvers.merson import MersonParams, merson_init
 
 ICONDS = {"dense": icond_dense, "sparse": icond_sparse,
           "2spheres": icond_2spheres}
@@ -62,8 +71,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--neighbor", choices=["dense", "cell_list",
                                            "cell_roll", "cell_lanes"],
                     default="dense",
-                    help="pair search: the exact masked n x n term (the "
-                         "cell strategies are not ported yet)")
+                    help="pair search: the exact masked n x n term, or "
+                         "the cell list for large n (cell_lanes guards "
+                         "its capacity; cell_roll is not ported)")
+    ap.add_argument("--cell-capacity", type=int, default=16,
+                    help="max particles per cell for the cell "
+                         "strategies; occupancy is checked at every "
+                         "chunk boundary and overflow aborts loudly "
+                         "(cell_lanes also NaN-poisons on overflow)")
     ap.add_argument("--device-buffer", type=int, default=0, metavar="B",
                     help="accepted for the JAX app's command lines; the "
                          "port runs the same per-snapshot loop whatever B "
@@ -79,17 +94,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default, raises without a GPU) or 'cpu'")
     ap.add_argument("--mesh", default=None, metavar="SPEC",
-                    help="shard particles over a device mesh (not ported "
-                         "yet)")
+                    help="shard particles over a device mesh (e.g. 'p' = "
+                         "all devices, 'p4'; virtual shards of the CPU); "
+                         "results are mesh-size invariant")
     args = ap.parse_args(argv)
 
-    if args.neighbor != "dense":
-        raise NotImplementedError(
-            f"--neighbor {args.neighbor}: the cell strategies are not "
-            "ported yet (a GPU cell list is to come)")
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: DEM particle sharding is not ported yet")
     device = resolve_device(args.device)
     dtype = field_dtype(args.precision)
 
@@ -112,9 +121,30 @@ def main(argv: Optional[List[str]] = None) -> int:
     # the NaN backoff where the JAX app sets it: f32 states
     params = MersonParams(delta=cfg.delta, h_min=cfg.ht_min,
                           handle_nan=dtype == torch.float32)
-    rhs = make_dem_rhs(cfg, dtype=dtype, device=device)
-    state = merson_init({k: torch.as_tensor(v, dtype=dtype, device=device)
-                         for k, v in y0.items()}, 0.0, cfg.ht)
+    y_dev = {k: torch.as_tensor(v, dtype=dtype, device=device)
+             for k, v in y0.items()}
+    mesh = None
+    if args.mesh:
+        mesh = make_mesh(args.mesh, device=device)
+        y_dev = shard_dem_state(y_dev, mesh)
+        print(f"Particles sharded over mesh {mesh.shape}")
+    try:
+        rhs = make_dem_rhs(cfg, dtype=dtype, neighbor=args.neighbor,
+                           cell_capacity=args.cell_capacity, mesh=mesh,
+                           device=device)
+    except ValueError as exc:
+        ap.error(str(exc))
+    state = merson_init(y_dev, 0.0, cfg.ht)
+
+    def host_state(y):
+        y = gather_dem_state(y) if mesh is not None else y
+        return {k: v.cpu().numpy() for k, v in y.items()}
+
+    def solve(st, ft):
+        try:
+            return solve_guarded(rhs, st, ft, params)[:2]
+        except CellOverflowError as exc:
+            raise SystemExit(str(exc))
 
     def t_target(snap):
         return (cfg.T / (cfg.snapshots - 1)) * snap
@@ -125,7 +155,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"Solving until t={t_target(snap):f} ....", end="",
               flush=True)
         t0 = time.time()
-        state, status = merson_solve(rhs, state, t_target(snap), params)
+        state, status = solve(state, t_target(snap))
         if status != 0:
             print(f"\nsolver failed with status {status}")
             raise SystemExit(1)
@@ -134,12 +164,10 @@ def main(argv: Optional[List[str]] = None) -> int:
               f"{state.steps} R-K steps ({state.steps_total} total)")
         print(f"Saving snapshot {snap + 1} of {cfg.snapshots}.")
         write_dem_snapshot(snapshot_path(args.output, snap + 1),
-                           {k: v.cpu().numpy() for k, v in state.y.items()},
-                           color, angular=cfg.angular)
+                           host_state(state.y), color, angular=cfg.angular)
 
     if args.final_positions:
-        write_final_positions(args.final_positions,
-                              {k: v.cpu().numpy() for k, v in state.y.items()})
+        write_final_positions(args.final_positions, host_state(state.y))
         print(f"Final positions written to: {args.final_positions}")
 
     print(f"\nSimulation completed in: {format_time(time.time() - start)}.")

@@ -32,27 +32,29 @@ without a GPU; nothing falls back to the CPU.
 ``--no-overlap``), a mesh with a y axis the 2-D increment-form attempt
 (``ShardedDeltaAttempt2D``); the metric gets ``_sharded_<spec>``.
 
-``--suite dem [--n-spheres N]`` is ``bench.py``'s DEM suite: the
-adaptive Merson solve of the ``friction_angular`` dense bed of N spheres
-(``icond_dense``, seed 0; a proportionally smaller radius past 400) in
-f32, the dense pair term, ``--warm-steps`` then ``--steps`` attempted
-steps (20000 each to 400 spheres, 2000 past), under its metric
-``dem_{N}_particle_rhs_evals_per_s`` (particle*RHS-evals/s/chip against
-the MATLAB twin's 820 at N = 200, BASELINE.md).
+``--suite dem [--n-spheres N] [--neighbor dense|cell_list|cell_lanes]
+[--cell-capacity K]`` is ``bench.py``'s DEM suite: the adaptive Merson
+solve of the ``friction_angular`` dense bed of N spheres (``icond_dense``,
+seed 0; radius 0.1 * (200/N)^(1/3) past 400) in f32, ``--warm-steps``
+then ``--steps`` attempted steps (20000 each to 400 spheres, 2000 past),
+the cell strategies in solver calls of 512 attempts with the fullest cell
+checked after each (``models.dem.solve_guarded``), under its metric
+``dem_{N}[_celllist|_celllanes]_particle_rhs_evals_per_s``
+(particle*RHS-evals/s/chip against the MATLAB twin's 820 at N = 200,
+BASELINE.md).
 
 ``--matrix`` runs the LR/MR/HR x GradP/SigmaP1-P/Temp rows, the MR GradP
-delta row, the MR GradP mesh rows (``z1`` and ``z1,y1``) and the DEM rows,
-each in its own process, and prints one JSON line per row and the MR GradP
-row again as the last line.  The DEM rows of the ``cell_lanes`` strategy
-raise "not ported yet": they wait for a GPU cell list.  The matrix writes
-a file only where ``--out`` names one.
+delta row, the MR GradP mesh rows (``z1`` and ``z1,y1``) and the DEM rows
+(dense at 200-6000 spheres, ``cell_lanes`` with K = 8 at 4000-20000),
+each in its own process, and prints one JSON line per row and the MR
+GradP row again as the last line.  The matrix writes a file only where
+``--out`` names one.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import json
 import os
 import subprocess
@@ -66,9 +68,11 @@ import torch
 
 from .cases import freezing_params_text
 from .config import parse_param_file
-from .core.device import field_dtype, numpy_dtype, resolve_device
+from .core.device import (
+    field_dtype, numpy_dtype, profile_trace, resolve_device)
 from .core.grid import GridGeometry
-from .models.dem import DEMConfig, icond_dense, make_dem_rhs
+from .models.dem import (
+    CELL_CHUNK, DEMConfig, icond_dense, make_dem_rhs, solve_guarded)
 from .models.freezing import (
     FreezingParams, build_glass_field, build_initial_conditions, make_rhs,
     read_ball_positions, shift_temperature_origin)
@@ -96,6 +100,8 @@ MODE_NAMES = {0: "gradp", 1: "sigmap", 2: "temp"}
 GRID_NAMES = {100: "lr", 200: "mr", 400: "hr"}
 UNIT = "cell*RHS-evals/s/chip"
 DEM_UNIT = "particle*RHS-evals/s/chip"
+DEM_SUFFIX = {"dense": "", "cell_list": "_celllist",
+              "cell_lanes": "_celllanes"}
 # the MATLAB twin, 200-sphere dense porous-bed case: 200 particles x
 # 151,969 f-evals / 37,059 s (BASELINE.md spheres_200_dense.log), as in
 # bench.py
@@ -104,10 +110,6 @@ HEADLINE = "freezing_gradp_cell_rhs_evals_per_s"
 REPO_BALLS = (Path(__file__).resolve().parents[1] / "data"
               / "spheres_positions.txt")
 KERNEL_PATHS = ("stage", "delta", "attempt")
-
-
-class NotPortedError(NotImplementedError):
-    pass
 
 
 def log(*a):
@@ -165,21 +167,11 @@ def _sync(device: torch.device) -> None:
 
 @contextlib.contextmanager
 def _profiled(profile_dir, device: torch.device):
-    """torch.profiler over the block, its trace written to
-    ``profile_dir/trace.json``; nothing without a directory."""
-    if not profile_dir:
+    """torch.profiler over the block (``profile_trace``), logged."""
+    with profile_trace(profile_dir, device) as path:
         yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        yield
-    os.makedirs(profile_dir, exist_ok=True)
-    path = os.path.join(profile_dir, "trace.json")
-    prof.export_chrome_trace(path)
-    log(f"profiler trace written to {path}")
+    if path:
+        log(f"profiler trace written to {path}")
 
 
 def bench_freezing(args, grid_nodes=None, calc_mode=None) -> dict:
@@ -282,10 +274,13 @@ def bench_freezing(args, grid_nodes=None, calc_mode=None) -> dict:
     }
 
 
-def bench_dem(args, n_spheres=None) -> dict:
-    """One timed DEM row (bench.py's ``bench_dem``, dense); returns its
-    record."""
+def bench_dem(args, n_spheres=None, neighbor=None, cell_capacity=None,
+              chunk=CELL_CHUNK) -> dict:
+    """One timed DEM row (bench.py's ``bench_dem``); returns its record.
+    ``neighbor`` and ``cell_capacity`` default to ``args``'."""
     n = n_spheres or args.n_spheres
+    neighbor = neighbor or args.neighbor
+    cap = cell_capacity or args.cell_capacity
     device = resolve_device(args.device)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
@@ -294,24 +289,34 @@ def bench_dem(args, n_spheres=None) -> dict:
     r = 0.1 if n <= 400 else 0.1 * (200.0 / n) ** (1.0 / 3.0)
     cfg = DEMConfig(variant="friction_angular", n=n, r=r)
     y0, _ = icond_dense(cfg, seed=0)
-    rhs = make_dem_rhs(cfg, dtype=torch.float32, device=device)
+    rhs = make_dem_rhs(cfg, dtype=torch.float32, neighbor=neighbor,
+                       cell_capacity=cap, device=device)
+    cells = rhs.neighbor_struct
     steps = args.steps or (20000 if n <= 400 else 2000)
     warm = args.warm_steps or steps
     params = MersonParams(delta=cfg.delta, h_min=cfg.ht_min,
-                          max_steps=steps, handle_nan=True)
+                          handle_nan=True)
+    occupancy = []
+
+    def run(st, attempts):
+        st, _, occ = solve_guarded(rhs, st, 1e9, params, attempts=attempts,
+                                   chunk=chunk)
+        if occ is not None:
+            occupancy.append(occ)
+        return st
+
     state = merson_init({k: torch.as_tensor(v, dtype=torch.float32,
                                             device=device)
                          for k, v in y0.items()}, 0.0, cfg.ht)
-    log(f"warmup: {warm} attempted steps (n={n}, neighbor=dense)...")
-    state = merson_solve(rhs, state, 1e9, dataclasses.replace(
-        params, max_steps=warm))[0]
+    log(f"warmup: {warm} attempted steps (n={n}, neighbor={neighbor})...")
+    state = run(state, warm)
     _sync(device)
     before, before_ok = state.steps_total, state.steps
     log(f"timing {steps} attempted steps (t={state.t:.3f}s sim)...")
     with _profiled(args.profile_dir, device):
         _sync(device)
         t0 = time.perf_counter()
-        state = merson_solve(rhs, state, 1e9, params)[0]
+        state = run(state, steps)
         _sync(device)
         wall = time.perf_counter() - t0
     done = state.steps_total - before
@@ -321,14 +326,16 @@ def bench_dem(args, n_spheres=None) -> dict:
     if not all(bool(torch.isfinite(v).all()) for v in state.y.values()):
         raise RuntimeError("the benchmark solve produced a non-finite state")
     return {
-        "metric": f"dem_{n}_particle_rhs_evals_per_s",
+        "metric": f"dem_{n}{DEM_SUFFIX[neighbor]}_particle_rhs_evals_per_s",
         "value": value,
         "unit": DEM_UNIT,
         "vs_baseline": (value / BASELINE_DEM_PARTICLE_EVALS_PER_S
                         if n == 200 else None),
         "ms_per_attempt": wall / done * 1e3,
         "device": name,
-        "neighbor": "dense",
+        "neighbor": neighbor,
+        "cell_capacity": cap if cells is not None else None,
+        "max_occupancy": max(occupancy) if occupancy else None,
         "dtype": "f32",
         "n_spheres": n,
         "attempts": done,
@@ -344,8 +351,7 @@ def bench_dem(args, n_spheres=None) -> dict:
 
 def matrix_specs():
     """(row spec, label) of bench.py's matrix; each row runs in its own
-    process.  The DEM rows of the cell_lanes strategy are not ported
-    yet."""
+    process.  A DEM row is ``dem:N:neighbor:chunk[:capacity]``."""
     specs = [(f"freezing:{gn}:{cm}", f"freezing_{gn}_{cm}")
              for gn in (100, 200, 400) for cm in (0, 1, 2)]
     specs.append(("freezing:200:0:delta", "freezing_200_0_delta"))
@@ -364,11 +370,10 @@ def bench_row(args, spec: str) -> dict:
     """One matrix row in this process (``--row``)."""
     parts = spec.split(":")
     if parts[0] == "dem":
-        if parts[2] != "dense":
-            raise NotPortedError(
-                f"matrix row {spec}: the {parts[2]} strategy is not ported "
-                "yet; it waits for the GPU cell list (ROADMAP)")
-        return bench_dem(args, n_spheres=int(parts[1]))
+        return bench_dem(args, n_spheres=int(parts[1]), neighbor=parts[2],
+                         chunk=int(parts[3]),
+                         cell_capacity=int(parts[4]) if len(parts) > 4
+                         else None)
     extra = parts[3] if len(parts) > 3 else ""
     if extra == "delta":
         args.fused = "delta"
@@ -412,15 +417,14 @@ def run_row(spec: str, label: str, args) -> dict:
 def run_matrix(args) -> int:
     """Print one JSON line per matrix row, then the headline row again;
     write the list to ``args.out`` where it is given.  Returns 1 when a
-    ported row failed, else 0."""
+    row failed, else 0."""
     results = []
     failed = False
     for spec, label in matrix_specs():
         rec = run_row(spec, label, args)
         results.append(rec)
         print(json.dumps(rec), flush=True)
-        not_ported = "not ported yet" in str(rec.get("error", ""))
-        failed |= rec.get("value") is None and not not_ported
+        failed |= rec.get("value") is None
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
@@ -442,8 +446,11 @@ def parse_args(argv=None):
     ap.add_argument("--neighbor", choices=["dense", "cell_list",
                                            "cell_roll", "cell_lanes"],
                     default="dense",
-                    help="DEM neighbor strategy (--suite dem); only "
-                         "'dense' is ported")
+                    help="DEM neighbor strategy (--suite dem; cell_roll "
+                         "is not ported and raises)")
+    ap.add_argument("--cell-capacity", type=int, default=16,
+                    help="particles per cell of the cell strategies "
+                         "(--suite dem)")
     ap.add_argument("--matrix", action="store_true",
                     help="the LR/MR/HR x GradP/SigmaP/Temp matrix and the "
                          "MR GradP delta row, one JSON line each (each row "
@@ -492,10 +499,6 @@ def main(argv=None) -> int:
     if args.matrix:
         return run_matrix(args)
     if args.suite == "dem":
-        if args.neighbor != "dense":
-            raise NotPortedError(
-                f"--neighbor {args.neighbor}: not ported yet; the cell "
-                "strategies wait for the GPU cell list (ROADMAP)")
         print(json.dumps(bench_dem(args)), flush=True)
         return 0
     print(json.dumps(bench_freezing(args)), flush=True)

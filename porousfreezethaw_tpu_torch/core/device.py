@@ -15,6 +15,10 @@ explicit ``device`` and ``dtype``, and nothing reads
 
 from __future__ import annotations
 
+import contextlib
+import os
+from typing import Optional
+
 import torch
 
 FIELD_DTYPES = {"f32": torch.float32, "f64": torch.float64}
@@ -58,3 +62,23 @@ def field_dtype(precision: str) -> torch.dtype:
 def numpy_dtype(dtype: torch.dtype):
     """The numpy dtype of a torch field dtype."""
     return torch.empty((), dtype=dtype).numpy().dtype
+
+
+@contextlib.contextmanager
+def profile_trace(profile_dir: Optional[str], device: torch.device):
+    """torch.profiler over the block (CPU activities, and CUDA's on a
+    CUDA ``device``), its Chrome trace written to
+    ``profile_dir/trace.json``; nothing without a directory.  Yields the
+    trace's path or None."""
+    if not profile_dir:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    path = os.path.join(profile_dir, "trace.json")
+    with profile(activities=acts) as prof:
+        yield path
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(path)

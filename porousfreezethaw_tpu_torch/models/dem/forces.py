@@ -1,12 +1,31 @@
-"""DEM soft-contact forces (PyTorch): the dense pair term.
+"""DEM soft-contact forces (PyTorch): the dense pair term, the cell list
+and the particle-sharded dense term.
 
-The counterpart of the ``dense`` strategy of
-``porousfreezethaw_tpu/models/dem/forces.py`` (``make_dem_rhs``), itself
-the reference's O(n^2) pair scan (``spheres_friction_angular.c:242-357``)
-as one masked (n x n) computation: exact, no data structure, and the
-correctness oracle for any cell structure.  The JAX package's cell
-strategies (``cell_list``, ``cell_roll``, ``cell_lanes``) are shaped for a
-TPU's lanes and are not ported; a GPU cell list is still to come.
+The counterpart of ``porousfreezethaw_tpu/models/dem/forces.py``
+(``make_dem_rhs``), itself the reference's O(n^2) pair scan
+(``spheres_friction_angular.c:242-357``).  Every strategy gathers, for each
+particle, a set of candidate neighbours and hands them to one pair-force
+function (``pair_accels``), reduced over the candidates:
+
+* ``dense`` -- every other particle, as one masked (n x n) computation:
+  exact, no data structure, and the correctness oracle of the others.
+* ``cell_list`` / ``cell_lanes`` -- the particles of the 27 cells around
+  a particle's own, on a grid of cell edge 2r + max_surf_dist (the
+  interaction range), from a sorted-cell table of ``capacity`` slots a
+  cell (:func:`make_cell_list`): O(n * 27 * capacity) work.  The JAX
+  package's ``cell_lanes`` lays the cells out as (3, K, C) with rolls
+  along the lanes, a form made for a TPU's (8, 128) register tiling; on
+  a GPU the gather of the candidates is the natural form, and both names
+  run it.  ``cell_lanes`` guards its capacity: when a cell holds more
+  than K particles, the pair accelerations are NaN (the JAX package's
+  contract), where ``cell_list`` drops the excess silently.
+  ``cell_roll``, the superseded TPU roll layout, finds ``cell_list``'s
+  pairs and is not ported.
+* ``mesh=`` -- the dense term with the particles sharded over a mesh axis:
+  each shard computes its own rows against the whole state gathered onto
+  its device, the counterpart of the JAX package's ``shard_map`` body.
+  A row's neighbour sum is the single-device one, so the result is the
+  single-device result bit for bit.
 
 Force model (constants in :class:`.config.DEMConfig`), as in the JAX
 package, operation for operation:
@@ -23,18 +42,31 @@ package, operation for operation:
   (spheres_friction_angular.c:298-321, 339-354)
 
 State: a dict {'pos': (n,3), 'vel': (n,3)[, 'angvel': (n,3)]} of tensors
-on one device.  The pair tensors are broadcasts of the state, never
-materialised copies of it; the largest live temporaries are (n, n, 3).
+on one device; on a mesh, the list of the shards' dicts in mesh order
+(``parallel.sharding.shard_dem_state``).  The dense pair tensors are
+broadcasts of the state; the largest live temporaries are (rows, n, 3),
+or (n, 27 * capacity, 3) for the cell list.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+import math
+from typing import Dict, List
 
 import torch
 
 from ...core.device import resolve_device
+from ...solvers.merson import MAX_STEPS, merson_solve
 from .config import DEMConfig
+
+# attempts per solver call with a cell structure (the JAX app's chunk on an
+# accelerator); the fullest cell is checked between calls
+CELL_CHUNK = 512
+
+# 27 neighbour-cell offsets (own cell included), in the JAX package's order
+_OFFSETS = [(dx, dy, dz)
+            for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
 
 
 def _norm(v: torch.Tensor) -> torch.Tensor:
@@ -42,24 +74,169 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(v, dim=-1)
 
 
-def make_dem_rhs(cfg: DEMConfig, dtype: torch.dtype = torch.float64,
-                 neighbor: str = "dense",
-                 device: torch.device | str = "cuda"):
-    """Build ``rhs(t, y) -> dy/dt`` for the configured variant on
-    ``device`` (the GPU unless the caller asks for the CPU; 'cuda' raises
-    without one); ``y`` is the state dict of ``dtype`` tensors there.
-    ``neighbor`` is 'dense', the exact masked n x n pair term (the JAX
-    package's cell strategies are not ported)."""
-    if neighbor != "dense":
-        raise NotImplementedError(
-            f"neighbor strategy {neighbor!r} is not ported yet (the dense "
-            "pair term is; a GPU cell list is to come)")
+def default_cell_bounds(cfg: DEMConfig):
+    """Bounding box ``(lo, hi)`` of the cell grid: the vessel plus headroom
+    for the elevated initial block and slack for wall penetration.
+
+    The height model is ``icond_dense``'s (the tallest initializer):
+    ``floor(R / 2.5r)^2`` spheres per layer at spacing ``R / bpr``
+    (spheres_friction_angular.c:454-489).  An ``n^(1/3)``-layer model
+    underestimates large beds: the JAX package found particles above the
+    box clipped into the top cell layer, past its capacity, at n = 20 000."""
+    bpr = max(1, math.floor(cfg.R / (2.5 * cfg.r)))
+    distance = cfg.R / bpr
+    n_layers = math.ceil(cfg.n / (bpr * bpr))
+    z_top = cfg.h0 + (n_layers + 2) * distance
+    pad = 4.0 * cfg.r
+    return (-pad, -pad, -pad), (cfg.R + pad, cfg.R + pad, z_top + pad)
+
+
+def make_cell_list(cfg: DEMConfig, capacity: int = 16, bounds=None,
+                   dtype: torch.dtype = torch.float64,
+                   device: torch.device | str = "cuda"):
+    """Build ``neighbor_ids(pos) -> (ids, mask, overflow)``: ``ids`` the
+    (n, 27 * capacity) candidate indices (0 where there is none), ``mask``
+    the real candidates (not the particle itself), ``overflow`` a 0-d bool
+    tensor on the device, true when a cell holds more than ``capacity``
+    particles (whose excess is then left out).
+
+    The cells are those of the box ``bounds`` (:func:`default_cell_bounds`
+    by default) at edge 2r + max_surf_dist; a particle outside is binned
+    into the nearest cell.  The table is the particles stably sorted by
+    cell: slot ``cell * capacity + k`` holds the cell's k-th particle in
+    index order, as the JAX package's stable ``argsort`` orders them.
+    ``neighbor_ids.cell_occupancy(pos)`` is the fullest cell's count (one
+    device sync)."""
     device = resolve_device(device)
+    lo, hi = bounds if bounds is not None else default_cell_bounds(cfg)
+    edge = 2.0 * cfg.r + cfg.max_surf_dist
+    dims = tuple(int(math.ceil((hi[d] - lo[d]) / edge)) for d in range(3))
+    nx, ny, nz = dims
+    ncells = nx * ny * nz
+    K = capacity
+    lo_t = torch.tensor(lo, dtype=dtype, device=device)
+    top = torch.tensor(dims, dtype=torch.int64, device=device) - 1
+    offs = torch.tensor(_OFFSETS, dtype=torch.int64, device=device)
+    kk = torch.arange(K, device=device)
+
+    def cell_coords(pos):
+        ci = torch.floor((pos - lo_t) / edge).to(torch.int64)
+        return torch.minimum(ci.clamp_min(0), top)
+
+    def flat(ci):
+        return (ci[..., 2] * ny + ci[..., 1]) * nx + ci[..., 0]
+
+    def neighbor_ids(pos):
+        n = pos.shape[0]
+        idx = torch.arange(n, device=device)
+        ci = cell_coords(pos)
+        scid, order = torch.sort(flat(ci), stable=True)
+        rank = idx - torch.searchsorted(scid, scid, side="left")
+        overflow = rank.max() >= K
+        # ranks past the capacity go to one spare slot that nothing reads
+        slot = torch.where(rank < K, scid * K + rank, ncells * K)
+        table = torch.full((ncells * K + 1,), -1, dtype=torch.int64,
+                           device=device)
+        table.scatter_(0, slot, order)
+        cand = ci[:, None, :] + offs                         # (n, 27, 3)
+        in_range = ((cand >= 0) & (cand <= top)).all(dim=-1)  # (n, 27)
+        cand_cid = torch.where(in_range, flat(cand), 0)
+        ids = table[(cand_cid[..., None] * K + kk).reshape(n, -1)]
+        mask = ((ids >= 0) & (ids != idx[:, None])
+                & in_range.repeat_interleave(K, dim=1))
+        return ids.clamp_min(0), mask, overflow
+
+    def cell_occupancy(pos) -> int:
+        """Particles in the fullest cell; must stay <= capacity."""
+        ci = cell_coords(torch.as_tensor(pos, dtype=dtype, device=device))
+        return int(torch.bincount(flat(ci), minlength=ncells).max())
+
+    neighbor_ids.dims = dims
+    neighbor_ids.capacity = K
+    neighbor_ids.cell_occupancy = cell_occupancy
+    return neighbor_ids
+
+
+class CellOverflowError(RuntimeError):
+    """A cell holds more particles than the cell structure's capacity."""
+
+
+def solve_guarded(rhs, state, final_time: float, params,
+                  attempts: int | None = None, chunk: int = CELL_CHUNK):
+    """``merson_solve`` toward ``final_time`` (or for ``attempts`` attempts
+    when given), checking the fullest cell of ``rhs.neighbor_struct``
+    after every ``chunk`` attempts: densification past the capacity would
+    drop pairs, and the check names the cause before the NaN backoff
+    grinds h into the floor.  Without a cell structure it is one solve.
+
+    Returns ``(state, status, max_occupancy)`` (None without cells);
+    raises :class:`CellOverflowError` with the JAX app's message."""
+    cells = rhs.neighbor_struct
+    start = state.steps_total
+    occupancy = None
+    while True:
+        left = (params.max_steps if attempts is None
+                else attempts - (state.steps_total - start))
+        step = left if cells is None else min(chunk, left)
+        state, status = merson_solve(rhs, state, final_time,
+                                     dataclasses.replace(params,
+                                                         max_steps=step))
+        if cells is not None:
+            occ = cells.cell_occupancy(state.y["pos"])
+            occupancy = occ if occupancy is None else max(occupancy, occ)
+            if occ > cells.capacity:
+                raise CellOverflowError(
+                    f"cell occupancy {occ} exceeds capacity "
+                    f"{cells.capacity} at t={state.t:.4f}: rerun with a "
+                    f"larger --cell-capacity or --neighbor dense")
+        if (cells is None or status != MAX_STEPS or attempts is not None
+                and state.steps_total - start >= attempts):
+            return state, status, occupancy
+
+
+def make_dem_rhs(cfg: DEMConfig, dtype: torch.dtype = torch.float64,
+                 neighbor: str = "dense", cell_capacity: int = 16,
+                 cell_bounds=None, mesh=None, axis_name: str = "p",
+                 device: torch.device | str = "cuda"):
+    """Build ``rhs(t, y) -> dy/dt`` for the configured variant.
+
+    ``neighbor``: 'dense', 'cell_list' or 'cell_lanes' (see the module
+    docstring; ``cell_capacity`` and ``cell_bounds`` configure the cells).
+    ``y`` is the state dict of ``dtype`` tensors on ``device`` (the GPU
+    unless the caller asks for the CPU; 'cuda' raises without one).
+
+    ``mesh``: a :class:`..parallel.sharding.Mesh` whose one axis
+    ``axis_name`` shards the particles (dense only, as in the JAX
+    package); ``y`` is then the list of the shards' dicts, each on its
+    mesh device, and so is the result.
+
+    ``rhs.neighbor_struct`` is the cell structure (its ``capacity`` and
+    ``cell_occupancy``), or None for the dense term."""
     P_w, n_w = cfg.wall_arrays()
     kin_energy_fraction = cfg.COR * cfg.COR
     two_r = 2.0 * cfg.r
     eps2_3 = 3.0 / (cfg.p_eps1 * cfg.p_eps1)
     eps3_2 = 2.0 / (cfg.p_eps1 * cfg.p_eps1 * cfg.p_eps1)
+
+    if neighbor == "cell_roll":
+        raise ValueError(
+            "neighbor 'cell_roll' is not ported: it finds the pairs of "
+            "'cell_list' in a TPU roll layout; use 'cell_lanes'")
+    if neighbor not in ("dense", "cell_list", "cell_lanes"):
+        raise ValueError(f"unknown neighbor strategy {neighbor!r}")
+    rows = None
+    if mesh is not None:
+        if neighbor != "dense":
+            raise ValueError("mesh sharding supports the dense neighbor "
+                             "strategy (the cell list is single-device)")
+        from ...parallel.sharding import dem_sharding
+        rows = dem_sharding(mesh, cfg.n, axis_name)
+    else:
+        device = resolve_device(device)
+    nbr = None
+    if neighbor != "dense":
+        nbr = make_cell_list(cfg, capacity=cell_capacity, bounds=cell_bounds,
+                             dtype=dtype, device=device)
 
     def rebound(v):
         # smooth restitution: ~1 for v>0, ~COR^2 for v<0 (spheres_basic.c:192)
@@ -78,25 +255,30 @@ def make_dem_rhs(cfg: DEMConfig, dtype: torch.dtype = torch.float64,
         lim = x * x * (eps2_3 - eps3_2 * x)
         return torch.where(x >= cfg.p_eps1, 1.0, lim)
 
-    gravity = torch.tensor(cfg.gravity, dtype=dtype, device=device)
-    walls_P = torch.as_tensor(P_w, dtype=dtype, device=device)
-    walls_n = torch.as_tensor(n_w, dtype=dtype, device=device)
+    consts: Dict[torch.device, tuple] = {}
 
-    def pair_accels(pos, vel, angvel):
+    def constants(dev):
+        """gravity, wall points and wall normals on ``dev``."""
+        if dev not in consts:
+            consts[dev] = (torch.tensor(cfg.gravity, dtype=dtype, device=dev),
+                           torch.as_tensor(P_w, dtype=dtype, device=dev),
+                           torch.as_tensor(n_w, dtype=dtype, device=dev))
+        return consts[dev]
+
+    def pair_accels(pos, vel, angvel, npos, nvel, nang, mask):
         """Summed contact acceleration (and angular acceleration) on each
-        particle from every other one: (n, n, 3) pair terms reduced over
-        the neighbours (dim 1)."""
-        n = pos.shape[0]
-        dp = pos[:, None, :] - pos[None, :, :]          # i w.r.t. j
+        row particle from its candidates: ``npos`` etc. are (1, m, 3)
+        broadcasts or (rows, m, 3) gathers, ``mask`` (rows, m) the real
+        ones; the pair terms are reduced over the candidates (dim 1)."""
+        dp = pos[:, None, :] - npos                     # i w.r.t. j
         dist = _norm(dp) + cfg.zero
         mp = dp / dist[..., None]
         del dp
         surf = dist - two_r
-        mask = ~torch.eye(n, dtype=torch.bool, device=pos.device)
         mask = mask & (surf <= cfg.max_surf_dist)
         CF = torch.where(mask, collision_factor(surf), 0.0)
 
-        mv = vel[:, None, :] - vel[None, :, :]
+        mv = vel[:, None, :] - nvel
         heading = torch.sum(mv * mp, dim=-1)
         acc = torch.sum((CF * rebound(-heading))[..., None] * mp, dim=1)
 
@@ -107,7 +289,7 @@ def make_dem_rhs(cfg: DEMConfig, dtype: torch.dtype = torch.float64,
             if angvel is not None:
                 # mp points opposite to r (center -> contact point):
                 # v_surf contribution is -r * (omega_i + omega_j) x mp
-                osum = angvel[:, None, :] + angvel[None, :, :]
+                osum = angvel[:, None, :] + nang
                 sv = torch.linalg.cross(osum, mp)
                 del osum
                 mv_t = mv_t - cfg.r * sv
@@ -123,12 +305,47 @@ def make_dem_rhs(cfg: DEMConfig, dtype: torch.dtype = torch.float64,
                     (cfg.r * FF / cfg.inertia)[..., None] * torque, dim=1)
         return acc, angacc
 
-    def rhs(t, y: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def dense_accels(pos, vel, angvel, full, row0):
+        """The rows ``row0 ..`` of the dense pair term: ``pos`` etc. are
+        those rows, ``full`` the whole state on their device."""
+        n, N = pos.shape[0], full["pos"].shape[0]
+        own = torch.arange(row0, row0 + n, device=pos.device)
+        mask = own[:, None] != torch.arange(N, device=pos.device)[None, :]
+        ang = full.get("angvel")
+        return pair_accels(pos, vel, angvel, full["pos"][None],
+                           full["vel"][None],
+                           ang[None] if ang is not None else None, mask)
+
+    def cell_accels(pos, vel, angvel):
+        ids, mask, overflow = nbr(pos)
+        acc, angacc = pair_accels(
+            pos, vel, angvel, pos[ids], vel[ids],
+            angvel[ids] if angvel is not None else None, mask)
+        if neighbor == "cell_lanes":
+            # guarded capacity: a cell past K particles would drop pairs
+            # silently; poison the result so that the failure is loud
+            # (the solver's NaN handling rejects the step; the app and
+            # the bench check cell_occupancy at chunk boundaries and name
+            # the cause)
+            nan = torch.tensor(math.nan, dtype=acc.dtype, device=acc.device)
+            acc = torch.where(overflow, nan, acc)
+            if angacc is not None:
+                angacc = torch.where(overflow, nan, angacc)
+        return acc, angacc
+
+    def forces(y: Dict[str, torch.Tensor], full=None, row0=0
+               ) -> Dict[str, torch.Tensor]:
+        """dy/dt of the rows in ``y``: pairs, gravity and walls."""
         pos, vel = y["pos"], y["vel"]
         angvel = y.get("angvel")
+        gravity, walls_P, walls_n = constants(pos.device)
 
         # ---- particle pairs ----
-        pacc, angacc = pair_accels(pos, vel, angvel)
+        if nbr is not None:
+            pacc, angacc = cell_accels(pos, vel, angvel)
+        else:
+            pacc, angacc = dense_accels(pos, vel, angvel,
+                                        y if full is None else full, row0)
         acc = gravity + pacc
 
         # ---- walls ----
@@ -163,7 +380,28 @@ def make_dem_rhs(cfg: DEMConfig, dtype: torch.dtype = torch.float64,
                              else torch.zeros_like(angvel))
         return out
 
-    # the JAX drivers check a cell structure's occupancy here; the dense
-    # pair term has none
-    rhs.neighbor_struct = None
-    return rhs
+    if mesh is None:
+        def rhs(t, y: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+            return forces(y)
+        # the app and the bench check a cell structure's occupancy at
+        # chunk boundaries; None for the dense term, which has no capacity
+        rhs.neighbor_struct = nbr
+        return rhs
+
+    def rhs_sharded(t, ys: List[Dict[str, torch.Tensor]]
+                    ) -> List[Dict[str, torch.Tensor]]:
+        if len(ys) != len(rows):
+            raise ValueError(f"{len(ys)} shards for a mesh of {len(rows)}")
+        # the whole state, gathered once onto each device of the mesh
+        fulls: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+        out = []
+        for y, sl in zip(ys, rows):
+            dev = y["pos"].device
+            if dev not in fulls:
+                fulls[dev] = {k: torch.cat([s[k].to(dev) for s in ys])
+                              for k in y}
+            out.append(forces(y, fulls[dev], sl.start))
+        return out
+
+    rhs_sharded.neighbor_struct = None      # the mesh path is dense-only
+    return rhs_sharded

@@ -24,7 +24,7 @@ Models (selected by ``calc_mode``, equation.c:536-555, Params:115-122):
 from __future__ import annotations
 
 import enum
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,14 +74,17 @@ def dirichlet_at(t: float, prm: FreezingParams, dtype: torch.dtype) -> float:
 
 def make_rhs(geom: GridGeometry, params: FreezingParams, calc_mode: int,
              device: torch.device | str,
-             noise: Optional[np.ndarray] = None):
+             noise: Optional[np.ndarray] = None,
+             inv_h: Optional[Tuple[float, float, float]] = None):
     """Build ``rhs(t, w) -> dw/dt`` for ``w`` of shape (3, n3, n2, n1) on
     ``device``.  ``t`` is a host scalar.
 
     ``noise`` is the precomputed per-cell temperature noise field
     (PRECALC_DATA.u_noise, equation.c:449-456), a numpy array moved to
     ``device`` here; None means no noise (the shipped Params uses
-    u_noise_amp = 0)."""
+    u_noise_amp = 0).  ``inv_h`` overrides ``geom.inv_h``: a block of a
+    larger grid (``parallel/halo.py``) keeps that grid's spacing bit for
+    bit."""
     mode = CalcMode(calc_mode)
     p_ = params
     device = torch.device(device)
@@ -89,7 +92,7 @@ def make_rhs(geom: GridGeometry, params: FreezingParams, calc_mode: int,
     noise_t = (None if noise is None
                else torch.as_tensor(np.asarray(noise), device=device))
 
-    inv_h1, inv_h2, inv_h3 = geom.inv_h
+    inv_h1, inv_h2, inv_h3 = geom.inv_h if inv_h is None else inv_h
     h1_2, h2_2, h3_2 = inv_h1**2, inv_h2**2, inv_h3**2
     h1d2, h2d2, h3d2 = 0.5 * inv_h1, 0.5 * inv_h2, 0.5 * inv_h3
 

@@ -13,9 +13,14 @@ axes, so z-major then y for ``'z2,y2'``), each on its device.  A device may
 appear more than once: several virtual shards on one card (or on the CPU)
 run the same code as shards on several cards, the counterpart of the
 virtual CPU devices of the JAX tests.  The halo exchange
-(``parallel/fused.py``) is a tensor copy into the neighbour's ghost buffer,
-and the global error max a max over the shards' partials.  DEM particle
-sharding is not ported yet.
+(``parallel/fused.py``, ``parallel/halo.py``) is a tensor copy into the
+neighbour's ghost buffer, and the global error max a max over the shards'
+partials.
+
+The DEM state ``{'pos', 'vel'[, 'angvel']}`` of ``(n, 3)`` leaves shards
+its particles over a mesh axis (``'p'`` by default) in equal row blocks:
+the list of the shards' dicts in mesh order (:func:`shard_dem_state`),
+the counterpart of the JAX package's ``dem_sharding``.
 """
 
 from __future__ import annotations
@@ -65,13 +70,17 @@ def make_mesh(spec: str = "z", devices: Optional[Sequence] = None, *,
 
     An axis without an explicit size absorbs all remaining devices.
     ``devices`` defaults to every visible CUDA device (``device="cuda"``,
-    which raises without one) or to the CPU (``device="cpu"``); an explicit
-    list may repeat a device."""
+    which raises without one) or to the CPU (``device="cpu"``), which is
+    one device: a spec of sized axes there repeats it, one virtual shard a
+    slot.  An explicit list may repeat a device."""
     if devices is None:
         dev = resolve_device(device)
-        devices = ([torch.device("cuda", i)
-                    for i in range(torch.cuda.device_count())]
-                   if dev.type == "cuda" else [dev])
+        if dev.type == "cuda":
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        else:
+            sizes = [int(m) for m in re.findall(r"[a-z]+(\d+)", spec)]
+            devices = [dev] * max(1, int(np.prod(sizes)))
     devices = [torch.device(d) for d in devices]
     # a tensor's device always has an index; so does a mesh's
     devices = [torch.device("cuda", torch.cuda.current_device())
@@ -120,24 +129,24 @@ def split_rows(n: int, parts: int, j: int) -> slice:
 def shard_block(mesh: Mesh, i: int, grid: Tuple[int, int, int]
                 ) -> Tuple[slice, slice]:
     """The (z, y) slices of the grid ``(n3, n2, n1)`` that shard ``i``
-    holds: Z over axis ``z`` in equal parts, Y over axis ``y`` in the
-    windows of :func:`split_rows`, where the mesh has them; other axes
-    replicate."""
+    holds: Z over axis ``z`` and Y over axis ``y`` in the windows of
+    :func:`split_rows` (equal parts where the axis divides the grid),
+    where the mesh has them; other axes replicate."""
     shape, at = mesh.shape, mesh.coords(i)
-    zl = grid[0] // shape.get("z", 1)
-    iz = at.get("z", 0)
-    return (slice(iz * zl, (iz + 1) * zl),
+    return (split_rows(grid[0], shape.get("z", 1), at.get("z", 0)),
             split_rows(grid[1], shape.get("y", 1), at.get("y", 0)))
 
 
 def shard_freezing_state(w: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
     """The state ``(nv, n3, n2, n1)`` as the list of its shards in mesh
-    order, each a contiguous copy on its device.  n3 must be divisible by
-    the mesh's z axis; every y window holds at least one row."""
+    order, each a contiguous copy on its device, in the windows of
+    :func:`shard_block`; every window holds at least one plane and one
+    row.  (The kernel paths also need n3 divisible by the z axis and
+    check it themselves.)"""
     zsize = mesh.shape.get("z", 1)
     ysize = mesh.shape.get("y", 1)
-    if w.shape[1] % zsize:
-        raise ValueError(f"grid {tuple(w.shape[1:])}: n3 not divisible by "
+    if w.shape[1] < zsize:
+        raise ValueError(f"grid {tuple(w.shape[1:])}: fewer planes than "
                          f"mesh z={zsize}")
     if w.shape[2] < ysize:
         raise ValueError(f"grid {tuple(w.shape[1:])}: fewer rows than mesh "
@@ -156,15 +165,56 @@ def gather_freezing_state(shards: Sequence[torch.Tensor], mesh: Mesh,
                           ) -> torch.Tensor:
     """The whole state from its shards, on ``device`` (the first shard's
     by default)."""
-    nv, zl, _, n1 = shards[0].shape
-    # the rows of one y column of the mesh: the shards at coordinate 0 on
-    # every other axis
-    n2 = sum(s.shape[2] for i, s in enumerate(shards)
-             if all(c == 0 for a, c in mesh.coords(i).items() if a != "y"))
-    grid = (zl * mesh.shape.get("z", 1), n2, n1)
+    nv, _, _, n1 = shards[0].shape
+
+    def extent(axis, dim):
+        # the windows along one mesh axis: the shards at coordinate 0 on
+        # every other axis
+        return sum(s.shape[dim] for i, s in enumerate(shards)
+                   if all(c == 0 for a, c in mesh.coords(i).items()
+                          if a != axis))
+
+    grid = (extent("z", 1), extent("y", 2), n1)
     out = torch.empty((nv,) + grid, dtype=shards[0].dtype,
                       device=device or shards[0].device)
     for i, s in enumerate(shards):
         zs, ys = shard_block(mesh, i, grid)
         out[:, zs, ys] = s
     return out
+
+
+def dem_sharding(mesh: Mesh, n: int, axis: str = "p") -> List[slice]:
+    """The particle rows of each shard of a DEM state of ``n`` particles,
+    in mesh order: equal blocks over ``axis``, the mesh's only axis
+    (``n`` divisible by its size, as in the JAX package)."""
+    if mesh.axis_names != (axis,):
+        raise ValueError(f"a DEM mesh has the one axis {axis!r}, got "
+                         f"{mesh.axis_names}")
+    size = mesh.size
+    if n % size:
+        raise ValueError(f"n={n} not divisible by mesh {axis}={size}")
+    nl = n // size
+    return [slice(i * nl, (i + 1) * nl) for i in range(size)]
+
+
+def shard_dem_state(y: Dict[str, torch.Tensor], mesh: Mesh,
+                    axis: str = "p") -> List[Dict[str, torch.Tensor]]:
+    """A DEM state ``{'pos','vel'[,'angvel']}: (n, 3)`` as the list of its
+    shards' dicts in mesh order, the particles split over ``axis``; each
+    leaf a contiguous copy on its shard's device."""
+    n = y["pos"].shape[0]
+    return [{k: torch.empty((sl.stop - sl.start,) + tuple(v.shape[1:]),
+                            dtype=v.dtype, device=dev).copy_(v[sl])
+             for k, v in y.items()}
+            for sl, dev in zip(dem_sharding(mesh, n, axis),
+                               mesh.device_list())]
+
+
+def gather_dem_state(shards: Sequence[Dict[str, torch.Tensor]],
+                     device: Optional[torch.device] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """The whole DEM state from its shards' dicts, on ``device`` (the
+    first shard's by default)."""
+    dev = device or shards[0]["pos"].device
+    return {k: torch.cat([s[k].to(dev) for s in shards])
+            for k in shards[0]}

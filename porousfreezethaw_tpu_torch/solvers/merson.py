@@ -19,13 +19,14 @@ RK_MPI_SAsolver.c:330-660):
     final-step trimming: h clamped to final_time - t; the *untrimmed*
       estimate is preserved for seamless continuation across calls
 
-The state ``y`` is one tensor, or a dict of tensors (the DEM's {pos, vel,
-angvel}), on which every step runs per leaf and eps is the max of the
-leaves' maxima (NaN-propagating, as ``jnp.maximum`` over the JAX
-package's pytree leaves).  The controller scalars t, h and eps are
-Python floats (f64) whatever the field dtype: f32 time accumulation breaks
-down over the reference's 36000 s runs (ulp(36000) in f32 is ~4 ms vs
-steps ~20 ms).  The accept/reject loop runs on the host and reads eps back
+The state ``y`` is one tensor, a dict of tensors (the DEM's {pos, vel,
+angvel}), or a list of either (a sharded state: one entry a shard, each
+on its device), on which every step runs per leaf and eps is the max of
+the leaves' maxima (NaN-propagating, as ``jnp.maximum`` over the JAX
+package's pytree leaves), gathered on the first leaf's device.  The
+controller scalars t, h and eps are Python floats (f64) whatever the
+field dtype: f32 time accumulation breaks down over the reference's
+36000 s runs (ulp(36000) in f32 is ~4 ms vs steps ~20 ms).  The accept/reject loop runs on the host and reads eps back
 with one device sync per attempt; the service callback is a plain Python
 call after each accepted step.
 """
@@ -84,25 +85,38 @@ def merson_init(y0, t0: float = 0.0, h0: float = 1.0) -> MersonState:
 
 
 def _axpy(a: float, x, y):
-    """y + a*x per leaf (on a tensor, or on a dict's leaves).  ``a`` goes
-    to the kernel as a scalar argument, which PyTorch rounds to the field
-    dtype first, so f64 controller scalars never upcast f32 fields."""
+    """y + a*x per leaf.  ``a`` goes to the kernel as a scalar argument,
+    which PyTorch rounds to the field dtype first, so f64 controller
+    scalars never upcast f32 fields."""
     return _leaves(lambda yv, xv: yv + xv * a, y, x)
 
 
 def _leaves(fn, *trees):
-    """``fn`` over the matching leaves of dicts, or on tensors."""
-    if isinstance(trees[0], dict):
-        return {k: fn(*(t[k] for t in trees)) for k in trees[0]}
+    """``fn`` over the matching leaves of trees of dicts and lists of
+    tensors (a tensor is a tree of one leaf)."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: _leaves(fn, *(u[k] for u in trees)) for k in t}
+    if isinstance(t, list):
+        return [_leaves(fn, *(u[i] for u in trees)) for i in range(len(t))]
     return fn(*trees)
 
 
+def _flat(tree):
+    """The tensors of a tree of dicts and lists, in order."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        return [x for sub in tree for x in _flat(sub)]
+    return [tree]
+
+
 def _max_of_leaves(per_leaf):
-    """The max of per-leaf maxima (a dict's), NaN-propagating as
-    ``jnp.maximum``; a tensor's own max as it is."""
-    if isinstance(per_leaf, dict):
-        return functools.reduce(torch.maximum, per_leaf.values())
-    return per_leaf
+    """The max of per-leaf maxima, NaN-propagating as ``jnp.maximum``, on
+    the first leaf's device; a tensor's own max as it is."""
+    leaves = _flat(per_leaf)
+    dev = leaves[0].device
+    return functools.reduce(torch.maximum, (x.to(dev) for x in leaves))
 
 
 def merson_solve(
@@ -118,9 +132,10 @@ def merson_solve(
     """Integrate ``state`` to ``final_time``; returns ``(state, status)``,
     or ``(state, status, (t_trace, h_trace))`` with ``record_trace``.
 
-    ``rhs(t, y) -> dy/dt``, on a tensor or a dict of tensors.
-    ``eps_mult`` is an optional tensor of per-cell error multipliers
-    broadcast against a tensor ``y`` (chunk_eps_mult).
+    ``rhs(t, y) -> dy/dt``, on a tensor, a dict of tensors or a list of
+    either.  ``eps_mult`` is an optional tensor of per-cell error
+    multipliers broadcast against a tensor ``y`` (chunk_eps_mult), or the
+    list of its shards for a list of tensors (sharded with the state).
 
     ``service_callback(t, h, steps) -> int`` is called after every
     accepted step; a nonzero return interrupts the solve, which then
@@ -164,17 +179,22 @@ def merson_solve(
             "this stage_fn emits partial-state K arrays and requires its "
             ".stage5 tail (eps_mult is unsupported with it)")
 
-    if eps_mult is not None and isinstance(state.y, dict):
-        raise ValueError("eps_mult is a tensor for a tensor state")
+    if eps_mult is not None and not (
+            isinstance(state.y, torch.Tensor) and torch.is_tensor(eps_mult)
+            or isinstance(state.y, list) and isinstance(eps_mult, list)
+            and all(torch.is_tensor(s) for s in state.y + eps_mult)):
+        raise ValueError("eps_mult is a tensor for a tensor state, or a "
+                         "list of shards for a list of tensors")
 
-    def leaf_eps(k1, k3, k4, k5):
+    def leaf_eps(k1, k3, k4, k5, mult=None):
         err = torch.abs(0.2 * k1 - 0.9 * k3 + 0.8 * k4 - 0.1 * k5)
-        if eps_mult is not None:
-            err = eps_mult * err
+        if mult is not None:
+            err = mult * err
         return torch.amax(err)
 
     def eps_of(K1, K3, K4, K5):
-        return _max_of_leaves(_leaves(leaf_eps, K1, K3, K4, K5))
+        mult = () if eps_mult is None else (eps_mult,)
+        return _max_of_leaves(_leaves(leaf_eps, K1, K3, K4, K5, *mult))
 
     n_trace = params.record_trace
     t_tr = [0.0] * n_trace

@@ -1,10 +1,9 @@
 """The port's bench entry point (``python -m porousfreezethaw_tpu_torch.bench``)
 on the CPU at a tiny grid: its one-JSON-line contract and metric names
 against the JAX package's ``bench.py``, the Merson parameters of each
-path, the DEM suite's row, and what it refuses (the DEM rows of the
-cell_lanes strategy, which wait for a GPU cell list, and a GPU it does
-not have).  ``--matrix`` prints its rows and
-writes no BENCH_MATRIX.json."""
+path, the DEM suite's rows (dense and the cell strategies), and what it
+refuses (an f64 mesh, cell_roll, a GPU it does not have).  ``--matrix``
+prints its rows and writes no BENCH_MATRIX.json."""
 
 import json
 import os
@@ -88,31 +87,48 @@ def test_metric_names_follow_bench_py():
         "freezing_sigmap_hr_cell_rhs_evals_per_s"
 
 
-def test_not_ported_yet():
-    """The cell_lanes strategy, in --suite dem and in the matrix's rows,
-    raises and names the GPU cell list; the mesh rows run (their f64 form
-    is refused: the mesh paths are the f32 kernels')."""
-    with pytest.raises(NotImplementedError, match="GPU cell list"):
-        bench.main(["--suite", "dem", "--neighbor", "cell_lanes",
+def test_not_ported_yet(capsys):
+    """The cell strategies, once not ported, run: --suite dem with
+    cell_lanes and cell_list and a cell_lanes matrix row give bench.py's
+    metric names (``_celllanes``, ``_celllist``) with the row's capacity
+    and the fullest cell seen; the matrix has bench.py's four cell_lanes
+    rows; cell_roll raises and names cell_lanes; the f64 mesh is refused
+    (the mesh rows are the f32 kernels', as in bench.py)."""
+    for neighbor, suffix in (("cell_lanes", "_celllanes"),
+                             ("cell_list", "_celllist")):
+        assert bench.main(["--suite", "dem", "--neighbor", neighbor,
+                           "--n-spheres", "12", "--cell-capacity", "8",
+                           "--device", "cpu", "--steps", "3",
+                           "--warm-steps", "3"]) == 0
+        rec = last_json(capsys.readouterr().out)
+        assert rec["metric"] == f"dem_12{suffix}_particle_rhs_evals_per_s"
+        assert (rec["neighbor"], rec["cell_capacity"]) == (neighbor, 8)
+        assert 1 <= rec["max_occupancy"] <= 8 and rec["attempts"] == 3
+    with pytest.raises(ValueError, match="cell_lanes"):
+        bench.main(["--suite", "dem", "--neighbor", "cell_roll",
                     "--device", "cpu"])
     with pytest.raises(ValueError, match="f32 kernel paths"):
         bench.main(["--mesh", "z", "--device", "cpu", "--dtype", "f64"])
-    args = bench.parse_args(TINY)
     lanes = [s for s, _ in bench.matrix_specs() if ":cell_lanes:" in s]
-    assert len(lanes) == 4
-    for spec in lanes:
-        with pytest.raises(NotImplementedError,
-                           match="not ported yet.*GPU cell list"):
-            bench.bench_row(args, spec)
+    assert lanes == [f"dem:{n}:cell_lanes:512:8"
+                     for n in (4000, 6000, 10000, 20000)]
+    rec = bench.bench_row(bench.parse_args(["--device", "cpu", "--steps",
+                                            "2", "--warm-steps", "2"]),
+                          "dem:500:cell_lanes:512:8")
+    assert rec["metric"] == "dem_500_celllanes_particle_rhs_evals_per_s"
+    assert rec["cell_capacity"] == 8 and rec["value"] > 0
 
 
 def test_not_ported_row_in_its_own_process():
-    """A matrix row runs in a process of its own; an unported one (a
-    cell_lanes row) exits non-zero and becomes an error record."""
+    """A matrix row runs in a process of its own: the cell_lanes row at
+    4000 spheres (capacity 8), once not ported, gives its record."""
     rec = bench.run_row("dem:4000:cell_lanes:512:8", "dem_4000_cell_lanes_k8",
                         bench.parse_args(TINY))
-    assert rec["value"] is None and rec["rc"] != 0
-    assert "not ported yet" in rec["error"]
+    assert "rc" not in rec and "error" not in rec
+    assert rec["metric"] == "dem_4000_celllanes_particle_rhs_evals_per_s"
+    assert rec["value"] > 0 and rec["n_spheres"] == 4000
+    assert (rec["cell_capacity"], rec["attempts"]) == (8, 5)
+    assert rec["max_occupancy"] <= 8
 
 
 @pytest.mark.parametrize("argv", [
@@ -144,16 +160,21 @@ def test_refuses_what_it_cannot_run(monkeypatch):
 def test_matrix_writes_only_where_asked(tmp_path, monkeypatch, capsys):
     """--matrix prints one line per row and the headline last, writes no
     BENCH_MATRIX.json (in the working directory or the repo), and writes
-    its rows to --out."""
+    its rows to --out; a row that fails (every DEM row ran since the cell
+    list was ported) makes it exit 1."""
     tracked = os.path.join(REPO, "BENCH_MATRIX.json")
     before = open(tracked, "rb").read()
     ran = []
+    failing = set()
 
     def fake_row(spec, label, args):
         ran.append(spec)
-        if spec.startswith("dem:"):
+        if spec in failing:
             return {"metric": label, "value": None, "unit": None,
-                    "vs_baseline": None, "error": "not ported yet", "rc": 1}
+                    "vs_baseline": None, "error": "failed", "rc": 1}
+        if spec.startswith("dem:"):
+            return {"metric": label, "value": 1.0, "unit": bench.DEM_UNIT,
+                    "vs_baseline": None, "ms_per_attempt": 1.0}
         gn, cm = (int(x) for x in spec.split(":")[1:3])
         name = bench.metric_name(gn, cm) + ("_delta" if "delta" in spec
                                             else "")
@@ -168,7 +189,7 @@ def test_matrix_writes_only_where_asked(tmp_path, monkeypatch, capsys):
     assert ran == specs and len(specs) == 20
     assert len(lines) == len(specs) + 1
     assert json.loads(lines[-1])["metric"] == bench.HEADLINE
-    assert sum(1 for ln in lines[:-1] if json.loads(ln)["value"]) == 12
+    assert sum(1 for ln in lines[:-1] if json.loads(ln)["value"]) == 20
     assert os.listdir(tmp_path) == []
     assert open(tracked, "rb").read() == before
 
@@ -178,3 +199,5 @@ def test_matrix_writes_only_where_asked(tmp_path, monkeypatch, capsys):
     assert [r["metric"] for r in json.loads(out.read_text())] == [
         json.loads(ln)["metric"] for ln in lines[:-1]]
     assert os.listdir(tmp_path) == ["rows.json"]
+    failing.add("dem:20000:cell_lanes:512:8")
+    assert bench.main(["--matrix", "--device", "cpu"]) == 1

@@ -98,8 +98,13 @@ def test_rhs_f32_matches_jax(variant):
 
 
 def test_rhs_refuses_cell_strategies_and_a_missing_gpu(monkeypatch):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        make_dem_rhs(DEMConfig(n=12), neighbor="cell_lanes", device="cpu")
+    """cell_roll is not ported (its pairs are cell_list's, in a TPU roll
+    layout) and names cell_lanes, which runs (tests/test_torch_dem_cells.py);
+    'cuda' without a GPU raises."""
+    with pytest.raises(ValueError, match="use 'cell_lanes'"):
+        make_dem_rhs(DEMConfig(n=12), neighbor="cell_roll", device="cpu")
+    assert make_dem_rhs(DEMConfig(n=12), neighbor="cell_lanes",
+                        device="cpu").neighbor_struct.capacity == 16
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(DeviceError):
         make_dem_rhs(DEMConfig(n=12))

@@ -26,7 +26,8 @@ def test_port_imports_no_jax():
         porousfreezethaw_tpu_torch.__path__, "porousfreezethaw_tpu_torch.")]
     assert {"porousfreezethaw_tpu_torch." + m for m in (
         "apps.intertrack", "apps.spheres", "bench", "analysis", "native",
-        "parallel.fused", "parallel.sharding", "models.dem.config",
+        "parallel.fused", "parallel.halo", "parallel.sharding",
+        "models.dem.config",
         "models.dem.icond", "models.dem.coupling", "models.dem.forces",
         "solvers.merson", "solvers.rk4", "solvers.dopri", "io.csv_snaps",
         "io.exporters", "convert")} <= set(names)

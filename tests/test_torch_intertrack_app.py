@@ -3,6 +3,7 @@
 increment-form path, resume from a JAX-written checkpoint, and resume
 within the port."""
 
+import json
 import os
 import re
 
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from porousfreezethaw_tpu.apps.intertrack import main as jax_main
+from porousfreezethaw_tpu_torch.apps import intertrack
 from porousfreezethaw_tpu_torch.apps.intertrack import main as torch_main
 from porousfreezethaw_tpu_torch.io.netcdf3 import read_netcdf
 from tests.test_intertrack_app import BASE
@@ -146,14 +148,62 @@ def test_classic_stage_path_trigger_and_debug_log(tmp_path):
     assert len(lines) >= steps
 
 
-def test_mesh_not_ported(tmp_path, monkeypatch):
-    """The mesh paths are f32: --mesh with f64 (the default precision) is
-    the JAX app's GSPMD fallback, which is not ported yet."""
-    (tmp_path / "Params").write_text(BASE)
-    monkeypatch.setenv("OUTPUT", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        torch_main([str(tmp_path / "Params"), "--mesh", "z", "--device",
-                    "cpu"])
+def test_mesh_not_ported(port_f64, tmp_path):
+    """--mesh z2 with f64 (the default precision), once not ported, is the
+    JAX app's GSPMD branch: the plain right-hand side with halo copies on
+    two virtual shards of the CPU, with the single-device run's counts and
+    snapshot bytes."""
+    td = run(torch_main, tmp_path / "z2", BASE,
+             ("--device", "cpu", "--mesh", "z2"))
+    log = (td / "intertrack.log").read_text()
+    assert "Device mesh: {'z': 2}" in log
+    assert "Plain right-hand side with halo copies" in log
+    assert counts(td) == counts(port_f64)
+    for name in SNAPS:
+        assert (td / name).read_bytes() == (port_f64 / name).read_bytes(), \
+            name
+
+
+@pytest.mark.parametrize("mesh,precision,extra", [
+    ("z3", "f64", ""),
+    ("z5", "f64", ""),                          # n3 = 12: windows 3,3,2,2,2
+    ("z12", "f64", ""),                         # one plane a shard
+    ("z2,y2", "f32", "increment_form 0\n"),     # the classic stage on z,y
+    ("z2", "f32", "u_noise_amp 0.01\n"),        # a noise field
+    ("y3", "f32", "increment_form 1\n")])       # a y-only mesh
+def test_mesh_plain_path_equals_single_device(tmp_path, monkeypatch, mesh,
+                                              precision, extra):
+    """Every mesh that the kernel paths do not take runs the plain halo
+    path: the counts and snapshot bytes of the single-device plain path
+    (for f32 without noise, the app's kernel choice patched off: the plain
+    right-hand side, not the kernels' plain versions)."""
+    text = BASE + "\n" + extra
+    argv = ("--device", "cpu", "--precision", precision)
+    with monkeypatch.context() as m:
+        m.setattr(intertrack, "kernels_apply", lambda dtype, noise: False)
+        a = run(torch_main, tmp_path / "single", text, argv)
+    b = run(torch_main, tmp_path / "mesh", text, argv + ("--mesh", mesh))
+    assert "Plain right-hand side with halo copies" in (
+        b / "intertrack.log").read_text()
+    assert "kernel" not in (a / "intertrack.log").read_text()
+    assert counts(a) == counts(b)
+    for name in SNAPS:
+        assert (a / name).read_bytes() == (b / name).read_bytes(), name
+
+
+def test_profile_dir_writes_a_trace(tmp_path):
+    """--profile-dir records the whole run with torch.profiler into a
+    Chrome trace."""
+    prof = tmp_path / "profile"
+    td = run(torch_main, tmp_path / "out", BASE,
+             ("--device", "cpu", "--precision", "f32", "--profile-dir",
+              str(prof)))
+    assert f"Profiler trace -> {prof / 'trace.json'}" in (
+        td / "intertrack.log").read_text()
+    trace = json.loads((prof / "trace.json").read_text())
+    names = {ev.get("name") for ev in trace["traceEvents"]
+             if ev.get("ph") == "X"}
+    assert "aten::add" in names or "aten::mul" in names
 
 
 @pytest.mark.slow

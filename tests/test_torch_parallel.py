@@ -101,6 +101,15 @@ def test_make_mesh_default_devices(monkeypatch):
         make_mesh("z")
 
 
+def test_make_mesh_cpu_virtual_shards():
+    """The CPU is one device: a spec of sized axes repeats it, one virtual
+    shard a slot (the CLI's --mesh on --device cpu); a free axis takes
+    the one device."""
+    assert make_mesh("z2,y3", device="cpu").device_list() == [CPU] * 6
+    assert make_mesh("p4", device="cpu").shape == {"p": 4}
+    assert make_mesh("z2,y", device="cpu").shape == {"z": 2, "y": 1}
+
+
 @pytest.mark.parametrize("spec", MESHES_1D + MESHES_2D)
 def test_shard_gather_round_trip(case, spec):
     _, _, w, _ = case
@@ -117,8 +126,16 @@ def test_shard_gather_round_trip(case, spec):
     assert torch.equal(gather_freezing_state(shards, mesh), w)
     shards[0].zero_()                     # copies, not views of w
     assert w.abs().max() > 0
+    # n3 = 7 splits into uneven z windows (the plain halo path takes
+    # them); the kernel paths refuse a grid that z does not divide
+    zmesh = mesh if nz > 1 else cpu_mesh("y2,z2")
+    odd = shard_freezing_state(w[:, :7], zmesh)
+    assert torch.equal(gather_freezing_state(odd, zmesh), w[:, :7])
+    prm, geom, _, _ = case
     with pytest.raises(ValueError, match="not divisible"):
-        shard_freezing_state(w[:, :7], mesh if nz > 1 else cpu_mesh("y2,z2"))
+        ShardedDeltaAttempt(GridGeometry(geom.L1, geom.L2, geom.L3,
+                                         geom.n1, geom.n2, 7),
+                            prm, 0, cpu_mesh(f"z{max(nz, 2)}"))
 
 
 @pytest.mark.parametrize("spec,rows", [("y4", [13, 13, 12, 12]),
@@ -462,21 +479,33 @@ def test_app_run_iteration_mesh_uneven_y(tmp_path):
 
 
 def test_app_mesh_refuses_unported_paths(tmp_path):
-    """--mesh with f64 or a noise field is the JAX app's GSPMD fallback,
-    which is not ported yet: it raises and runs nothing else.  (A grid
-    that the y axis does not divide runs: see the test above.)"""
-    pf = parse_param_file(BASE, env={"OUTPUT": str(tmp_path)})
-    log = RunLog(pf.setting("logfile"))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        run_iteration(pf, log, device=CPU, dtype=torch.float64,
-                      mesh_axes="z2", mesh_devices=[CPU, CPU])
-    noisy = parse_param_file(BASE + "\nu_noise_amp 0.01\n",
-                             env={"OUTPUT": str(tmp_path)})
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        run_iteration(noisy, log, device=CPU, dtype=torch.float32,
-                      mesh_axes="z2", mesh_devices=[CPU, CPU])
-    log.close()
-    assert not list(tmp_path.glob("*.ncd"))
+    """--mesh with f64 or a noise field, once refused, is the JAX app's
+    GSPMD branch: the plain right-hand side with halo copies on a z2 mesh
+    of two CPU entries, with the counts and snapshot bytes of the run
+    without a mesh."""
+    for name, text, dtype in (("f64", BASE, torch.float64),
+                              ("noise", BASE + "\nu_noise_amp 0.01\n",
+                               torch.float32)):
+        runs = []
+        for mesh in (None, "z2"):
+            out = tmp_path / f"{name}_{mesh}"
+            out.mkdir()
+            pf = parse_param_file(text, env={"OUTPUT": str(out)})
+            log = RunLog(pf.setting("logfile"))
+            stats = run_iteration(pf, log, device=CPU, dtype=dtype,
+                                  mesh_axes=mesh,
+                                  mesh_devices=[CPU, CPU] if mesh else None)
+            log.close()
+            runs.append((out, stats))
+        (a, sa), (b, sb) = runs
+        assert "halo copies (sharded over z=2, y=1)" in (
+            b / "intertrack.log").read_text()
+        assert (sa["steps"], sa["steps_total"], sa["t"]) == (
+            sb["steps"], sb["steps_total"], sb["t"])
+        names = sorted(p.name for p in a.glob("*.ncd"))
+        assert len(names) == 3
+        for n in names:
+            assert (a / n).read_bytes() == (b / n).read_bytes(), (name, n)
 
 
 @pytest.mark.parametrize("mesh,metric", [

@@ -20,6 +20,7 @@ from porousfreezethaw_tpu_torch.cases import freezing_params_text
 from porousfreezethaw_tpu_torch.config import parse_param_file
 from porousfreezethaw_tpu_torch.core.device import DeviceError
 from porousfreezethaw_tpu_torch.io.csv_snaps import read_dem_snapshot
+from porousfreezethaw_tpu_torch.models.dem import forces as dem_forces
 from porousfreezethaw_tpu_torch.models.freezing import (
     FreezingParams, read_ball_positions)
 
@@ -102,23 +103,76 @@ def test_final_positions_read_by_the_glass_reader(tmp_path):
 
 def test_f32_takes_the_nan_backoff(tmp_path, monkeypatch):
     seen = []
-    real = spheres.merson_solve
+    real = dem_forces.merson_solve
 
     def spy(rhs, state, tf, params, **kw):
         seen.append(params.handle_nan)
         return real(rhs, state, tf, params, **kw)
 
-    monkeypatch.setattr(spheres, "merson_solve", spy)
+    # the app's solves go through models.dem.solve_guarded
+    monkeypatch.setattr(dem_forces, "merson_solve", spy)
     run_port(tmp_path / "f32", "--precision", "f32")
     run_port(tmp_path / "f64")
     assert seen == [True] * 6 + [False] * 6
     assert len(list((tmp_path / "f32").glob("snap_*.csv"))) == 6
 
 
-def test_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    for extra in (["--neighbor", "cell_lanes"], ["--mesh", "p"]):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            run_port(tmp_path, *extra)
+def test_cell_lanes_tracks_dense(tmp_path, capsys):
+    """--neighbor cell_lanes: the dense run's snapshots within 2e-6 and its
+    step counts on every console line (the same pairs, summed in another
+    order)."""
+    run_port(tmp_path / "dense")
+    dense = STEPS.findall(capsys.readouterr().out)
+    run_port(tmp_path / "cells", "--neighbor", "cell_lanes",
+             "--cell-capacity", "8")
+    assert STEPS.findall(capsys.readouterr().out) == dense
+    for i in range(1, 7):
+        a = read_dem_snapshot(str(tmp_path / "cells" / f"snap_{i:03d}.csv"))
+        b = read_dem_snapshot(str(tmp_path / "dense" / f"snap_{i:03d}.csv"))
+        for k in a:
+            np.testing.assert_allclose(a[k], b[k], rtol=0, atol=2e-6,
+                                       err_msg=f"{i}:{k}")
+
+
+def test_mesh_p2_is_byte_identical(tmp_path, capsys):
+    """--mesh p2 (two virtual shards of the CPU) runs the sharded dense
+    term: the snapshots of the run without a mesh, byte for byte."""
+    run_port(tmp_path / "single")
+    single = STEPS.findall(capsys.readouterr().out)
+    run_port(tmp_path / "mesh", "--mesh", "p2")
+    out = capsys.readouterr().out
+    assert "Particles sharded over mesh {'p': 2}" in out
+    assert STEPS.findall(out) == single
+    for i in range(1, 7):
+        name = f"snap_{i:03d}.csv"
+        assert ((tmp_path / "single" / name).read_bytes()
+                == (tmp_path / "mesh" / name).read_bytes()), name
+
+
+def test_cell_overflow_stops_with_the_jax_message(tmp_path):
+    """The dense bed of 200 holds 2 spheres in its fullest cell: at
+    capacity 1 the first occupancy check (after the solve to snapshot 0,
+    whose step of h = 0 already met the NaN of the guarded capacity)
+    stops the run."""
+    with pytest.raises(SystemExit, match=r"cell occupancy \d+ exceeds "
+                       "capacity 1 at t=0.0000: rerun with a larger "
+                       "--cell-capacity or --neighbor dense"):
+        spheres.main(["--n", "200", "--snapshots", "2", "--final-time",
+                      "0.01", "--neighbor", "cell_lanes", "--cell-capacity",
+                      "1", "--device", "cpu", "--output", str(tmp_path)])
+    assert not list(tmp_path.glob("snap_*.csv"))
+
+
+def test_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
+    """cell_roll is not ported and names cell_lanes; the particle mesh is
+    dense-only, as in JAX; 'cuda' without a GPU raises.  (cell_lanes and
+    --mesh, once refused, run: see the tests above.)"""
+    with pytest.raises(SystemExit):
+        run_port(tmp_path, "--neighbor", "cell_roll")
+    assert "use 'cell_lanes'" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        run_port(tmp_path, "--neighbor", "cell_lanes", "--mesh", "p2")
+    assert "dense neighbor strategy" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(DeviceError):
         spheres.main(BASE + ["--output", str(tmp_path)])
