@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                       # all phases
     python3 chip_smoke.py --phases env,build,kernels
+    python3 chip_smoke.py --phases env,build,kernels,controller,app
     python3 chip_smoke.py --phases env,dem_cells         # the DEM cell list
     python3 chip_smoke.py --phases env,build,kernels,solve,bench,app,mesh,dem,dem_cells,profile
     python3 chip_smoke.py --phases env,dem_settle   # the DEM settle, ~40 min
@@ -21,21 +22,52 @@ Run from the root of a checkout.  Phases, one JSON line each:
             plain times at the MR shape beside each kernel's bound, each
             row's ptxas report (registers, spills, shared memory), the
             time of one tensor copy moving the row's bytes (copy_ms), and
-            a digest of the delta kernels' outputs (_delta_digest)
+            a digest of the delta kernels' outputs (_delta_digest); the
+            device controller's kernels (csrc/control.cu) against their
+            plain versions bit for bit: pft_merson_control on cases of
+            every branch of the step control (eps below and above delta,
+            0, inf, NaN, a denormal; the NaN backoff and its abort; h_min;
+            the growth floor; the trimmed last step and the finish;
+            max_steps; trace clipping; the local mode; a backward step;
+            the phase switch; a halted block), pft_commit in its three
+            modes with the flag at 0 and 1 at MR; the _dev entries of the
+            stage kernels against their by-value entries at MR bit for
+            bit (every stage variant, calc modes 0/1/2, t on each side of
+            the switch) and idle on a halted block; the control kernel's
+            growth power against the host's and Python's ** on 100000
+            values; the two kernels' times beside their bounds
 4. solve    MR GradP (100x100x200) f32 solves of 300 attempts through
             merson_solve, increment form (DeltaAttempt) and classic
             double-buffered (FusedAttempt): kernels, then the plain
             versions on the card
+   controller  the device-resident loop (merson_solve_device: CUDA
+            graphs of BLOCK attempts, the control and commit kernels)
+            against the host loop (merson_solve) at MR and LR GradP f32,
+            for DeltaAttempt, DeltaAttemptComp, FusedAttempt and the
+            classic stage path: 300 attempts after a warm-up, status,
+            counts, t, h, the record_trace arrays and the state bit for
+            bit; ms/attempt of both loops (3 repeats each, in turns, their
+            median and spread), device ms/attempt and busy share
+            (torch.profiler), the launches (whole blocks of BLOCK
+            attempts on the device loop), each kernel's launches in the
+            profiler's trace equal to its counter's, the idle-block cost
+            of BLOCK, and the growth power against Python's ** and the
+            host's on the runs' eps values, with the host's cost of it
 5. bench    the port's bench (porousfreezethaw_tpu_torch.bench) in this
-            process: MR GradP f32 with --fused stage, delta and attempt,
-            and LR GradP f64 --fused off, with the launch counters of each
+            process: MR GradP f32 with --fused stage, delta and attempt
+            (the device loop), and LR GradP f64 --fused off (the host
+            loop), with the launch counters of each
 6. app      the intertrack app on the LR GradP golden case to snapshot 1,
-            plain and with compensated_commit 1, each held to the
-            reference's 3560/4322 steps (5%), with the launch counters
-            showing that every attempt went through the kernels; then the
-            LR Temp golden in f64 (the plain PyTorch path on the card),
-            held to 1850/2256 (5%); a short run with --profile-dir whose
-            trace holds CUDA kernel events
+            plain and with compensated_commit 1, through the app's chunked
+            device loop, each held to the reference's 3560/4322 steps (5%)
+            and to the card's earlier counts (3637/4309, 3648/4327), with
+            the launch counters showing that every attempt went through
+            the kernels (whole blocks of BLOCK attempts, plus the idle
+            attempt before the capture); the plain golden again through
+            the host loop (the app's uses_device_loop patched): the same
+            counts, RK debug log lines and snapshot 1; then the LR Temp golden in f64 (the plain PyTorch
+            path on the card), held to 1850/2256 (5%); a short run with
+            --profile-dir whose trace holds CUDA kernel events
 7. mesh     the multi-device paths on virtual shards of the card (a mesh
             whose device list repeats cuda:0): the shard kernels K1s
             (fused_stage_shard), K3 (its interior/edge split,
@@ -90,7 +122,8 @@ to the reference ensemble (0.60 < eps_s < 0.72, scripts/dem_settle_bed.py).
 
 The launches in the kernel summary come from the run that is each
 kernel's main path, with the counters set to 0 just before it: the plain
-golden for fused_stage and delta_g, the compensated golden for
+golden (the app's device loop) for fused_stage, delta_g, merson_control
+and commit, the compensated golden for
 delta_g_dy, the bench's --fused attempt row for fused_attempt, the golden
 at z4 for fused_stage_split and delta_g_shard, the compensated golden at
 z4 for delta_g_shard_dy, the bench's z1,y1 row for fused_stage_shard.
@@ -107,6 +140,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import hashlib
+import itertools
 import json
 import os
 import re
@@ -120,8 +154,8 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "build", "kernels", "solve", "bench", "app", "mesh", "dem",
-          "dem_cells")
+PHASES = ("env", "build", "kernels", "solve", "controller", "bench", "app",
+          "mesh", "dem", "dem_cells")
 OPTIONAL_PHASES = ("profile", "dem_settle")
 SEED = 20251016
 # the increment form's golden (reference log, LR GradP snapshot 1) and the
@@ -199,7 +233,8 @@ def phase_build() -> None:
 
 
 # the kernel families of the library: their __global__ templates
-# <MODE, NK, TAIL> and the names of their tails
+# <MODE, NK, TAIL, DEV> and the names of their tails (DEV: the _dev entry,
+# "/dev" in the keys of _ptxas)
 PTXAS_KERNELS = {"delta_g": ("G", "y", "dy"), "fused_stage": ("K", "y"),
                  "fused_attempt": ("K", "y")}
 
@@ -215,11 +250,16 @@ def _ptxas(log: str) -> dict:
         if m:
             cur = None
             for fam, tails in PTXAS_KERNELS.items():
-                t = re.search(fam + r"_kernelILi(\d+)ELi(\d)ELi(\d)E",
-                              m.group(1))
+                t = re.search(fam + r"_kernelILi(\d+)ELi(\d)ELi(\d)E"
+                              r"(?:Lb([01])E)?", m.group(1))
                 if t:
-                    cur = f"{fam}/{t[1]}/nk{t[2]}/{tails[int(t[3])]}"
+                    cur = (f"{fam}/{t[1]}/nk{t[2]}/{tails[int(t[3])]}"
+                           + ("/dev" if t[4] == "1" else ""))
                     out[cur] = {}
+            if cur is None and re.search(r"(merson_control|commit)_kernel",
+                                         m.group(1)):
+                cur = m.group(1)[:60]
+                out[cur] = {}
             continue
         if cur is None:
             continue
@@ -543,6 +583,14 @@ def phase_kernels(dev) -> dict:
         out[kern]["ptxas"] = _row_ptxas(kern)
         out[kern]["copy_ms"] = _copy_ms(out[kern]["bound_ms"], dev)
     emit("delta_digest", sha256=_delta_digest(dev))
+    # the controller's kernels and the _dev entries
+    checks = dict(control=_check_control(dev, prm), commit=_check_commit(dev),
+                  dev_entries=_check_dev_entries(dev, prm),
+                  pow_02=_pow_sweep(dev))
+    emit("controller_checks", **checks)
+    out.update(_controller_rows(dev, prm, {
+        "merson_control": checks["control"]["max_abs_err"],
+        "commit": checks["commit"]["max_abs_err"]}))
     return out
 
 
@@ -615,6 +663,381 @@ def _row_ptxas(kern: str) -> dict:
             if k.split("/")[0] == fam and k.split("/")[3] in tails}
     emit("ptxas", kernel=kern, instantiations=mine)
     return {k: v for k, v in mine.items() if k.split("/")[1] == "0"}
+
+
+# --------------------------------------------------------------------------
+# phase 3, continued: the controller's kernels (csrc/control.cu) and the
+# _dev entries of the stage kernels
+# --------------------------------------------------------------------------
+
+# float64 operations outside the tensor cores, H100 SXM (NVIDIA's data
+# sheet), for the control kernel's bound
+F64_FLOP_PER_S = 34e12
+CONTROL_OPS = 200          # float64 operations of one step, counted loosely
+EPS_SLOTS = 263            # partials of the control cases
+
+
+def _control_cases(prm):
+    """(name, block fields, eps partials) covering every branch of the
+    step control; the partials' max sits at a random slot."""
+    rng = np.random.default_rng(SEED + 11)
+    t, h = 100.0, 0.05
+
+    def parts(peak):
+        p = rng.uniform(0.0, 1e-4, EPS_SLOTS).astype(np.float32)
+        if peak == 0.0:
+            p[:] = 0.0
+        elif np.isfinite(peak):
+            p *= np.float32(peak / 1e-4 / 2)
+        p[rng.integers(EPS_SLOTS)] = peak
+        return p
+
+    nan, inf = float("nan"), float("inf")
+    return [
+        ("below_delta", {}, parts(2e-4)),
+        ("above_delta", {}, parts(5e-3)),
+        ("eps_zero", {}, parts(0.0)),
+        ("eps_inf", {}, parts(inf)),
+        ("eps_nan", {}, parts(nan)),
+        ("eps_denormal", {}, parts(1e-44)),
+        ("nan_backoff", {"handle_nan": 1}, parts(nan)),
+        ("inf_backoff", {"handle_nan": 1}, parts(inf)),
+        ("nan_abort", {"handle_nan": 1, "h": 1e-12, "tf": t + 1.0},
+         parts(nan)),
+        ("nan_at_tf", {"handle_nan": 1, "tf": t}, parts(nan)),
+        ("h_min", {"h_min": 0.1}, parts(5e-3)),
+        ("growth_floor", {"growth_min": 1.05}, parts(9e-4)),
+        ("growth_floor_rejected", {"growth_min": 1.05}, parts(5e-3)),
+        ("next_finish", {"tf": t + h + 0.01}, parts(2e-4)),
+        ("finish", {"tf": t + h, "finished": 1}, parts(2e-4)),
+        ("max_steps", {"max_steps": 11}, parts(2e-4)),
+        ("trace_clipped", {"n_trace": 4}, parts(2e-4)),
+        ("local_mode", {"local_mode": 1}, parts(3e-2)),
+        ("backward", {"h": -h, "h_cont": -h, "tf": -1e9}, parts(2e-4)),
+        ("phase_switch", {"t": prm.phase_switch_time - 0.02}, parts(2e-4)),
+        ("halted", {"halt": 1, "accept": 1}, parts(2e-4)),
+    ]
+
+
+def _control_block(prm, **kw):
+    from porousfreezethaw_tpu_torch.ops.cuda.control import (
+        Control, next_scalars_plain)
+    c = Control(t=100.0, h=0.05, h_cont=0.05, tf=1e9, delta=1e-3, h_min=0.0,
+                growth_min=0.0, top1=prm.top_temp1, top2=prm.top_temp2,
+                t_switch=prm.phase_switch_time, steps=40, steps_total=45,
+                start_steps=30, start_total=35, max_steps=2**62, n_trace=16)
+    for k, v in kw.items():
+        setattr(c, k, v)
+    next_scalars_plain(c)
+    return c
+
+
+def _masked(c) -> bytes:
+    """The block's bytes without its pointers (device and host differ)."""
+    c = c.copy()
+    c.eps = c.t_tr = c.h_tr = None
+    return bytes(c)
+
+
+def _float_fields(c) -> np.ndarray:
+    """The floating-point fields of a control block, as float64."""
+    return np.array([c.t, c.h, c.h_cont, *c.ts, c.h32, c.D1, *c.dD])
+
+
+def _max_abs_diff(a, b) -> float:
+    """max |a - b| of two float arrays, a NaN or an inf on both sides at
+    the same place counting as equal and on one side only as inf."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    same = (a == b) | (np.isnan(a) & np.isnan(b))
+    with np.errstate(invalid="ignore"):
+        d = np.where(same, 0.0, np.abs(a - b))
+    return float(np.where(np.isnan(d), np.inf, d).max(initial=0.0))
+
+
+def _check_control(dev, prm) -> dict:
+    """pft_merson_control against control_plain on every case: the block
+    (every field but the pointers) and the trace bit for bit; also the
+    largest difference of the block's float fields and the trace."""
+    from porousfreezethaw_tpu_torch.ops.cuda import control as ctl
+
+    bad, err = [], 0.0
+    for name, fields, parts in _control_cases(prm):
+        c0 = _control_block(prm, **fields)
+        out = {}
+        for where in ("kernel", "plain"):
+            d = dev if where == "kernel" else torch.device("cpu")
+            eps = torch.from_numpy(parts).to(d)
+            block = ctl.ControlBlock(d, eps)
+            block.t_tr, block.h_tr = (torch.full((c0.n_trace,), -1.0,
+                                                 dtype=torch.float64,
+                                                 device=d) for _ in range(2))
+            c = c0.copy()
+            c.eps, c.eps_n = eps.data_ptr(), eps.numel()
+            c.t_tr, c.h_tr = block.t_tr.data_ptr(), block.h_tr.data_ptr()
+            block.write(c)
+            ctl.merson_control(block)
+            r = block.read()
+            tr = np.concatenate([block.t_tr.cpu().numpy(),
+                                 block.h_tr.cpu().numpy()])
+            out[where] = (_masked(r), tr.tobytes(), r,
+                          np.concatenate([_float_fields(r), tr]))
+        same = out["kernel"][:2] == out["plain"][:2]
+        err = max(err, _max_abs_diff(out["kernel"][3], out["plain"][3]))
+        r = out["kernel"][2]
+        emit("control_case", case=name, bitwise=same, accept=r.accept,
+             t=r.t, h=r.h, h_cont=r.h_cont, done=r.done, halt=r.halt,
+             status=r.status, finished=r.finished, steps=r.steps,
+             steps_total=r.steps_total, dD=list(r.dD))
+        if not same:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"pft_merson_control differs from its plain "
+                             f"version: {bad}")
+    return dict(cases=len(_control_cases(prm)), bitwise=True,
+                max_abs_err=err)
+
+
+def _check_commit(dev) -> dict:
+    """pft_commit against commit_plain at MR, each mode with the flag at 0
+    and 1, bit for bit; also the largest difference of the outputs."""
+    from porousfreezethaw_tpu_torch.ops.cuda import control as ctl
+
+    rng = np.random.default_rng(SEED + 12)
+    shape = (2,) + MR_SHAPE
+    base = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(dev) for _ in range(3)]
+    base[1] *= 1e-7
+    results, err = {}, 0.0
+    for mode in (ctl.COMMIT_COPY, ctl.COMMIT_TWOSUM, ctl.COMMIT_FLIP):
+        for accept in (0, 1):
+            got = {}
+            for where in ("kernel", "plain"):
+                d = dev if where == "kernel" else torch.device("cpu")
+                block = ctl.ControlBlock(d, torch.zeros(1, device=d))
+                block.write(ctl.Control(accept=accept))
+                hi, lo, src = (x.clone() for x in base)
+                cur = torch.zeros(1, dtype=torch.int32, device=dev)
+                ctl.commit(block, mode, hi,
+                           lo if mode == ctl.COMMIT_TWOSUM else None,
+                           None if mode == ctl.COMMIT_FLIP else src, cur)
+                got[where] = (hi, lo, cur)
+            same = all(torch.equal(a, b) for a, b in zip(got["kernel"],
+                                                         got["plain"]))
+            for a, b in zip(got["kernel"], got["plain"]):
+                err = max(err, float((a.double() - b.double()).abs().max()))
+            changed = not all(torch.equal(a, b) for a, b in
+                              zip(got["kernel"][:2], base[:2]))
+            key = f"mode{mode}/accept{accept}"
+            results[key] = same
+            emit("commit_case", mode=mode, accept=accept, bitwise=same,
+                 state_changed=changed or int(got["kernel"][2]) == 1)
+    if not all(results.values()):
+        raise AssertionError(f"pft_commit differs from its plain version: "
+                             f"{results}")
+    return dict(results, max_abs_err=err)
+
+
+def _check_dev_entries(dev, prm) -> dict:
+    """The _dev entries against the by-value entries at MR, bit for bit:
+    every stage variant of fused_stage, delta_g (and its dy tail) and
+    fused_attempt, the scalars of the stage from a control block whose t
+    lies on each side of the phase switch, calc modes 0/1/2; then a halted
+    block, on which every _dev launch leaves its outputs as they were."""
+    from porousfreezethaw_tpu_torch.core.grid import GridGeometry
+    from porousfreezethaw_tpu_torch.ops.cuda import control as ctl
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
+
+    geom = GridGeometry(0.03, 0.03, 0.06, MR_SHAPE[2], MR_SHAPE[1],
+                        MR_SHAPE[0])
+    w, ks = _inputs(MR_SHAPE, dev, np.random.default_rng(SEED + 13))
+    h = 0.05
+    n_cmp = 0
+    for mode in (0, 1, 2):
+        spec = st.StencilSpec.of(geom, prm, mode)
+        slots = {k: st._eps_blocks(fn, dev, *a) for k, fn, a in (
+            ("stage", "pft_stage_eps_blocks", (mode, 0) + MR_SHAPE),
+            ("delta", "pft_delta_eps_blocks", (mode, 1) + MR_SHAPE),
+            ("dy", "pft_delta_eps_blocks", (mode, 2) + MR_SHAPE),
+            ("attempt", "pft_attempt_eps_blocks", (mode,) + MR_SHAPE))}
+        for t in (prm.phase_switch_time - 0.5 * h,
+                  prm.phase_switch_time + 1.0):
+            c = _control_block(prm, t=t, h=h)
+            block = ctl.ControlBlock(dev, torch.zeros(1, device=dev))
+            block.write(c)
+            pairs = []
+            for q, (name, (cs, s5)) in enumerate(STAGE_CASES.items()):
+                kk = list(zip(cs, ks))
+                ref = st.fused_stage(spec, c.ts[q], c.h32, w, kk, stage5=s5)
+                out = torch.empty_like(ks[0])
+                eps = torch.empty(slots["stage"], device=dev)
+                st.fused_stage_dev(spec, block, q, w, kk, out, stage5=s5,
+                                   eps=eps if s5 else None)
+                pairs.append((ref, (out, eps) if s5 else out))
+            for q, (name, (cs, s5)) in enumerate(DELTA_CASES.items(), 1):
+                for emit_ in (("y", "dy") if s5 else ("y",)):
+                    kk = list(zip(cs, ks))
+                    ref = st.delta_g(spec, c.h32, c.D1, c.dD[q], w, kk,
+                                     stage5=s5, emit=emit_)
+                    out = torch.empty_like(ks[0])
+                    eps = torch.empty(slots["dy" if emit_ == "dy"
+                                            else "delta"], device=dev)
+                    st.delta_g_dev(spec, block, q, w, kk, out, stage5=s5,
+                                   emit=emit_, eps=eps if s5 else None)
+                    pairs.append((ref, (out, eps) if s5 else out))
+            for q, (name, (cs, s5)) in enumerate(STAGE_CASES.items()):
+                kk = list(zip(cs, ks))
+                y2a = torch.stack([w, w]).contiguous()
+                y2b = y2a.clone()
+                cur = torch.ones(1, dtype=torch.int32, device=dev)
+                ref = st.fused_attempt(spec, c.ts[q], c.h32, y2a, cur, kk,
+                                       tail=s5)
+                out = torch.empty_like(ks[0])
+                eps = torch.empty(slots["attempt"], device=dev)
+                st.fused_attempt_dev(spec, block, q, y2b, cur, kk, out,
+                                     tail=s5, eps=eps)
+                pairs.append(((y2a, ref), (y2b, eps)) if s5 else (ref, out))
+            torch.cuda.synchronize()
+            for ref, got in pairs:
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                got = got if isinstance(got, tuple) else (got,)
+                if not all(torch.equal(a, b) for a, b in zip(ref, got)):
+                    raise AssertionError(
+                        f"a _dev entry differs from its by-value entry "
+                        f"(mode {mode}, t {t}, pair {n_cmp})")
+                n_cmp += 1
+    # a halted block: every _dev launch returns at once
+    c = _control_block(prm, halt=1)
+    block = ctl.ControlBlock(dev, torch.zeros(1, device=dev))
+    block.write(c)
+    spec = st.StencilSpec.of(geom, prm, 0)
+    slots = {k: st._eps_blocks(fn, dev, *a) for k, fn, a in (
+        ("delta", "pft_delta_eps_blocks", (0, 1) + MR_SHAPE),
+        ("attempt", "pft_attempt_eps_blocks", (0,) + MR_SHAPE))}
+    s5 = list(zip(DELTA_CASES["stage5"][0], ks))
+    out = torch.full_like(ks[0], 7.0)
+    eps = torch.full((slots["delta"],), 7.0, device=dev)
+    st.fused_stage_dev(spec, block, 0, w, [], out)
+    st.delta_g_dev(spec, block, 4, w, s5, out, stage5=True, eps=eps)
+    y2 = torch.stack([w, w]).contiguous()
+    cur = torch.zeros(1, dtype=torch.int32, device=dev)
+    eps_a = torch.full((slots["attempt"],), 7.0, device=dev)
+    st.fused_attempt_dev(spec, block, 4, y2, cur, s5, tail=True, eps=eps_a)
+    torch.cuda.synchronize()
+    idle = bool((out == 7.0).all() and (eps == 7.0).all()
+                and (eps_a == 7.0).all() and torch.equal(y2[1], w))
+    res = dict(pairs=n_cmp, bitwise=True, halted_untouched=idle)
+    emit("dev_entries", **res)
+    if not idle:
+        raise AssertionError("a _dev launch on a halted block wrote")
+    return res
+
+
+def _pow_sweep(dev) -> dict:
+    """The control kernel's pow_02 against the host's (solvers/merson.py)
+    and against Python's ``**`` on 100000 q = delta/eps, log-uniform over
+    [1e-3, 1e9]: mismatch counts."""
+    from porousfreezethaw_tpu_torch.ops.cuda.control import pow_02_device
+    from porousfreezethaw_tpu_torch.solvers.merson import pow_02
+
+    q = 10.0 ** np.random.default_rng(SEED + 14).uniform(-3, 9, 100_000)
+    got = pow_02_device(torch.from_numpy(q).to(dev)).cpu().numpy()
+    host = np.array([pow_02(x) for x in q.tolist()])
+    libm = q ** 0.2
+    res = dict(n=len(q), vs_host_pow_02=int((got != host).sum()),
+               vs_python_pow=int((got != libm).sum()))
+    emit("pow_02_sweep", **res)
+    if res["vs_host_pow_02"]:
+        raise AssertionError(f"device pow_02 differs from the host's: {res}")
+    return res
+
+
+def _controller_rows(dev, prm, errs) -> dict:
+    """The summary rows of pft_merson_control and pft_commit: times beside
+    their bounds at MR (the control step on the MR DeltaAttempt's partial
+    slots, at the eps whose growth factor is 1, so that h holds; the
+    commit's copy of (u, p), accepted), and the largest error against the
+    plain version that _check_control and _check_commit measured
+    (``errs``, by kernel)."""
+    from porousfreezethaw_tpu_torch.ops.cuda import control as ctl
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
+
+    n_eps = st._eps_blocks("pft_delta_eps_blocks", dev, 0, 1, *MR_SHAPE)
+    eps = torch.full((n_eps,), 1e-3 * 0.8 ** 5, device=dev)
+    c = _control_block(prm, n_trace=0)
+    c.eps, c.eps_n = eps.data_ptr(), n_eps
+    block = ctl.ControlBlock(dev, eps)
+    block.write(c)
+    hblock = ctl.ControlBlock(torch.device("cpu"), eps)
+    hblock.write(c)
+    shape = (2,) + MR_SHAPE
+    # sets of (hi, lo, src) taken in turn, 192 MB in all, so that each
+    # commit reads its planes from device memory and not from the L2
+    sets = [tuple(torch.rand(shape, device=dev) for _ in range(3))
+            for _ in range(COLD_SETS - 1)]
+    turn = itertools.cycle(sets)
+    cblock = ctl.ControlBlock(dev, eps)
+    cblock.write(ctl.Control(accept=1))
+    pblock = ctl.ControlBlock(torch.device("cpu"), eps)
+    pblock.write(ctl.Control(accept=1))
+    times = {}
+    for impl in ("plain", "kernel", "kernel_device", "kernel2", "plain2"):
+        timer = _queued_ms if impl == "kernel_device" else _time
+        plain = impl.startswith("plain")
+        b, bc = (hblock, pblock) if plain else (block, cblock)
+        def copy():
+            hi, _, src = next(turn)
+            ctl.commit(bc, ctl.COMMIT_COPY, hi, src=src)
+
+        def twosum():
+            hi, lo, src = next(turn)
+            ctl.commit(bc, ctl.COMMIT_TWOSUM, hi, lo, src=src)
+
+        times[impl] = dict(control=timer(lambda: ctl.merson_control(b), 50),
+                           commit=timer(copy, 48),
+                           commit_twosum=timer(twosum, 48))
+
+    def library_copy():
+        hi, _, src = next(turn)
+        hi.copy_(src)
+
+    copy_ms = _time(library_copy, 48)
+    emit("controller_kernel_times", shape=list(shape), eps_slots=n_eps,
+         ms=times, library_copy_ms=copy_ms)
+
+    def avg(key, *impls):
+        return float(np.mean([times[i][key] for i in impls]))
+
+    out = {}
+    plane_bytes = 4 * int(np.prod(shape))
+    for name, key, nbytes, ops, library, src_name, what in (
+            ("merson_control", "control", 4 * n_eps + 2 * 232,
+             CONTROL_OPS, None, "control.cu",
+             f"one step on {n_eps} eps partials (MR DeltaAttempt)"),
+            ("commit", "commit", 2 * plane_bytes, 0, copy_ms, "control.cu",
+             "the accepted copy of (u, p) at MR, its planes cold in L2; "
+             "library_ms: one Tensor.copy_")):
+        bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                       ops / F64_FLOP_PER_S) * 1e3
+        out[name] = dict(
+            name=name, route="cuda",
+            source=f"porousfreezethaw_tpu_torch/csrc/{src_name}",
+            replaces=("porousfreezethaw_tpu/solvers/merson.py:239"
+                      if name == "merson_control" else
+                      "porousfreezethaw_tpu/solvers/merson.py:283"),
+            replaces_what=("the body of the lax.while_loop controller "
+                           "(XLA, no Pallas kernel)" if name ==
+                           "merson_control" else
+                           "the accepted-update select of the while-loop "
+                           "body (XLA, no Pallas kernel)"),
+            launches=0, max_abs_err=errs[name],
+            ms=avg(key, "kernel", "kernel2"),
+            plain_ms=avg(key, "plain", "plain2"),
+            bound_ms=bound_ms, bound_by="bytes", library_ms=library,
+            device_ms=avg(key, "kernel_device"),
+            bound_share=bound_ms / avg(key, "kernel_device"),
+            timed=what + TIMED_BY)
+    out["commit"]["twosum_device_ms"] = avg("commit_twosum", "kernel_device")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -736,6 +1159,278 @@ def phase_solve(dev) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase controller: the device-resident loop against the host loop
+# --------------------------------------------------------------------------
+
+CONTROLLER_GRIDS = (200, 100)        # MR, LR
+CONTROLLER_PATHS = ("delta", "delta_comp", "fused_attempt", "stage")
+CONTROLLER_WARM = 40
+CONTROLLER_REPEATS = 3
+
+
+class _EpsTap:
+    """An attempt_fn that records each attempt's eps (a sync each: used
+    only in an untimed run)."""
+
+    def __init__(self, inner):
+        self.inner, self.eps = inner, []
+
+    def pack(self, y):
+        return self.inner.pack(y)
+
+    def attempt(self, t, h, y):
+        carry, e = self.inner.attempt(t, h, y)
+        self.eps.append(float(torch.amax(e)))
+        return carry, e
+
+    def commit(self, carry, accept):
+        return self.inner.commit(carry, accept)
+
+    def unpack(self, y):
+        return self.inner.unpack(y)
+
+
+def _loop_solvers(path, geom, prm):
+    """(host-loop solve, device-loop solve, the device loop's object) of
+    one path; each solve is ``(state, params) -> merson_solve's result``
+    to t = 1e9."""
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
+    from porousfreezethaw_tpu_torch.solvers.merson import (
+        merson_solve, merson_solve_device)
+
+    if path == "stage":
+        stage_fn = st.make_fused_stage(geom, prm, 0)
+        dev_att = st.StageAttempt(geom, prm, 0)
+
+        def host(s, p):
+            return merson_solve(None, s, 1e9, p, stage_fn=stage_fn)
+    else:
+        cls = {"delta": st.DeltaAttempt, "delta_comp": st.DeltaAttemptComp,
+               "fused_attempt": st.FusedAttempt}[path]
+        host_att, dev_att = cls(geom, prm, 0), cls(geom, prm, 0)
+
+        def host(s, p):
+            return merson_solve(None, s, 1e9, p, attempt_fn=host_att)
+
+    def device(s, p):
+        return merson_solve_device(s, 1e9, p, dev_att)
+
+    return host, device, dev_att
+
+
+def _same_result(a, b) -> bool:
+    sa, sb = a[0], b[0]
+    return (a[1] == b[1] and (sa.t, sa.h, sa.steps, sa.steps_total)
+            == (sb.t, sb.h, sb.steps, sb.steps_total)
+            and torch.equal(sa.y, sb.y)
+            and all(torch.equal(x, y) for x, y in zip(a[2], b[2])))
+
+
+# the launches of one attempt by counter, on each path; the device loop
+# adds one merson_control and one commit
+PER_ATTEMPT = {"delta": {"fused_stage": 1, "delta_g": 4},
+               "delta_comp": {"fused_stage": 1, "delta_g": 3,
+                              "delta_g_dy": 1},
+               "fused_attempt": {"fused_attempt": 5},
+               "stage": {"fused_stage": 5}}
+DEVICE_LOOP = {"merson_control": 1, "commit": 1}
+
+# the counter of each kernel, by the name of its __global__ function
+KERNEL_COUNTERS = (("fused_stage_kernel", ("fused_stage",)),
+                   ("delta_g_kernel", ("delta_g", "delta_g_dy")),
+                   ("fused_attempt_kernel", ("fused_attempt",)),
+                   ("merson_control_kernel", ("merson_control",)),
+                   ("commit_kernel", ("commit",)))
+
+
+def _want_launches(path, n, device_loop=False):
+    """The launches of ``n`` attempt launches on ``path``, by counter."""
+    per = dict(PER_ATTEMPT[path], **(DEVICE_LOOP if device_loop else {}))
+    return {k: v * n for k, v in per.items()}
+
+
+def _graph_attempts(calls, captures=0) -> int:
+    """The attempts the device loop launches for solve calls of ``calls``
+    attempts each: whole blocks of BLOCK, plus one idle attempt before
+    each of ``captures`` graph captures."""
+    from porousfreezethaw_tpu_torch.ops.cuda.control import BLOCK
+    return captures + sum(BLOCK * -(-n // BLOCK) for n in calls)
+
+
+def _path_attempts(launches, path, device_loop) -> int:
+    """The attempt launches that ``launches`` (by counter) hold on
+    ``path``: one number for every kernel of the path, else an error."""
+    per = dict(PER_ATTEMPT[path], **(DEVICE_LOOP if device_loop else {}))
+    ms = {launches.get(k, 0) / v for k, v in per.items()}
+    others = {k: c for k, c in launches.items() if c and k not in per}
+    if len(ms) != 1 or others or not float(next(iter(ms))).is_integer():
+        raise AssertionError(f"{path}: launches {launches} are not whole "
+                             f"attempts of {per}")
+    return int(ms.pop())
+
+
+def _profiled_launches(prof) -> dict:
+    """The launches of each of the port's kernels in a torch.profiler
+    trace, by kernel name (KERNEL_COUNTERS)."""
+    got = {name: 0 for name, _ in KERNEL_COUNTERS}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name, _ in KERNEL_COUNTERS:
+            if name in e.key:
+                got[name] += e.count
+    return got
+
+
+def _idle_block_ms(dev_att, dev) -> float:
+    """Device ms of one replay of the graph of BLOCK attempts on a halted
+    block: the cost of the idle attempts at the end of a solve call."""
+    loop = dev_att.device_loop(dev)
+    graph, _ = loop._graph()
+    c = loop.ctl.read()
+    c.halt = 1
+    loop.ctl.write(c)
+    return _time(graph.replay, 20)
+
+
+def phase_controller(dev) -> dict:
+    """MR and LR GradP f32: for DeltaAttempt, DeltaAttemptComp,
+    FusedAttempt and the classic stage path, CONTROLLER_WARM attempts of
+    the host loop, then SOLVE_ATTEMPTS attempts from there through the
+    device loop (merson_solve_device) and the host loop (merson_solve),
+    CONTROLLER_REPEATS times each in turns: status, counts, t, h, the
+    record_trace arrays and the state bit for bit equal, every repeat
+    alike; ms/attempt (median and spread), device ms/attempt
+    (torch.profiler over one more run of each) and the busy share; the
+    device loop's launches; the idle-block cost of BLOCK; and the control
+    kernel's growth power against Python's ``**`` and the host's pow_02 on
+    the eps values of the runs, with the host's time per call of each.
+
+    Launches: the host loop's are its attempts times the path's launches
+    per attempt; the device loop's are whole blocks of BLOCK attempts
+    (the graph launches the idle attempts after the loop halts too).  In
+    the profiled run of each loop, the launches of each kernel in the
+    profiler's trace equal what its counter added."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
+    from porousfreezethaw_tpu_torch.ops.cuda.control import (
+        BLOCK, pow_02_device)
+    from porousfreezethaw_tpu_torch.solvers.merson import (
+        MersonParams, merson_init, merson_solve, pow_02)
+
+    n = SOLVE_ATTEMPTS
+    rows, eps_seen = [], []
+    for grid_nodes in CONTROLLER_GRIDS:
+        geom, prm, v, y0, h0 = _mr_state(dev, grid_nodes)
+        for path in CONTROLLER_PATHS:
+            def params(max_steps, trace=0):
+                return MersonParams(
+                    delta=v["delta"], h_min=v["tau_min"], handle_nan=True,
+                    max_steps=max_steps, record_trace=trace,
+                    accept_growth_min=1.05 if path == "stage" else 0.0)
+
+            host, device, dev_att = _loop_solvers(path, geom, prm)
+            start = host(merson_init(y0, 0.0, h0),
+                         params(CONTROLLER_WARM))[0]
+            if path != "stage":
+                tap = _EpsTap(type(dev_att)(geom, prm, 0))
+                merson_solve(None, start, 1e9, params(n), attempt_fn=tap)
+                eps_seen += tap.eps
+            ref = device(start, params(n, n))     # captures the graph
+            torch.cuda.synchronize()
+            walls = {"host": [], "device": []}
+            for loop in ("host", "device", "device", "host") * 2:
+                if len(walls[loop]) == CONTROLLER_REPEATS:
+                    continue
+                _reset_counters(st)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = (host if loop == "host" else device)(start,
+                                                           params(n, n))
+                torch.cuda.synchronize()
+                walls[loop].append(1e3 * (time.perf_counter() - t0) / n)
+                launches = {k: c for k, c in _counters(st).items() if c}
+                want = (_want_launches(path, n) if loop == "host" else
+                        _want_launches(path, _graph_attempts([n]), True))
+                if not _same_result(res, ref):
+                    raise AssertionError(
+                        f"controller {path} at {grid_nodes}: the {loop} "
+                        f"loop differs from the device loop's first run")
+                if launches != want:
+                    raise AssertionError(
+                        f"controller {path} at {grid_nodes}: {loop} loop "
+                        f"launches {launches}, want {want}")
+            device_ms, traced = {}, {}
+            for loop in ("host", "device"):
+                _reset_counters(st)
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    (host if loop == "host" else device)(start, params(n))
+                    torch.cuda.synchronize()
+                counted = _counters(st)
+                us, kernels, _ = _device_time(prof)
+                device_ms[loop] = (us / 1e3 / n if us else "not measured",
+                                   kernels / n if us else None)
+                # each kernel's launches in the trace against its counter's
+                got = _profiled_launches(prof)
+                want = {name: sum(counted[k] for k in keys)
+                        for name, keys in KERNEL_COUNTERS}
+                traced[loop] = got
+                if us and got != want:
+                    raise AssertionError(
+                        f"controller {path} at {grid_nodes}: the {loop} "
+                        f"loop's traced launches {got}, counted {want}")
+            idle_ms = _idle_block_ms(dev_att, dev)
+            row = dict(grid=list(geom.shape), path=path, attempts=n,
+                       steps=ref[0].steps - start.steps, t=ref[0].t,
+                       h=ref[0].h, status=ref[1], bitwise=True,
+                       block=BLOCK, idle_block_ms=idle_ms,
+                       idle_attempt_ms=idle_ms / BLOCK,
+                       traced_launches=traced)
+            for loop in ("host", "device"):
+                w = sorted(walls[loop])
+                dms, kern = device_ms[loop]
+                med = float(np.median(w))
+                row[loop] = dict(
+                    ms_per_attempt=med, repeats=w,
+                    spread=w[-1] / w[0],
+                    device_ms_per_attempt=dms,
+                    kernels_per_attempt=kern,
+                    busy_share=(dms / med if isinstance(dms, float)
+                                else "not measured"))
+            row["speedup"] = (row["host"]["ms_per_attempt"]
+                              / row["device"]["ms_per_attempt"])
+            emit("controller", **row)
+            rows.append(row)
+    # the growth power on the runs' eps values
+    delta = float(v["delta"])
+    q = np.array([delta / e for e in eps_seen if 0.0 < e < float("inf")])
+    got = pow_02_device(torch.from_numpy(q).to(dev)).cpu().numpy()
+    qs = q.tolist()
+    host_us = {}
+    for name, fn in (("pow_02", pow_02), ("python_pow", lambda x: x ** 0.2)):
+        t0 = time.perf_counter()
+        for x in qs:
+            fn(x)
+        host_us[name] = 1e6 * (time.perf_counter() - t0) / max(len(qs), 1)
+    host_ms = [r["host"]["ms_per_attempt"] for r in rows]
+    fac = dict(n=len(q),
+               vs_python_pow=int((got != q ** 0.2).sum()),
+               vs_host_pow_02=int((got != np.array(
+                   [pow_02(x) for x in qs])).sum()),
+               host_us_per_call=host_us,
+               # the host loop calls pow_02 once per attempt
+               share_of_host_loop_attempt=[
+                   1e-3 * host_us["pow_02"] / ms for ms in host_ms])
+    emit("controller_fac", **fac)
+    if fac["vs_host_pow_02"]:
+        raise AssertionError(f"the device's growth power differs from the "
+                             f"host loop's: {fac}")
+    return dict(rows=rows, fac=fac)
+
+
+# --------------------------------------------------------------------------
 # phase 5: the port's bench
 # --------------------------------------------------------------------------
 
@@ -745,15 +1440,20 @@ BENCH_ROWS = (("stage", "f32", 200, 200, 200), ("delta", "f32", 200, 200, 200),
 
 
 def _counters(st) -> dict:
+    from porousfreezethaw_tpu_torch.ops.cuda import control
     return {"fused_stage": st.fused_stage.launches,
             "delta_g": st.delta_g.launches,
             "delta_g_dy": st.delta_g.launches_dy,
-            "fused_attempt": st.fused_attempt.launches}
+            "fused_attempt": st.fused_attempt.launches,
+            "merson_control": control.merson_control.launches,
+            "commit": control.commit.launches}
 
 
 def _reset_counters(st) -> None:
+    from porousfreezethaw_tpu_torch.ops.cuda import control
     st.fused_stage.launches = st.delta_g.launches = 0
     st.delta_g.launches_dy = st.fused_attempt.launches = 0
+    control.merson_control.launches = control.commit.launches = 0
 
 
 def phase_bench(dev) -> dict:
@@ -774,11 +1474,20 @@ def phase_bench(dev) -> dict:
         torch.cuda.synchronize()
         launches = _counters(st)
         emit("bench", **rec, launches=launches)
-        n = rec["attempts"] + rec["warm_attempts"]
-        want = {"stage": {"fused_stage": 5 * n},
-                "delta": {"fused_stage": n, "delta_g": 4 * n},
-                "attempt": {"fused_attempt": 5 * n}, "off": {}}[fused]
+        # the bench's solve calls, each of --steps attempts: the warm-up's,
+        # then the timed one; the device loop launches whole blocks of
+        # BLOCK attempts, plus one idle attempt before its one capture
+        calls = [steps] * (max(1, -(-warm // steps)) + 1)
+        if rec["attempts"] + rec["warm_attempts"] != sum(calls):
+            raise AssertionError(f"bench row {fused}/{dtype}: {rec}")
+        path = {"stage": "stage", "delta": "delta",
+                "attempt": "fused_attempt"}.get(fused)
+        want = ({} if path is None else
+                _want_launches(path, _graph_attempts(calls, 1), True))
         want = {k: want.get(k, 0) for k in launches}
+        if rec["controller"] != ("host" if fused == "off" else "device"):
+            raise AssertionError(f"bench row {fused}/{dtype}: controller "
+                                 f"{rec['controller']}")
         if not (rec["value"] > 0 and rec["metric"].startswith("freezing_")
                 and rec["device"] == torch.cuda.get_device_name(dev)):
             raise AssertionError(f"bench row {fused}/{dtype}: {rec}")
@@ -859,9 +1568,19 @@ def phase_profile(dev) -> None:
 # phase 6: the app on the LR goldens
 # --------------------------------------------------------------------------
 
-def _app_run(dev, golden: str, precision: str, extra: str = "") -> dict:
-    """The intertrack app on ``tests/golden/<golden>`` to snapshot 1, with
-    the launch counters set to 0 just before it and read just after."""
+RK_STEP = re.compile(r"step (\d+), t=\s*(\S+), tau=\s*(\S+), .*"
+                     r"Est\. time to snapshot (\d+) \(t=\s*(\S+)\)")
+
+
+def _app_run(dev, golden: str, precision: str, extra: str = "",
+             controller: str = "auto") -> dict:
+    """The intertrack app on ``tests/golden/<golden>`` to snapshot 1 with
+    its RK debug log, with the launch counters set to 0 just before it and
+    read just after; ``rk`` holds the debug log's (step, t, tau, snapshot,
+    snapshot t) of each accepted step.  ``controller`` "host" runs the
+    host loop on every path (the app's ``uses_device_loop`` patched),
+    "auto" the app's own choice."""
+    from porousfreezethaw_tpu_torch.apps import intertrack
     from porousfreezethaw_tpu_torch.apps.intertrack import main
     from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
 
@@ -875,16 +1594,26 @@ def _app_run(dev, golden: str, precision: str, extra: str = "") -> dict:
     old = os.environ.get("OUTPUT")
     try:
         pfile = os.path.join(out, "Params")
+        rk_path = os.path.join(out, "rk.log")
         with open(pfile, "w") as f:
-            f.write(text)
+            f.write(text + f"\nset debug_logfile = {rk_path}\n")
         os.environ["OUTPUT"] = out
+        own = intertrack.uses_device_loop
+        if controller == "host":
+            intertrack.uses_device_loop = lambda device, dev_attempt: False
         _reset_counters(st)
         t0 = time.perf_counter()
-        rc = main([pfile, "--precision", precision, "--device", str(dev)])
+        try:
+            rc = main([pfile, "--precision", precision, "--device",
+                       str(dev)])
+        finally:
+            intertrack.uses_device_loop = own
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _counters(st)
         log = open(os.path.join(out, "intertrack.log")).read()
+        rk = [RK_STEP.search(ln).groups() for ln in open(rk_path)
+              if ln.strip()]
         files = sorted(f for f in os.listdir(out) if f.endswith(".ncd"))
         snap = (open(os.path.join(out, "image.001.ncd"), "rb").read()
                 if "image.001.ncd" in files else None)
@@ -901,7 +1630,8 @@ def _app_run(dev, golden: str, precision: str, extra: str = "") -> dict:
         hh, mm, ss = sw[1].split(":")
         solver_s = 3600 * int(hh) + 60 * int(mm) + float(ss)
     res = dict(golden=golden, precision=precision, extra=extra.strip(),
-               rc=rc, files=files, launches=launches, wall_s=wall,
+               controller=controller, rc=rc, files=files,
+               launches=launches, wall_s=wall,
                solver_wall_s=solver_s,
                steps=int(m[1]) if m else None,
                attempts=int(m[2]) if m else None)
@@ -914,6 +1644,7 @@ def _app_run(dev, golden: str, precision: str, extra: str = "") -> dict:
         raise AssertionError(f"snapshots written: {files}")
     res["log"] = log
     res["snapshot"] = snap
+    res["rk"] = rk
     return res
 
 
@@ -964,36 +1695,82 @@ def _app_profile(dev) -> None:
                              f"{len(kernels)} CUDA kernel events")
 
 
+# the LR GradP goldens' counts to snapshot 1 on an H100, the host loop's
+# (PERF.md), which the device loop keeps
+GOLDEN_COUNTS = {"plain": (3637, 4309), "compensated": (3648, 4327)}
+
+
 def phase_app(dev):
     """The goldens and a profiled run; returns the launch counters of the
-    main-path runs of fused_stage and delta_g (the plain golden) and
-    delta_g_dy (the compensated one), and the LR Temp golden's record."""
+    main-path runs of fused_stage, delta_g, merson_control and commit (the
+    plain golden, through the app's chunked device loop) and delta_g_dy
+    (the compensated one), and the LR Temp golden's record.  The plain
+    golden also runs through the host loop (the app's uses_device_loop
+    patched): the same counts, RK debug log lines and snapshot 1.
+
+    Launches: the host loop's are the attempts times the path's launches
+    per attempt; the device loop's are one number of attempt launches
+    for every kernel of the path, no fewer than the attempts: whole
+    blocks of BLOCK attempts and the idle attempt before the capture."""
+    from porousfreezethaw_tpu_torch.ops.cuda.control import BLOCK
+
     runs = {}
-    for key, golden, precision, extra, ref in (
+    for key, golden, precision, extra, ref, controller in (
             ("plain", "Params-LR-GradP", "f32", "",
-             (GOLDEN_STEPS, GOLDEN_ATTEMPTS)),
+             (GOLDEN_STEPS, GOLDEN_ATTEMPTS), "auto"),
+            ("plain_host", "Params-LR-GradP", "f32", "",
+             (GOLDEN_STEPS, GOLDEN_ATTEMPTS), "host"),
             ("compensated", "Params-LR-GradP", "f32",
-             "compensated_commit 1\n", (GOLDEN_STEPS, GOLDEN_ATTEMPTS)),
+             "compensated_commit 1\n", (GOLDEN_STEPS, GOLDEN_ATTEMPTS),
+             "auto"),
             ("f64", "Params-LR-Temp", "f64", "",
-             (TEMP_STEPS, TEMP_ATTEMPTS))):
-        res = _app_run(dev, golden, precision, extra)
+             (TEMP_STEPS, TEMP_ATTEMPTS), "auto")):
+        res = _app_run(dev, golden, precision, extra, controller)
         _within(res, *ref)
         n = res["attempts"]
-        want = {"plain": {"fused_stage": n, "delta_g": 4 * n},
-                "compensated": {"fused_stage": n, "delta_g": 3 * n,
-                                "delta_g_dy": n},
-                "f64": {}}[key]
-        want = {k: want.get(k, 0) for k in res["launches"]}
-        if res["launches"] != want:
-            raise AssertionError(f"{key} golden: launch counts "
-                                 f"{res['launches']}, want {want}")
+        path = {"plain": "delta", "plain_host": "delta",
+                "compensated": "delta_comp"}.get(key)
+        device_loop = key in ("plain", "compensated")
+        if path is None:
+            if any(res["launches"].values()):
+                raise AssertionError(f"{key} golden: kernel launches "
+                                     f"{res['launches']}")
+        else:
+            m = _path_attempts(res["launches"], path, device_loop)
+            ok = (m >= n and (m - 1) % BLOCK == 0 if device_loop
+                  else m == n)
+            emit("app_launches", golden=key, attempts=n,
+                 attempt_launches=m, idle_attempts=m - n)
+            if not ok:
+                raise AssertionError(f"{key} golden: launch counts "
+                                     f"{res['launches']} for {n} attempts")
         if key == "compensated" and "(compensated commit)" not in res["log"]:
             raise AssertionError("the app ignored compensated_commit 1")
+        if device_loop != ("Step control: device loop" in res["log"]):
+            raise AssertionError(f"{key} golden: the step control logged "
+                                 f"is not the one expected")
+        counts = GOLDEN_COUNTS.get(key.replace("_host", ""))
+        if counts and (res["steps"], res["attempts"]) != counts:
+            raise AssertionError(f"{key} golden: {res['steps']}/"
+                                 f"{res['attempts']}, want {counts}")
+        if len(res["rk"]) != res["steps"]:
+            raise AssertionError(f"{key} golden: {len(res['rk'])} RK log "
+                                 f"lines for {res['steps']} steps")
         runs[key] = res
+    a, b = runs["plain"], runs["plain_host"]
+    same = dict(counts=(a["steps"], a["attempts"]) == (b["steps"],
+                                                       b["attempts"]),
+                rk_log_lines=a["rk"] == b["rk"],
+                snapshot_1=a["snapshot"] == b["snapshot"])
+    emit("app_controllers", device_loop_s=a["solver_wall_s"],
+         host_loop_s=b["solver_wall_s"], **same)
+    if not all(same.values()):
+        raise AssertionError(f"the app's device loop and host loop differ: "
+                             f"{same}")
     _app_profile(dev)
-    launches = {"fused_stage": runs["plain"]["launches"]["fused_stage"],
-                "delta_g": runs["plain"]["launches"]["delta_g"],
-                "delta_g_dy": runs["compensated"]["launches"]["delta_g_dy"]}
+    launches = {k: runs["plain"]["launches"][k] for k in (
+        "fused_stage", "delta_g", "merson_control", "commit")}
+    launches["delta_g_dy"] = runs["compensated"]["launches"]["delta_g_dy"]
     return launches, runs["f64"]
 
 
@@ -2231,6 +3008,8 @@ def main(argv=None) -> int:
         kernels.update(phase_kernels(dev))
     if "solve" in phases:
         phase_solve(dev)
+    if "controller" in phases:
+        phase_controller(dev)
     if "bench" in phases:
         launches["fused_attempt"] = phase_bench(dev)["fused_attempt"]
     if "app" in phases:

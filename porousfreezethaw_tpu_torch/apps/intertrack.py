@@ -37,11 +37,26 @@ Snapshots are then written shard by shard.
 ``--profile-dir DIR`` records the whole run with torch.profiler (CPU
 activities, and CUDA's on the card) into ``DIR/trace.json``, a Chrome
 trace, as the JAX app wraps its run in ``jax.profiler.trace``.
+
+Step control: on ``--device cuda`` the single-device f32 kernel paths
+(increment form, compensated or not, and the classic stage) run the
+device-resident loop (``merson_solve_device``: CUDA graphs of attempts
+whose step control and commit are kernels), the counterpart
+of the JAX app's accelerator branch: the solve goes in chunks of
+``PFT_SERVICE_CHUNK`` attempts (a positive integer, 1024 by default),
+each recording the (t, h) of its accepted steps on the device; between
+chunks the app writes them to the RK debug log and checks the trigger
+file, so a trigger takes effect at the next chunk boundary (a chunk's
+attempts later than the reference's per-step check at most).  Every other
+path, and ``--device cpu``, keeps the host loop with the per-step service
+callback, as the JAX app does on the CPU (``uses_device_loop`` decides).
+The log names the controller.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import subprocess
 import sys
@@ -64,14 +79,17 @@ from ..models.freezing.glass import build_glass_field, read_ball_positions
 from ..models.freezing.icond import build_initial_conditions
 from ..models.freezing.parameters import (
     PARAM_INFO, FreezingParams, shift_temperature_origin)
-from ..ops.cuda.stencil import DeltaAttempt, DeltaAttemptComp, make_fused_stage
+from ..ops.cuda.control import BLOCK
+from ..ops.cuda.stencil import (
+    DeltaAttempt, DeltaAttemptComp, StageAttempt, make_fused_stage)
 from ..parallel.fused import (
     ShardedDeltaAttempt, ShardedDeltaAttempt2D, make_sharded_fused_stage)
 from ..parallel.halo import make_halo_rhs
 from ..parallel.sharding import (
     gather_freezing_state, make_mesh, shard_freezing_state)
 from ..solvers.merson import (
-    INTERRUPTED, MersonParams, merson_init, merson_solve)
+    INTERRUPTED, MAX_STEPS, MersonParams, merson_init, merson_solve,
+    merson_solve_device)
 
 DEFAULT_BALL_POSITIONS = "data/spheres_positions.txt"  # equation.c:35
 
@@ -85,6 +103,31 @@ def kernels_apply(dtype: torch.dtype, noise) -> bool:
 
 class IntertrackError(RuntimeError):
     pass
+
+
+def uses_device_loop(device: torch.device, dev_attempt) -> bool:
+    """Whether a solve runs the chunked device loop: on the card, for the
+    single-device float32 kernel paths, whose attempt object
+    ``dev_attempt`` is on the device protocol (None on every other
+    path)."""
+    return device.type == "cuda" and dev_attempt is not None
+
+
+def service_chunk() -> int:
+    """The attempts of one solve call of the chunked branch:
+    ``PFT_SERVICE_CHUNK``, a positive integer, 1024 by default (the JAX
+    app's name, check and default; its clamp to 1024, a fault of the
+    remote TPU worker, does not carry over)."""
+    raw = os.environ.get("PFT_SERVICE_CHUNK", "1024")
+    try:
+        chunk = int(raw)
+    except ValueError:
+        raise SystemExit(
+            f"PFT_SERVICE_CHUNK must be a positive integer, got {raw!r}")
+    if chunk <= 0:
+        raise SystemExit(
+            f"PFT_SERVICE_CHUNK must be a positive integer, got {chunk}")
+    return chunk
 
 
 def _unshift(fields: np.ndarray, u_shift: float) -> np.ndarray:
@@ -246,6 +289,8 @@ def run_iteration(
 
     y0 = torch.as_tensor(np.ascontiguousarray(w0))
     rhs = stage_fn = attempt_fn = None
+    # the attempt object of the device loop (single-device kernel paths)
+    dev_attempt = None
     # The increment-form (delta) attempt is the f32 default for all
     # models: its exact f(w+d)-f(w) stages remove the f32 stage-state
     # rounding floor from the error estimator (models/freezing/delta.py),
@@ -290,11 +335,12 @@ def run_iteration(
     elif use_kernels:
         if use_delta:
             cls = DeltaAttemptComp if use_comp else DeltaAttempt
-            attempt_fn = cls(geom, solver_params, calc_mode)
+            attempt_fn = dev_attempt = cls(geom, solver_params, calc_mode)
             log("Increment-form (delta) attempt kernels: ON%s (%s)\n",
                 " (compensated commit)" if use_comp else "", device.type)
         else:
             stage_fn = make_fused_stage(geom, solver_params, calc_mode)
+            dev_attempt = StageAttempt(geom, solver_params, calc_mode)
             log("Fused stage kernel: ON (%s)\n", device.type)
     else:
         rhs = make_rhs(geom, solver_params, calc_mode, device, noise=noise)
@@ -330,9 +376,38 @@ def run_iteration(
                 return 1
             return 0
 
-    def solve(st, ft):
-        return merson_solve(rhs, st, ft, mparams, service_callback=service,
-                            stage_fn=stage_fn, attempt_fn=attempt_fn)
+    if uses_device_loop(device, dev_attempt):
+        # the JAX app's accelerator branch: chunks of solve calls whose
+        # (t, h) trace is drained into the RK debug log between them,
+        # where the trigger file is checked too
+        chunk = service_chunk()
+        cparams = dataclasses.replace(mparams, max_steps=chunk,
+                                      record_trace=chunk)
+        log("Step control: device loop (CUDA graphs of %d attempts on the "
+            "card), chunks of %d attempts\n", BLOCK, chunk)
+
+        def solve(st, ft):
+            while True:
+                prev_steps = st.steps
+                st, status, (tt, hh) = merson_solve_device(st, ft, cparams,
+                                                           dev_attempt)
+                n_new = st.steps - prev_steps
+                if debug_log is not None and n_new:
+                    for i, (t_i, h_i) in enumerate(zip(tt[:n_new].tolist(),
+                                                       hh[:n_new].tolist())):
+                        debug_log.log_step(t_i, h_i, prev_steps + i + 1)
+                if trigger_file and os.path.exists(trigger_file):
+                    return st, INTERRUPTED
+                if status == MAX_STEPS:
+                    continue
+                return st, status
+    else:
+        log("Step control: host loop\n")
+
+        def solve(st, ft):
+            return merson_solve(rhs, st, ft, mparams,
+                                service_callback=service, stage_fn=stage_fn,
+                                attempt_fn=attempt_fn)
 
     # ---------- output naming (incl. batch dirs, intertrack.c:1437-1484) ----
     out_file = pf.setting("out_file")

@@ -24,7 +24,11 @@ kernel with its stage-5 tail, ``delta`` the increment-form attempt,
 ``attempt`` the double-buffered attempt, ``off`` the plain PyTorch
 right-hand side (the f64 path); ``auto`` is ``stage`` for f32 on the GPU
 and ``off`` otherwise.  ``--device cuda`` is the default and raises
-without a GPU; nothing falls back to the CPU.
+without a GPU; nothing falls back to the CPU.  On the card the kernel
+rows (``stage``, ``delta``, ``attempt``, without a mesh) solve through
+the device-resident loop (``merson_solve_device``, CUDA graphs of
+attempts), every other row through the host loop (``merson_solve``), as
+the app does; the record names it under ``"controller"``.
 
 ``--mesh`` benches the sharded paths over a mesh of the visible devices of
 ``--device``, as ``bench.py`` does: a z mesh the classic stage kernels
@@ -76,10 +80,12 @@ from .models.dem import (
 from .models.freezing import (
     FreezingParams, build_glass_field, build_initial_conditions, make_rhs,
     read_ball_positions, shift_temperature_origin)
-from .ops.cuda.stencil import DeltaAttempt, FusedAttempt, make_fused_stage
+from .ops.cuda.stencil import (
+    DeltaAttempt, FusedAttempt, StageAttempt, make_fused_stage)
 from .parallel.fused import ShardedDeltaAttempt2D, make_sharded_fused_stage
 from .parallel.sharding import make_mesh, shard_freezing_state
-from .solvers.merson import MersonParams, merson_init, merson_solve
+from .solvers.merson import (
+    MersonParams, merson_init, merson_solve, merson_solve_device)
 
 # the C reference's sustained throughput per case, cells x attempted steps
 # x 5 stages / wall seconds from its shipped logs (BASELINE.md), as in
@@ -212,6 +218,10 @@ def bench_freezing(args, grid_nodes=None, calc_mode=None) -> dict:
         attempt_fn = DeltaAttempt(geom, prm, calc_mode)
     elif path == "attempt":
         attempt_fn = FusedAttempt(geom, prm, calc_mode)
+    controller = ("device" if device.type == "cuda" and mesh is None
+                  and path in KERNEL_PATHS else "host")
+    dev_attempt = (StageAttempt(geom, prm, calc_mode) if path == "stage"
+                   else attempt_fn)
 
     steps = args.steps or max(20, int(4e8 / geom.num_cells))
     warm = args.warm_steps or min(4 * steps,
@@ -226,6 +236,8 @@ def bench_freezing(args, grid_nodes=None, calc_mode=None) -> dict:
                            and attempt_fn is None else 0.0))
 
     def solve(st):
+        if controller == "device":
+            return merson_solve_device(st, 1e9, params, dev_attempt)[0]
         return merson_solve(rhs, st, 1e9, params, stage_fn=stage_fn,
                             attempt_fn=attempt_fn)[0]
 
@@ -265,6 +277,7 @@ def bench_freezing(args, grid_nodes=None, calc_mode=None) -> dict:
         "ms_per_attempt": wall / done * 1e3,
         "device": name,
         "fused": path,
+        "controller": controller,
         "dtype": args.dtype,
         "grid": [geom.n1, geom.n2, geom.n3],
         "attempts": done,

@@ -1,0 +1,62 @@
+// The control block of the device-resident Merson controller: the state of
+// merson_solve's loop (solvers/merson.py), its per-call constants and the
+// float32 scalars of the next attempt's stages, in device memory.  One
+// layout for the host (ops/cuda/control.py mirrors it field by field and
+// checks its size against pft_control_size()) and every kernel:
+//
+//   control.cu       pft_merson_control: the step control of one attempt
+//                    (reads the eps partials, writes the state, the accept
+//                    flag, the trace and the next attempt's scalars);
+//                    pft_commit: the accepted-state update, read from the
+//                    accept flag on the device;
+//   fused_stage.cu, fused_attempt.cu, delta_g.cu
+//                    the _dev entries of the stage kernels, which read
+//                    (t_s, h) or (h, D1, dDi) of their stage from here and
+//                    return at once once the loop has halted.
+#pragma once
+
+#include <stdint.h>
+
+namespace pft {
+
+struct Control {
+    // the controller's state, in float64 as the host loop keeps it
+    double t, h, h_cont;
+    // per-call constants: the end time, the step control, and the
+    // Dirichlet top (top1 before t_switch, top2 from it) in float64
+    double tf, delta, h_min, growth_min;
+    double top1, top2, t_switch;
+    long long steps, steps_total;
+    long long start_steps, start_total, max_steps;
+    // device memory: the eps partials of the stage-5 tail, the (t, h)
+    // trace of accepted steps (n_trace entries each, or null)
+    const float* eps;
+    double* t_tr;
+    double* h_tr;
+    long long eps_n;
+    int n_trace;
+    int finished, done;
+    int halt;          // the loop's condition is false: done, or max_steps
+                       // attempts in this call
+    int status, accept;
+    int handle_nan, local_mode;
+    // the float32 scalars of the next attempt, formed from t and h as the
+    // host loop forms them: the stage times t, t + h/3, t + h/3, t + h/2,
+    // t + h; h; the Dirichlet value D(t) and D(t_s) - D(t) of stages 2-5
+    // (dD[0] = 0), differences taken in float64
+    float ts[5];
+    float h32;
+    float D1;
+    float dD[5];
+};
+
+// The stage a _dev entry computes (0-4) and its coefficients c_a, from
+// which it forms h*c_a in float32 as the host forms them for the by-value
+// entries.
+struct DevStage {
+    const Control* ctl;
+    float coef[3];
+    int stage;
+};
+
+}  // namespace pft

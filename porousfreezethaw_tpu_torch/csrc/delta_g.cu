@@ -37,7 +37,10 @@
 // entry is the same kernel on a shard that is the whole grid (own rows
 // [0, Y), is_top, no ghost stacks: the mirror below plane 0 and above plane
 // Z-1), so ptxas compiles one body for both entries and a sharded solve
-// equals the single-device one bit for bit.
+// equals the single-device one bit for bit.  pft_delta_g_dev is the
+// single-device entry with (h, D1, dDi) read from the control block of
+// the device-resident controller (control.cuh, control.cu): the same
+// kernel template with DEV set.
 //
 // What bounds it on Hopper.  Bytes: a launch reads w (3 planes) and nk
 // increments (2 planes each) once and writes 2 planes, 76 MB at MR for the
@@ -64,6 +67,7 @@
 //   unrolled without guards.
 //
 // On the H100 this runs at about 43% of the bytes bound at MR (PERF.md).
+#include "control.cuh"
 #include "tile.cuh"
 
 namespace pft {
@@ -363,11 +367,25 @@ __device__ __forceinline__ DPt raw_point(const DeltaArgs& a, const float* raw,
     return assemble<NK>(a, r);
 }
 
+// The scalars of a _dev entry's stage from the control block: h, D1 and
+// dDi, and h*c_a formed in float32 as delta_args forms them on the host.
+__device__ __forceinline__ void delta_scalars(DeltaArgs& a,
+                                              const DevStage& d) {
+    const Control& c = *d.ctl;
+    a.h = c.h32;
+    a.D1 = c.D1;
+    a.dDi = c.dD[d.stage];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) a.hc[q] = __fmul_rn(a.h, d.coef[q]);
+}
+
+// The whole stage for the tile of this block over its chunk of planes.
 // TAIL: 0 = G, 1 = y_spec (emit="y"), 2 = dy (emit="dy"); the tails take
 // NK = 3 (K1, G3, G4).
 template <int MODE, int NK, int TAIL>
-__global__ void __launch_bounds__(TILE_THREADS, BLOCKS_PER_SM)
-delta_g_kernel(const Consts c, const DeltaArgs a, const ShardArgs s) {
+__device__ __forceinline__ void delta_body(const Consts& c,
+                                           const DeltaArgs& a,
+                                           const ShardArgs& s) {
     constexpr bool STAGE5 = TAIL > 0, EMIT_DY = TAIL == 2;
     constexpr int NR = 3 + 2 * NK;
     extern __shared__ __align__(16) float smem[];
@@ -493,14 +511,31 @@ delta_g_kernel(const Consts c, const DeltaArgs a, const ShardArgs s) {
     if (STAGE5) block_max_store<TILE_THREADS>(mx, a.eps);
 }
 
+// DEV: the _dev entry, whose scalars come from the control block d.ctl and
+// which returns at once once the loop has halted.
+template <int MODE, int NK, int TAIL, bool DEV>
+__global__ void __launch_bounds__(TILE_THREADS, BLOCKS_PER_SM)
+delta_g_kernel(const Consts c, const DeltaArgs a, const ShardArgs s,
+               const DevStage d) {
+    if constexpr (DEV) {
+        if (d.ctl->halt) return;
+        DeltaArgs b = a;
+        delta_scalars(b, d);
+        delta_body<MODE, NK, TAIL>(c, b, s);
+    } else {
+        delta_body<MODE, NK, TAIL>(c, a, s);
+    }
+}
+
 // Computes the grid of a launch; with out, only stores it there, else
-// launches, when a tail's grid has no more blocks than eps has slots.
-template <int MODE, int NK, int TAIL>
-static int launch_kernel(const Consts& c, DeltaArgs a, const ShardArgs& sa,
-                         cudaStream_t s, TileGrid* out) {
+// launches, when a tail's grid has no more blocks than eps has slots (as
+// many, for a _dev tail: the control kernel reduces every slot).
+template <int MODE, int NK, int TAIL, bool DEV>
+static int launch_as(const Consts& c, DeltaArgs a, const ShardArgs& sa,
+                     const DevStage& d, cudaStream_t s, TileGrid* out) {
     static int resident[MAX_DEVICES] = {};      // blocks on the card
     int cap = 0;
-    const int rc = resident_blocks(delta_g_kernel<MODE, NK, TAIL>,
+    const int rc = resident_blocks(delta_g_kernel<MODE, NK, TAIL, DEV>,
                                    delta_smem_bytes(NK), resident, cap);
     if (rc) return rc;
     const TileGrid dg = tile_grid(cap, a.g.Z, sa.Yl, a.g.X);
@@ -508,38 +543,51 @@ static int launch_kernel(const Consts& c, DeltaArgs a, const ShardArgs& sa,
         *out = dg;
         return 0;
     }
-    if (TAIL && (int64_t)dg.grid.x * dg.grid.y * dg.grid.z > a.eps_n)
+    const int64_t blocks = (int64_t)dg.grid.x * dg.grid.y * dg.grid.z;
+    if (TAIL && (blocks > a.eps_n || (DEV && blocks != a.eps_n)))
         return 1012;
     a.tz = dg.tz;
-    delta_g_kernel<MODE, NK, TAIL><<<dg.grid, TILE_THREADS,
-                                     delta_smem_bytes(NK), s>>>(c, a, sa);
+    delta_g_kernel<MODE, NK, TAIL, DEV><<<dg.grid, TILE_THREADS,
+                                          delta_smem_bytes(NK), s>>>(
+        c, a, sa, d);
     return (int)cudaGetLastError();
+}
+
+template <int MODE, int NK, int TAIL>
+static int launch_kernel(const Consts& c, const DeltaArgs& a,
+                         const ShardArgs& sa, const DevStage* d,
+                         cudaStream_t s, TileGrid* out) {
+    return d ? launch_as<MODE, NK, TAIL, true>(c, a, sa, *d, s, out)
+             : launch_as<MODE, NK, TAIL, false>(c, a, sa, DevStage{}, s, out);
 }
 
 // A single-device launch is a shard that holds the whole grid (see the
 // top of the file).
 template <int MODE>
 static int launch_mode(const Consts& c, const DeltaArgs& a,
-                       const ShardArgs& sa, int nk, int tail, cudaStream_t s,
-                       TileGrid* out) {
-    if (tail == 2) return launch_kernel<MODE, 3, 2>(c, a, sa, s, out);
-    if (tail == 1) return launch_kernel<MODE, 3, 1>(c, a, sa, s, out);
-    if (nk == 1) return launch_kernel<MODE, 1, 0>(c, a, sa, s, out);
-    if (nk == 2) return launch_kernel<MODE, 2, 0>(c, a, sa, s, out);
-    return launch_kernel<MODE, 3, 0>(c, a, sa, s, out);
+                       const ShardArgs& sa, const DevStage* d, int nk,
+                       int tail, cudaStream_t s, TileGrid* out) {
+    if (tail == 2) return launch_kernel<MODE, 3, 2>(c, a, sa, d, s, out);
+    if (tail == 1) return launch_kernel<MODE, 3, 1>(c, a, sa, d, s, out);
+    if (nk == 1) return launch_kernel<MODE, 1, 0>(c, a, sa, d, s, out);
+    if (nk == 2) return launch_kernel<MODE, 2, 0>(c, a, sa, d, s, out);
+    return launch_kernel<MODE, 3, 0>(c, a, sa, d, s, out);
 }
 
 static int launch(const Consts& c, const DeltaArgs& a, const ShardArgs& sa,
                   int mode, int nk, int tail, cudaStream_t s,
-                  TileGrid* out = nullptr) {
+                  TileGrid* out = nullptr, const DevStage* d = nullptr) {
     switch (mode) {
-        case GRADP: return launch_mode<GRADP>(c, a, sa, nk, tail, s, out);
-        case SIGMAP: return launch_mode<SIGMAP>(c, a, sa, nk, tail, s, out);
-        case TEMP: return launch_mode<TEMP>(c, a, sa, nk, tail, s, out);
+        case GRADP:
+            return launch_mode<GRADP>(c, a, sa, d, nk, tail, s, out);
+        case SIGMAP:
+            return launch_mode<SIGMAP>(c, a, sa, d, nk, tail, s, out);
+        case TEMP: return launch_mode<TEMP>(c, a, sa, d, nk, tail, s, out);
         case GRADP_FROZEN_U:
-            return launch_mode<GRADP_FROZEN_U>(c, a, sa, nk, tail, s, out);
+            return launch_mode<GRADP_FROZEN_U>(c, a, sa, d, nk, tail, s, out);
         case SIGMAP_FROZEN_U:
-            return launch_mode<SIGMAP_FROZEN_U>(c, a, sa, nk, tail, s, out);
+            return launch_mode<SIGMAP_FROZEN_U>(c, a, sa, d, nk, tail, s,
+                                                out);
         default: return 1004;
     }
 }
@@ -595,6 +643,30 @@ int pft_delta_g(const float* consts, int mode, int nk, int tail, float h,
     return launch(*reinterpret_cast<const Consts*>(consts), a,
                   whole_grid(Y), mode, nk, tail,
                   static_cast<cudaStream_t>(stream));
+}
+
+// The _dev entry of pft_delta_g: h, D1 and dDi of stage `stage` (1-4) of
+// the next attempt come from the control block ctl (device memory), and
+// the launch returns at once once the loop has halted; coefs are the c_a,
+// from which the kernel forms h*c_a as the host does for pft_delta_g.  A
+// tail's eps must have exactly the launch's slots.  Returns as
+// pft_delta_g; 1013 for a bad ctl or stage.
+int pft_delta_g_dev(const float* consts, int mode, int nk, int tail,
+                    const void* ctl, int stage, const float* coefs,
+                    const float* w, const float* k0, const float* k1,
+                    const float* k2, float* out, float* eps, int Z, int Y,
+                    int X, void* stream, long long eps_n) {
+    DeltaArgs a;
+    int bad = delta_args(a, nk, tail, 0.0f, 0.0f, 0.0f, coefs, w, k0, k1, k2,
+                         out, eps, eps_n, Z, Y, X);
+    if (bad) return bad;
+    if (!ctl || stage < 1 || stage > 4) return 1013;
+    const DevStage d{static_cast<const Control*>(ctl),
+                     {coefs[0], nk > 1 ? coefs[1] : 0.0f,
+                      nk > 2 ? coefs[2] : 0.0f}, stage};
+    return launch(*reinterpret_cast<const Consts*>(consts), a,
+                  whole_grid(Y), mode, nk, tail,
+                  static_cast<cudaStream_t>(stream), nullptr, &d);
 }
 
 // K2s: the delta stage on one shard, every tail.  Shapes and the y window

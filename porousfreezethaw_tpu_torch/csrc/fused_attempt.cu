@@ -18,7 +18,9 @@
 // gl row in its K buffers; both go here (the eps max is unchanged: those
 // rows are exactly zero).  The stage is stage_body of stage.cuh, the code
 // of fused_stage.cu, on a shard that holds the whole grid, so an attempt
-// equals the fused_stage chain bit for bit.
+// equals the fused_stage chain bit for bit.  pft_fused_attempt_dev reads
+// (t_s, h) from the control block of the device-resident controller
+// (control.cuh), the commit's slot flip being control.cu's pft_commit.
 //
 // What bounds it on Hopper: the bytes, as for fused_stage.  One attempt
 // moves 41 float32 single-variable planes (stages 1-4: 5 + 7 + 9 + 9, the
@@ -40,13 +42,20 @@ struct AttemptArgs {
     const int* cur;        // slot index, 0 or 1
 };
 
-// TAIL: 0 = K of stages 1-4, 1 = the stage-5 tail (NK = 3)
-template <int MODE, int NK, int TAIL>
+// TAIL: 0 = K of stages 1-4, 1 = the stage-5 tail (NK = 3).  DEV: the
+// _dev entry, whose scalars come from the control block d.ctl and which
+// returns at once once the loop has halted.
+template <int MODE, int NK, int TAIL, bool DEV>
 __global__ void __launch_bounds__(TILE_THREADS, BLOCKS_PER_SM)
-fused_attempt_kernel(const Consts c, const AttemptArgs a, const ShardArgs s) {
+fused_attempt_kernel(const Consts c, const AttemptArgs a, const ShardArgs s,
+                     const DevStage d) {
+    if constexpr (DEV) {
+        if (d.ctl->halt) return;
+    }
     const int cur = *a.cur;
     const int64_t V = a.s.g.var(), slot = 3 * V;
     StageArgs st = a.s;
+    if constexpr (DEV) stage_scalars(st, d);
     const float* w = a.y2 + cur * slot;
 #pragma unroll
     for (int q = 0; q < 3; ++q) st.plane[q] = w + q * V;
@@ -55,13 +64,14 @@ fused_attempt_kernel(const Consts c, const AttemptArgs a, const ShardArgs s) {
 }
 
 // Computes the grid of a launch; with out, only stores it there, else
-// launches, when a tail's grid has no more blocks than eps has slots.
-template <int MODE, int NK, int TAIL>
-static int launch_kernel(const Consts& c, AttemptArgs a, cudaStream_t s,
-                         TileGrid* out) {
+// launches, when a tail's grid has no more blocks than eps has slots (as
+// many, for a _dev tail: the control kernel reduces every slot).
+template <int MODE, int NK, int TAIL, bool DEV>
+static int launch_as(const Consts& c, AttemptArgs a, const DevStage& d,
+                     cudaStream_t s, TileGrid* out) {
     static int resident[MAX_DEVICES] = {};      // blocks on the card
     int cap = 0;
-    const int rc = resident_blocks(fused_attempt_kernel<MODE, NK, TAIL>,
+    const int rc = resident_blocks(fused_attempt_kernel<MODE, NK, TAIL, DEV>,
                                    stage_smem_bytes(NK), resident, cap);
     if (rc) return rc;
     const Grid& g = a.s.g;
@@ -70,35 +80,45 @@ static int launch_kernel(const Consts& c, AttemptArgs a, cudaStream_t s,
         *out = sg;
         return 0;
     }
-    if (TAIL && (int64_t)sg.grid.x * sg.grid.y * sg.grid.z > a.s.eps_n)
+    const int64_t blocks = (int64_t)sg.grid.x * sg.grid.y * sg.grid.z;
+    if (TAIL && (blocks > a.s.eps_n || (DEV && blocks != a.s.eps_n)))
         return 1012;
     a.s.tz = sg.tz;
-    fused_attempt_kernel<MODE, NK, TAIL><<<sg.grid, TILE_THREADS,
-                                           stage_smem_bytes(NK), s>>>(
-        c, a, whole_grid(g.Y));
+    fused_attempt_kernel<MODE, NK, TAIL, DEV><<<sg.grid, TILE_THREADS,
+                                                stage_smem_bytes(NK), s>>>(
+        c, a, whole_grid(g.Y), d);
     return (int)cudaGetLastError();
 }
 
+template <int MODE, int NK, int TAIL>
+static int launch_kernel(const Consts& c, const AttemptArgs& a,
+                         const DevStage* d, cudaStream_t s, TileGrid* out) {
+    return d ? launch_as<MODE, NK, TAIL, true>(c, a, *d, s, out)
+             : launch_as<MODE, NK, TAIL, false>(c, a, DevStage{}, s, out);
+}
+
 template <int MODE>
-static int launch_mode(const Consts& c, const AttemptArgs& a, int nk,
-                       int tail, cudaStream_t s, TileGrid* out) {
-    if (tail) return launch_kernel<MODE, 3, 1>(c, a, s, out);
-    if (nk == 0) return launch_kernel<MODE, 0, 0>(c, a, s, out);
-    if (nk == 1) return launch_kernel<MODE, 1, 0>(c, a, s, out);
-    if (nk == 2) return launch_kernel<MODE, 2, 0>(c, a, s, out);
-    return launch_kernel<MODE, 3, 0>(c, a, s, out);
+static int launch_mode(const Consts& c, const AttemptArgs& a,
+                       const DevStage* d, int nk, int tail, cudaStream_t s,
+                       TileGrid* out) {
+    if (tail) return launch_kernel<MODE, 3, 1>(c, a, d, s, out);
+    if (nk == 0) return launch_kernel<MODE, 0, 0>(c, a, d, s, out);
+    if (nk == 1) return launch_kernel<MODE, 1, 0>(c, a, d, s, out);
+    if (nk == 2) return launch_kernel<MODE, 2, 0>(c, a, d, s, out);
+    return launch_kernel<MODE, 3, 0>(c, a, d, s, out);
 }
 
 static int launch(const Consts& c, const AttemptArgs& a, int mode, int nk,
-                  int tail, cudaStream_t s, TileGrid* out = nullptr) {
+                  int tail, cudaStream_t s, TileGrid* out = nullptr,
+                  const DevStage* d = nullptr) {
     switch (mode) {
-        case GRADP: return launch_mode<GRADP>(c, a, nk, tail, s, out);
-        case SIGMAP: return launch_mode<SIGMAP>(c, a, nk, tail, s, out);
-        case TEMP: return launch_mode<TEMP>(c, a, nk, tail, s, out);
+        case GRADP: return launch_mode<GRADP>(c, a, d, nk, tail, s, out);
+        case SIGMAP: return launch_mode<SIGMAP>(c, a, d, nk, tail, s, out);
+        case TEMP: return launch_mode<TEMP>(c, a, d, nk, tail, s, out);
         case GRADP_FROZEN_U:
-            return launch_mode<GRADP_FROZEN_U>(c, a, nk, tail, s, out);
+            return launch_mode<GRADP_FROZEN_U>(c, a, d, nk, tail, s, out);
         case SIGMAP_FROZEN_U:
-            return launch_mode<SIGMAP_FROZEN_U>(c, a, nk, tail, s, out);
+            return launch_mode<SIGMAP_FROZEN_U>(c, a, d, nk, tail, s, out);
         default: return 1004;
     }
 }
@@ -130,6 +150,31 @@ int pft_fused_attempt(const float* consts, int mode, int nk, int tail,
     a.cur = cur;
     return launch(*reinterpret_cast<const Consts*>(consts), a, mode, nk, tail,
                   static_cast<cudaStream_t>(stream));
+}
+
+// The _dev entry of pft_fused_attempt: t_s and h of stage `stage` (0-4)
+// of the next attempt come from the control block ctl (device memory), and
+// the launch returns at once once the loop has halted; coefs are the c_a.
+// A tail's eps must have exactly the launch's slots.  Returns as
+// pft_fused_attempt; 1013 for a bad ctl or stage.
+int pft_fused_attempt_dev(const float* consts, int mode, int nk, int tail,
+                          const void* ctl, int stage, const float* coefs,
+                          float* y2, const int* cur, const float* k0,
+                          const float* k1, const float* k2, float* out,
+                          float* eps, int Z, int Y, int X, void* stream,
+                          long long eps_n) {
+    AttemptArgs a;
+    int bad = stage_args(a.s, nk, tail, 0.0f, 0.0f, coefs, y2, k0, k1, k2,
+                         out, eps, eps_n, Z, Y, X);
+    if (bad) return bad;
+    if (!ctl || stage < 0 || stage > 4) return 1013;
+    a.y2 = y2;
+    a.cur = cur;
+    const DevStage d{static_cast<const Control*>(ctl),
+                     {nk > 0 ? coefs[0] : 0.0f, nk > 1 ? coefs[1] : 0.0f,
+                      nk > 2 ? coefs[2] : 0.0f}, stage};
+    return launch(*reinterpret_cast<const Consts*>(consts), a, mode, nk, tail,
+                  static_cast<cudaStream_t>(stream), nullptr, &d);
 }
 
 // eps partial slots of a tail launch over a (Z, Y, X) grid on the current

@@ -16,7 +16,11 @@
 // slots after the interior's.  The single-device entry pft_fused_stage (K1)
 // is the same kernel on a shard that holds the whole grid (stage.cuh), so
 // ptxas compiles one body for K1, K1s and K3, and a sharded stage equals
-// the single-device stage bit for bit.
+// the single-device stage bit for bit.  pft_fused_stage_dev is the
+// single-device entry with its scalars (t_s, h) read from the control block
+// of the device-resident controller (control.cuh, control.cu): the same
+// kernel template with DEV set, whose blocks return at once once the loop
+// has halted, so that a CUDA graph of attempts needs no host scalar.
 //
 // What bounds it on Hopper: the bytes, 3 + 2 nk planes read and 2 written
 // per launch (40 MB at MR for nk = 0, 0.012 ms at 3.35 TB/s; a shard's
@@ -33,21 +37,31 @@
 namespace pft {
 
 // TAIL: 0 = K, 1 = the stage-5 tail (y_spec and eps); the tail takes
-// NK = 3 (K1, K3, K4).
-template <int MODE, int NK, int TAIL>
+// NK = 3 (K1, K3, K4).  DEV: the _dev entry, whose scalars come from the
+// control block d.ctl and which returns at once once the loop has halted.
+template <int MODE, int NK, int TAIL, bool DEV>
 __global__ void __launch_bounds__(TILE_THREADS, BLOCKS_PER_SM)
-fused_stage_kernel(const Consts c, const StageArgs a, const ShardArgs s) {
-    stage_body<MODE, NK, TAIL == 1>(c, a, s);
+fused_stage_kernel(const Consts c, const StageArgs a, const ShardArgs s,
+                   const DevStage d) {
+    if constexpr (DEV) {
+        if (d.ctl->halt) return;
+        StageArgs b = a;
+        stage_scalars(b, d);
+        stage_body<MODE, NK, TAIL == 1>(c, b, s);
+    } else {
+        stage_body<MODE, NK, TAIL == 1>(c, a, s);
+    }
 }
 
 // Computes the grid of a launch; with out, only stores it there, else
-// launches, when a tail's grid has no more blocks than eps has slots.
-template <int MODE, int NK, int TAIL>
-static int launch_kernel(const Consts& c, StageArgs a, const ShardArgs& sa,
-                         cudaStream_t s, TileGrid* out) {
+// launches, when a tail's grid has no more blocks than eps has slots (as
+// many, for a _dev tail: the control kernel reduces every slot).
+template <int MODE, int NK, int TAIL, bool DEV>
+static int launch_as(const Consts& c, StageArgs a, const ShardArgs& sa,
+                     const DevStage& d, cudaStream_t s, TileGrid* out) {
     static int resident[MAX_DEVICES] = {};      // blocks on the card
     int cap = 0;
-    const int rc = resident_blocks(fused_stage_kernel<MODE, NK, TAIL>,
+    const int rc = resident_blocks(fused_stage_kernel<MODE, NK, TAIL, DEV>,
                                    stage_smem_bytes(NK), resident, cap);
     if (rc) return rc;
     const TileGrid sg = stage_grid(cap, sa.part, a.g.Z, sa.Yl, a.g.X);
@@ -55,36 +69,49 @@ static int launch_kernel(const Consts& c, StageArgs a, const ShardArgs& sa,
         *out = sg;
         return 0;
     }
-    if (TAIL && (int64_t)sg.grid.x * sg.grid.y * sg.grid.z > a.eps_n)
+    const int64_t blocks = (int64_t)sg.grid.x * sg.grid.y * sg.grid.z;
+    if (TAIL && (blocks > a.eps_n || (DEV && blocks != a.eps_n)))
         return 1012;
     a.tz = sg.tz;
-    fused_stage_kernel<MODE, NK, TAIL><<<sg.grid, TILE_THREADS,
-                                         stage_smem_bytes(NK), s>>>(c, a, sa);
+    fused_stage_kernel<MODE, NK, TAIL, DEV><<<sg.grid, TILE_THREADS,
+                                              stage_smem_bytes(NK), s>>>(
+        c, a, sa, d);
     return (int)cudaGetLastError();
+}
+
+template <int MODE, int NK, int TAIL>
+static int launch_kernel(const Consts& c, const StageArgs& a,
+                         const ShardArgs& sa, const DevStage* d,
+                         cudaStream_t s, TileGrid* out) {
+    return d ? launch_as<MODE, NK, TAIL, true>(c, a, sa, *d, s, out)
+             : launch_as<MODE, NK, TAIL, false>(c, a, sa, DevStage{}, s, out);
 }
 
 template <int MODE>
 static int launch_mode(const Consts& c, const StageArgs& a,
-                       const ShardArgs& sa, int nk, int tail, cudaStream_t s,
-                       TileGrid* out) {
-    if (tail) return launch_kernel<MODE, 3, 1>(c, a, sa, s, out);
-    if (nk == 0) return launch_kernel<MODE, 0, 0>(c, a, sa, s, out);
-    if (nk == 1) return launch_kernel<MODE, 1, 0>(c, a, sa, s, out);
-    if (nk == 2) return launch_kernel<MODE, 2, 0>(c, a, sa, s, out);
-    return launch_kernel<MODE, 3, 0>(c, a, sa, s, out);
+                       const ShardArgs& sa, const DevStage* d, int nk,
+                       int tail, cudaStream_t s, TileGrid* out) {
+    if (tail) return launch_kernel<MODE, 3, 1>(c, a, sa, d, s, out);
+    if (nk == 0) return launch_kernel<MODE, 0, 0>(c, a, sa, d, s, out);
+    if (nk == 1) return launch_kernel<MODE, 1, 0>(c, a, sa, d, s, out);
+    if (nk == 2) return launch_kernel<MODE, 2, 0>(c, a, sa, d, s, out);
+    return launch_kernel<MODE, 3, 0>(c, a, sa, d, s, out);
 }
 
 static int launch(const Consts& c, const StageArgs& a, const ShardArgs& sa,
                   int mode, int nk, int tail, cudaStream_t s,
-                  TileGrid* out = nullptr) {
+                  TileGrid* out = nullptr, const DevStage* d = nullptr) {
     switch (mode) {
-        case GRADP: return launch_mode<GRADP>(c, a, sa, nk, tail, s, out);
-        case SIGMAP: return launch_mode<SIGMAP>(c, a, sa, nk, tail, s, out);
-        case TEMP: return launch_mode<TEMP>(c, a, sa, nk, tail, s, out);
+        case GRADP:
+            return launch_mode<GRADP>(c, a, sa, d, nk, tail, s, out);
+        case SIGMAP:
+            return launch_mode<SIGMAP>(c, a, sa, d, nk, tail, s, out);
+        case TEMP: return launch_mode<TEMP>(c, a, sa, d, nk, tail, s, out);
         case GRADP_FROZEN_U:
-            return launch_mode<GRADP_FROZEN_U>(c, a, sa, nk, tail, s, out);
+            return launch_mode<GRADP_FROZEN_U>(c, a, sa, d, nk, tail, s, out);
         case SIGMAP_FROZEN_U:
-            return launch_mode<SIGMAP_FROZEN_U>(c, a, sa, nk, tail, s, out);
+            return launch_mode<SIGMAP_FROZEN_U>(c, a, sa, d, nk, tail, s,
+                                                out);
         default: return 1004;
     }
 }
@@ -117,6 +144,30 @@ int pft_fused_stage(const float* consts, int mode, int nk, int stage5,
     if (bad) return bad;
     return launch(*reinterpret_cast<const Consts*>(consts), a, whole_grid(Y),
                   mode, nk, stage5, static_cast<cudaStream_t>(stream));
+}
+
+// The _dev entry of pft_fused_stage: t_s and h of stage `stage` (0-4) of
+// the next attempt come from the control block ctl (device memory), and
+// the launch returns at once once the loop has halted; coefs are the c_a,
+// from which the kernel forms h*c_a as the host does for pft_fused_stage.
+// A tail's eps must have exactly the launch's slots.  Returns as
+// pft_fused_stage; 1013 for a bad ctl or stage.
+int pft_fused_stage_dev(const float* consts, int mode, int nk, int stage5,
+                        const void* ctl, int stage, const float* coefs,
+                        const float* w, const float* k0, const float* k1,
+                        const float* k2, float* out, float* eps, int Z,
+                        int Y, int X, void* stream, long long eps_n) {
+    StageArgs a;
+    int bad = stage_args(a, nk, stage5, 0.0f, 0.0f, coefs, w, k0, k1, k2,
+                         out, eps, eps_n, Z, Y, X);
+    if (bad) return bad;
+    if (!ctl || stage < 0 || stage > 4) return 1013;
+    const DevStage d{static_cast<const Control*>(ctl),
+                     {nk > 0 ? coefs[0] : 0.0f, nk > 1 ? coefs[1] : 0.0f,
+                      nk > 2 ? coefs[2] : 0.0f}, stage};
+    return launch(*reinterpret_cast<const Consts*>(consts), a, whole_grid(Y),
+                  mode, nk, stage5, static_cast<cudaStream_t>(stream),
+                  nullptr, &d);
 }
 
 // K1s/K3: the stage on one shard.  w and k* are (nv, Z, Y, X) with the

@@ -60,6 +60,7 @@
 // inputs, the bytes those with many.
 #pragma once
 
+#include "control.cuh"
 #include "tile.cuh"
 
 namespace pft {
@@ -88,6 +89,17 @@ struct StageArgs {
 
 constexpr int stage_smem_bytes(int nk) {
     return tile_smem_bytes<NPT, RING>(nk);
+}
+
+// The scalars of a _dev entry's stage from the control block: t_s and h,
+// and h*c_a formed in float32 as stage_args forms them on the host.
+__device__ __forceinline__ void stage_scalars(StageArgs& a,
+                                              const DevStage& d) {
+    const Control& c = *d.ctl;
+    a.t = c.ts[d.stage];
+    a.h = c.h32;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) a.hc[q] = __fmul_rn(a.h, d.coef[q]);
 }
 
 // aux = w + sum_a (h c_a) K_a of the raw values r of one point, accumulated

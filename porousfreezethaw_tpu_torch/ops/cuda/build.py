@@ -25,8 +25,8 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
-SOURCES = ("fused_stage.cu", "fused_attempt.cu", "delta_g.cu")
-HEADERS = ("freezing.cuh", "tile.cuh", "stage.cuh")
+SOURCES = ("fused_stage.cu", "fused_attempt.cu", "delta_g.cu", "control.cu")
+HEADERS = ("freezing.cuh", "tile.cuh", "stage.cuh", "control.cuh")
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 LIB_NAME = "libpft_kernels.so"
 
@@ -130,6 +130,27 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pft_delta_g.argtypes = [vp, ci, ci, ci, cf, cf, cf, vp, vp, vp, vp,
                                 vp, vp, vp, ci, ci, ci, vp, cll]
     lib.pft_delta_g.restype = ci
+    # the _dev entries: the arguments of their single-device entry with
+    # (ctl, stage) in place of the scalars
+    lib.pft_fused_stage_dev.argtypes = [vp, ci, ci, ci, vp, ci, vp, vp, vp,
+                                        vp, vp, vp, vp, ci, ci, ci, vp, cll]
+    lib.pft_fused_stage_dev.restype = ci
+    lib.pft_fused_attempt_dev.argtypes = [vp, ci, ci, ci, vp, ci, vp, vp, vp,
+                                          vp, vp, vp, vp, vp, ci, ci, ci, vp,
+                                          cll]
+    lib.pft_fused_attempt_dev.restype = ci
+    lib.pft_delta_g_dev.argtypes = lib.pft_fused_stage_dev.argtypes
+    lib.pft_delta_g_dev.restype = ci
+    # the controller (control.cu): ctl, stream; ctl, mode, hi, lo, src,
+    # cur, n, stream; q, out, n, stream
+    lib.pft_control_size.argtypes = []
+    lib.pft_control_size.restype = ci
+    lib.pft_merson_control.argtypes = [vp, vp]
+    lib.pft_merson_control.restype = ci
+    lib.pft_commit.argtypes = [vp, ci, vp, vp, vp, vp, cll, vp]
+    lib.pft_commit.restype = ci
+    lib.pft_pow_02.argtypes = [vp, vp, cll, vp]
+    lib.pft_pow_02.restype = ci
     # the shard entries: the arguments of their single-device entry, then
     # glo, ghi, part (stage) or is_top (delta), r0, Yl, y0, Yg
     shard = [vp, vp, ci, ci, ci, ci, ci]

@@ -34,6 +34,15 @@ own, ``delta_g.launches_dy``; ``fused_stage_shard.launches`` for whole
 shards, ``fused_stage_shard.launches_split`` for the interior and edge
 passes, ``delta_g_shard.launches`` and ``delta_g_shard.launches_dy``).
 
+Each single-device kernel also has a ``_dev`` entry (``fused_stage_dev``,
+``fused_attempt_dev``, ``delta_g_dev``), which reads the scalars of its
+stage from the control block of the device-resident loop (control.py)
+and writes into the caller's buffers; the attempt objects
+(``DeltaAttempt``, ``DeltaAttemptComp``, ``FusedAttempt`` and
+``StageAttempt``, the classic stage path) run their attempts through
+them on static buffers for ``merson_solve_device``.  The ``_dev``
+launches count under their kernel's counter.
+
 Scalars follow the JAX package exactly: t_stage and h reach the stage
 kernel as float32 (the Dirichlet phase switch of the stage kernel is
 decided in float32), while the delta kernel's ghost values D1 and dDi come
@@ -55,6 +64,9 @@ from ...models.freezing import physics
 from ...models.freezing.delta import g_rhs, two_sum
 from ...models.freezing.equation import CalcMode, make_rhs
 from ...models.freezing.parameters import FreezingParams
+from .control import (
+    COMMIT_COPY, COMMIT_FLIP, COMMIT_TWOSUM, ControlBlock, DeviceAttempt,
+    KernelLaunchError, commit as commit_dev, merson_control)
 
 N_VARS = 3   # u, p, gl
 K_VARS = 2   # the dynamic variables: K and G arrays omit the static gl
@@ -73,10 +85,6 @@ CONST_NAMES = (
     "gamma", "neg_half_gamma", "eps_reg",
     "top_temp1", "top_temp2", "phase_switch_time",
 )
-
-
-class KernelLaunchError(RuntimeError):
-    pass
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -397,6 +405,104 @@ delta_g.launches_dy = 0
 
 
 # ---------------------------------------------------------------------------
+# the _dev entries: the scalars of a stage from a control block
+# ---------------------------------------------------------------------------
+#
+# The device-resident controller (control.py) runs an attempt's stages
+# through these: stage ``stage`` (0-4) of the next attempt reads t_s and h
+# (the stage kernels) or h, D1 and dDi (the delta kernel) from the control
+# block ``ctl``, as the control kernel formed them, and writes into the
+# caller's buffers (``out``, and with a tail ``eps``, with exactly the
+# slots of the launch's grid).  The kernel forms h*c_a in float32 as the
+# host does for the by-value entries, so a _dev launch equals the by-value
+# launch on the same scalars bit for bit.  For a control block on the CPU
+# they compute with the plain versions on the block's scalars.
+
+def _store(res, out, eps) -> None:
+    if isinstance(res, tuple):
+        out.copy_(res[0])
+        eps.copy_(res[1])
+    else:
+        out.copy_(res)
+
+
+def _check_dev(name: str, ctl: ControlBlock, stage: int, w: torch.Tensor,
+               out, shape, eps) -> None:
+    if not 0 <= stage <= 4:
+        raise ValueError(f"{name}: stage must be 0-4, got {stage}")
+    if out is not None:
+        _check_tensor(name, out, shape, w.device)
+    if eps is not None:
+        _check_tensor(name, eps, tuple(eps.shape), w.device)
+    if ctl.on_device and w.device != ctl.device:
+        raise ValueError(f"{name}: inputs on {w.device}, control block on "
+                         f"{ctl.device}")
+
+
+def fused_stage_dev(spec: StencilSpec, ctl: ControlBlock, stage: int,
+                    w: torch.Tensor, ks: Ks, out: torch.Tensor,
+                    stage5: bool = False, eps=None) -> None:
+    """The ``fused_stage`` kernel's _dev entry: K into ``out``, or with
+    ``stage5`` y_spec into ``out`` and the eps partials into ``eps``."""
+    _check(spec, "fused_stage_dev", w, ks, stage5, nk_min=0)
+    _check_dev("fused_stage_dev", ctl, stage, w, out, spec.k_shape, eps)
+    if not ctl.on_device:
+        c = ctl.host
+        return _store(fused_stage_plain(spec, c.ts[stage], c.h32, w, ks,
+                                        stage5), out, eps)
+    _kernel_call("pft_fused_stage_dev", spec, (ctl.buf.data_ptr(), stage),
+                 (w.data_ptr(),), w.device, ks, int(stage5), out,
+                 eps=eps if stage5 else None)
+    fused_stage.launches += 1
+
+
+def fused_attempt_dev(spec: StencilSpec, ctl: ControlBlock, stage: int,
+                      y2: torch.Tensor, cur: torch.Tensor, ks: Ks, out=None,
+                      tail: bool = False, eps=None) -> None:
+    """The ``fused_attempt`` kernel's _dev entry: K into ``out``, or with
+    ``tail`` y_spec into slot ``1 - cur`` of ``y2`` and the eps partials
+    into ``eps``."""
+    _check(spec, "fused_attempt_dev", y2, ks, tail, nk_min=0,
+           w_shape=(2,) + spec.state_shape)
+    _check_dev("fused_attempt_dev", ctl, stage, y2, None if tail else out,
+               spec.k_shape, eps)
+    if not ctl.on_device:
+        c = ctl.host
+        res = fused_attempt_plain(spec, c.ts[stage], c.h32, y2, cur, ks,
+                                  tail)
+        return (eps if tail else out).copy_(res)
+    _kernel_call("pft_fused_attempt_dev", spec, (ctl.buf.data_ptr(), stage),
+                 (y2.data_ptr(), cur.data_ptr()), y2.device, ks, int(tail),
+                 None if tail else out, eps=eps if tail else None)
+    fused_attempt.launches += 1
+
+
+def delta_g_dev(spec: StencilSpec, ctl: ControlBlock, stage: int,
+                w: torch.Tensor, ks: Ks, out: torch.Tensor,
+                stage5: bool = False, emit: str = "y", eps=None) -> None:
+    """The ``delta_g`` kernel's _dev entry (stages 1-4): G into ``out``,
+    or with ``stage5`` y_spec or dy (``emit``) into ``out`` and the eps
+    partials into ``eps``."""
+    _check(spec, "delta_g_dev", w, ks, stage5, nk_min=1)
+    _check_dev("delta_g_dev", ctl, stage, w, out, spec.k_shape, eps)
+    if emit not in EMITS or (emit == "dy" and not stage5):
+        raise ValueError(f"delta_g_dev: emit must be one of {EMITS}, and "
+                         f"'dy' needs stage5; got {emit!r}")
+    if not ctl.on_device:
+        c = ctl.host
+        return _store(delta_g_plain(spec, c.h32, c.D1, c.dD[stage], w, ks,
+                                    stage5, emit), out, eps)
+    tail = 2 if emit == "dy" else int(stage5)
+    _kernel_call("pft_delta_g_dev", spec, (ctl.buf.data_ptr(), stage),
+                 (w.data_ptr(),), w.device, ks, tail, out,
+                 eps=eps if stage5 else None)
+    if emit == "dy":
+        delta_g.launches_dy += 1
+    else:
+        delta_g.launches += 1
+
+
+# ---------------------------------------------------------------------------
 # shard variants: one shard of a device mesh (parallel/fused.py)
 # ---------------------------------------------------------------------------
 #
@@ -688,7 +794,40 @@ def make_delta_g(geom: GridGeometry, params: FreezingParams, calc_mode: int,
     return g
 
 
-class DeltaAttempt:
+def _kbuf(spec: StencilSpec, device: torch.device) -> torch.Tensor:
+    return torch.empty(spec.k_shape, dtype=torch.float32, device=device)
+
+
+def _eps_buf(kernel: bool, device: torch.device, fn_name: str, *args):
+    """A tail's eps partials: the launch's slots for the kernels, one for
+    the plain versions."""
+    n = _eps_blocks(fn_name, device, *args) if kernel else 1
+    return torch.empty((n,), dtype=torch.float32, device=device)
+
+
+class _Attempt(DeviceAttempt):
+    """What the freezing attempt objects share: the kernels' spec, the
+    Dirichlet top for the control block and the state check."""
+
+    def __init__(self, geom: GridGeometry, params: FreezingParams,
+                 calc_mode: int, *, plain: bool = False):
+        self.geom = geom
+        self._prm = params
+        self._spec = StencilSpec.of(geom, params, calc_mode)
+        self.plain = plain
+        self.dirichlet = (params.top_temp1, params.top_temp2,
+                          params.phase_switch_time)
+
+    def _check_state(self, y: torch.Tensor, planes=(N_VARS,)) -> None:
+        wants = [(n,) + self.geom.shape for n in planes]
+        if tuple(y.shape) not in wants or y.dtype != torch.float32:
+            raise ValueError(
+                f"{type(self).__name__} expects a float32 "
+                f"{' or '.join(map(str, wants))} state, got {y.dtype} "
+                f"{tuple(y.shape)}")
+
+
+class DeltaAttempt(_Attempt):
     """Merson attempt in increment form (models/freezing/delta.py).
 
     Stage 1 is the classic stage kernel (``K1 = f(w)``); stages 2-5 are the
@@ -697,22 +836,23 @@ class DeltaAttempt:
     is no f32 stage-state rounding floor) and the speculative update.
     Implements ``merson_solve``'s ``attempt_fn`` protocol on the
     ``(3, n3, n2, n1)`` float32 state: ``pack`` copies the state once per
-    solve call, and ``commit`` writes (u, p) into that copy in place.
-    ``plain=True`` computes with the plain PyTorch versions on any device.
+    solve call, and ``commit`` writes (u, p) into that copy in place; and
+    the device protocol of ``merson_solve_device`` (control.py), whose
+    commit is the ``commit`` kernel's copy.  ``plain=True`` computes with
+    the plain PyTorch versions on any device.
     """
+
+    _emit = "y"                  # the tail's output: y_spec
+    _planes = N_VARS             # planes of the packed state
 
     def __init__(self, geom: GridGeometry, params: FreezingParams,
                  calc_mode: int, *, plain: bool = False):
-        self.geom = geom
-        self._prm = params
+        super().__init__(geom, params, calc_mode, plain=plain)
         self._stage1 = make_fused_stage(geom, params, calc_mode, plain=plain)
         self._g = make_delta_g(geom, params, calc_mode, plain=plain)
 
     def pack(self, y: torch.Tensor) -> torch.Tensor:
-        want = (N_VARS,) + self.geom.shape
-        if tuple(y.shape) != want or y.dtype != torch.float32:
-            raise ValueError(f"DeltaAttempt expects a float32 {want} state, "
-                             f"got {y.dtype} {tuple(y.shape)}")
+        self._check_state(y)
         return y.clone(memory_format=torch.contiguous_format)
 
     def _stages(self, t: float, h: float, y: torch.Tensor, emit: str):
@@ -745,6 +885,40 @@ class DeltaAttempt:
     def unpack(self, y: torch.Tensor) -> torch.Tensor:
         return y
 
+    # the device protocol (control.py DeviceAttempt)
+
+    def _dev_alloc(self, device: torch.device, kernel: bool) -> dict:
+        spec = self._spec
+        b = {k: _kbuf(spec, device) for k in ("K1", "G2", "G3", "G4", "out")}
+        b["y"] = torch.empty((self._planes,) + self.geom.shape,
+                             dtype=torch.float32, device=device)
+        b["eps"] = _eps_buf(kernel, device, "pft_delta_eps_blocks",
+                            int(spec.mode), 2 if self._emit == "dy" else 1,
+                            *self.geom.shape)
+        return b
+
+    def _dev_load(self, b: dict, y: torch.Tensor) -> None:
+        self._check_state(y)
+        b["y"].copy_(y)
+
+    def _dev_attempt(self, ctl: ControlBlock, b: dict) -> None:
+        spec, w = self._spec, b["y"][:N_VARS]
+        K1, G2, G3, G4 = b["K1"], b["G2"], b["G3"], b["G4"]
+        fused_stage_dev(spec, ctl, 0, w, [], K1)
+        delta_g_dev(spec, ctl, 1, w, [(1.0 / 3.0, K1)], G2)
+        delta_g_dev(spec, ctl, 2, w, [(1.0 / 3.0, K1), (1.0 / 6.0, G2)], G3)
+        delta_g_dev(spec, ctl, 3, w, [(0.5, K1), (0.375, G3)], G4)
+        delta_g_dev(spec, ctl, 4, w, [(1.0, K1), (-1.5, G3), (2.0, G4)],
+                    b["out"], stage5=True, emit=self._emit, eps=b["eps"])
+        merson_control(ctl)
+        self._dev_commit(ctl, b)
+
+    def _dev_commit(self, ctl: ControlBlock, b: dict) -> None:
+        commit_dev(ctl, COMMIT_COPY, b["y"][:K_VARS], src=b["out"])
+
+    def _dev_unpack(self, b: dict) -> torch.Tensor:
+        return b["y"].clone()
+
 
 class DeltaAttemptComp(DeltaAttempt):
     """DeltaAttempt with a compensated (double-f32) commit: the
@@ -757,15 +931,18 @@ class DeltaAttemptComp(DeltaAttempt):
     ``(5, n3, n2, n1)`` = [u, p, gl, u_lo, p_lo]; ``pack`` adds zero lo
     planes to a 3-plane state and copies a 5-plane one (the commit writes
     in place), and ``unpack`` keeps the lo planes, so that successive solve
-    calls carry them: strip them with ``y[:3]`` for output.  The commit is
-    plain PyTorch, as the JAX package left it to XLA.
+    calls carry them: strip them with ``y[:3]`` for output.  The host
+    loop's commit is plain PyTorch, as the JAX package left it to XLA; the
+    device loop's is the ``commit`` kernel's TwoSum.
     """
 
+    _emit = "dy"
+    _planes = N_VARS + K_VARS
+
     def pack(self, y: torch.Tensor) -> torch.Tensor:
-        if (tuple(y.shape) == (N_VARS + K_VARS,) + self.geom.shape
-                and y.dtype == torch.float32):
+        self._check_state(y, (N_VARS, N_VARS + K_VARS))
+        if y.shape[0] == N_VARS + K_VARS:
             return y.clone(memory_format=torch.contiguous_format)
-        y = super().pack(y)
         return torch.cat([y, torch.zeros_like(y[:K_VARS])])
 
     def attempt(self, t: float, h: float, y5: torch.Tensor):
@@ -781,8 +958,19 @@ class DeltaAttemptComp(DeltaAttempt):
             lo.copy_(err)
         return y5
 
+    def _dev_load(self, b: dict, y: torch.Tensor) -> None:
+        self._check_state(y, (N_VARS, N_VARS + K_VARS))
+        b["y"][:y.shape[0]].copy_(y)
+        if y.shape[0] == N_VARS:
+            b["y"][N_VARS:].zero_()
 
-class FusedAttempt:
+    def _dev_commit(self, ctl: ControlBlock, b: dict) -> None:
+        y5 = b["y"]
+        commit_dev(ctl, COMMIT_TWOSUM, y5[:K_VARS], y5[N_VARS:],
+                   src=b["out"])
+
+
+class FusedAttempt(_Attempt):
     """Classic Merson attempt over a double-buffered state: the counterpart
     of the JAX ``FusedAttempt`` (stencil.py:1353-1610), through the
     ``fused_attempt`` kernel.
@@ -792,23 +980,20 @@ class FusedAttempt:
     one-element int32 slot index ``cur`` on the same device, which the
     kernel reads itself.  Stages 1-4 read slot ``cur``; the tail writes
     y_spec into slot ``1 - cur``.  ``commit`` flips ``cur`` on the device
-    (no copy, no host sync) and ``unpack`` returns slot ``cur``.  The
-    stage coefficients are those of ``merson_solve``'s stage path, so an
-    attempt equals the ``fused_stage`` chain.  ``plain=True`` computes with
-    the plain PyTorch version on any device.
+    (no copy, no host sync; in the device loop the ``commit`` kernel's
+    flip) and ``unpack`` returns slot ``cur``.  The stage coefficients are
+    those of ``merson_solve``'s stage path, so an attempt equals the
+    ``fused_stage`` chain.  ``plain=True`` computes with the plain PyTorch
+    version on any device.
     """
 
     def __init__(self, geom: GridGeometry, params: FreezingParams,
                  calc_mode: int, *, plain: bool = False):
-        self.geom = geom
-        self._spec = StencilSpec.of(geom, params, calc_mode)
+        super().__init__(geom, params, calc_mode, plain=plain)
         self._fn = fused_attempt_plain if plain else fused_attempt
 
     def pack(self, y: torch.Tensor):
-        want = (N_VARS,) + self.geom.shape
-        if tuple(y.shape) != want or y.dtype != torch.float32:
-            raise ValueError(f"FusedAttempt expects a float32 {want} state, "
-                             f"got {y.dtype} {tuple(y.shape)}")
+        self._check_state(y)
         return (torch.stack([y, y]),
                 torch.zeros(1, dtype=torch.int32, device=y.device))
 
@@ -835,7 +1020,84 @@ class FusedAttempt:
         y2, cur = carry
         return y2[int(cur)]
 
+    # the device protocol (control.py DeviceAttempt)
+
+    def _dev_alloc(self, device: torch.device, kernel: bool) -> dict:
+        spec = self._spec
+        b = {k: _kbuf(spec, device) for k in ("K1", "K2", "K3", "K4")}
+        b["y2"] = torch.empty((2,) + spec.state_shape, dtype=torch.float32,
+                              device=device)
+        b["cur"] = torch.zeros(1, dtype=torch.int32, device=device)
+        b["eps"] = _eps_buf(kernel, device, "pft_attempt_eps_blocks",
+                            int(spec.mode), *self.geom.shape)
+        return b
+
+    def _dev_load(self, b: dict, y: torch.Tensor) -> None:
+        self._check_state(y)
+        b["y2"][0].copy_(y)
+        b["y2"][1].copy_(y)
+        b["cur"].zero_()
+
+    def _dev_attempt(self, ctl: ControlBlock, b: dict) -> None:
+        spec, y2, cur = self._spec, b["y2"], b["cur"]
+        K1, K2, K3, K4 = b["K1"], b["K2"], b["K3"], b["K4"]
+        fused_attempt_dev(spec, ctl, 0, y2, cur, [], K1)
+        fused_attempt_dev(spec, ctl, 1, y2, cur, [(1.0 / 3.0, K1)], K2)
+        fused_attempt_dev(spec, ctl, 2, y2, cur,
+                          [(1.0 / 6.0, K1), (1.0 / 6.0, K2)], K3)
+        fused_attempt_dev(spec, ctl, 3, y2, cur,
+                          [(1.0 / 8.0, K1), (3.0 / 8.0, K3)], K4)
+        fused_attempt_dev(spec, ctl, 4, y2, cur,
+                          [(0.5, K1), (-1.5, K3), (2.0, K4)], tail=True,
+                          eps=b["eps"])
+        merson_control(ctl)
+        commit_dev(ctl, COMMIT_FLIP, y2, cur=cur)
+
+    def _dev_unpack(self, b: dict) -> torch.Tensor:
+        return b["y2"][int(b["cur"])].clone()
+
 
 def make_fused_attempt(geom: GridGeometry, params: FreezingParams,
                        calc_mode: int, *, plain: bool = False) -> FusedAttempt:
     return FusedAttempt(geom, params, calc_mode, plain=plain)
+
+
+class StageAttempt(_Attempt):
+    """The classic stage path (``merson_solve`` with ``make_fused_stage``'s
+    stage_fn, ``increment_form 0``) as an attempt object on the device
+    protocol only: the ``fused_stage`` kernel's five stages with the
+    coefficients of ``merson_solve``'s stage path, the stage-5 tail's
+    y_spec copied into (u, p) of the state by the ``commit`` kernel.  The
+    device loop through it equals the host loop through the stage_fn bit
+    for bit.  ``plain=True`` computes with the plain versions on any
+    device."""
+
+    def _dev_alloc(self, device: torch.device, kernel: bool) -> dict:
+        spec = self._spec
+        b = {k: _kbuf(spec, device) for k in ("K1", "K2", "K3", "K4", "out")}
+        b["y"] = torch.empty(spec.state_shape, dtype=torch.float32,
+                             device=device)
+        b["eps"] = _eps_buf(kernel, device, "pft_stage_eps_blocks",
+                            int(spec.mode), 0, *self.geom.shape)
+        return b
+
+    def _dev_load(self, b: dict, y: torch.Tensor) -> None:
+        self._check_state(y)
+        b["y"].copy_(y)
+
+    def _dev_attempt(self, ctl: ControlBlock, b: dict) -> None:
+        spec, w = self._spec, b["y"]
+        K1, K2, K3, K4 = b["K1"], b["K2"], b["K3"], b["K4"]
+        fused_stage_dev(spec, ctl, 0, w, [], K1)
+        fused_stage_dev(spec, ctl, 1, w, [(1.0 / 3.0, K1)], K2)
+        fused_stage_dev(spec, ctl, 2, w, [(1.0 / 6.0, K1), (1.0 / 6.0, K2)],
+                        K3)
+        fused_stage_dev(spec, ctl, 3, w, [(1.0 / 8.0, K1), (3.0 / 8.0, K3)],
+                        K4)
+        fused_stage_dev(spec, ctl, 4, w, [(0.5, K1), (-1.5, K3), (2.0, K4)],
+                        b["out"], stage5=True, eps=b["eps"])
+        merson_control(ctl)
+        commit_dev(ctl, COMMIT_COPY, w[:K_VARS], src=b["out"])
+
+    def _dev_unpack(self, b: dict) -> torch.Tensor:
+        return b["y"].clone()

@@ -26,9 +26,18 @@ the leaves' maxima (NaN-propagating, as ``jnp.maximum`` over the JAX
 package's pytree leaves), gathered on the first leaf's device.  The
 controller scalars t, h and eps are Python floats (f64) whatever the
 field dtype: f32 time accumulation breaks down over the reference's
-36000 s runs (ulp(36000) in f32 is ~4 ms vs steps ~20 ms).  The accept/reject loop runs on the host and reads eps back
-with one device sync per attempt; the service callback is a plain Python
-call after each accepted step.
+36000 s runs (ulp(36000) in f32 is ~4 ms vs steps ~20 ms).
+
+Two loops.  ``merson_solve``, the host loop, runs the accept/reject
+loop in Python and reads eps back with one device sync per attempt; the
+service callback is a plain Python call after each accepted step.
+``merson_solve_device``, the counterpart of the JAX package's
+``lax.while_loop``, runs it on the device for the attempt objects of
+ops/cuda/stencil.py: the step control and the commit are kernels
+(ops/cuda/control.py), a block of attempts is one CUDA graph, and the
+host reads the control block back once per block; it gives the host
+loop's bits.  Both take the growth factor's power from ``pow_02``, the
+correctly rounded ``q ** 0.2``.
 """
 
 from __future__ import annotations
@@ -79,6 +88,45 @@ class MersonParams:
                                    # form: exact reference step sequences.
 
 
+def pow_02(q: float) -> float:
+    """``q ** 0.2`` correctly rounded, for ``q >= 0``: the step-growth
+    power of the controller.
+
+    Python's ``**`` calls the C library's ``pow``, which misrounds about
+    one result in a thousand here (glibc 2.36: 371 of 425,406 random q in
+    [1e-3, 1e4]), and the device's ``pow`` is not correctly rounded
+    either; the correctly rounded value is the one both controllers can
+    give (csrc/control.cuh ``pow_02`` is this function in double-double).
+    ``y = q ** 0.2`` is within an ulp of it; each step compares the exact
+    value with the midpoint ``m`` between y and a neighbour.  As 0.2 is
+    1/5 + 2**-54/5 in binary, ``(q ** 0.2)**5 = q exp(ln(q) 2**-54)``,
+    which ``T = q (1 + L 2**-54)``, ``L = log(q)`` rounded, gives to about
+    2**-100 relative; T and ``m**5`` are compared exactly in integers."""
+    y = q ** 0.2
+    if not 0.0 < y < math.inf:
+        return y
+    qn, qd = q.as_integer_ratio()
+    ln_, ld = math.log(q).as_integer_ratio()
+    tn, td = qn * ((ld << 54) + ln_), (qd * ld) << 54
+
+    def above(z):
+        """Whether q ** 0.2 lies above the midpoint of y and z (z - y to
+        the side of z)."""
+        yn, yd = y.as_integer_ratio()
+        zn, zd = z.as_integer_ratio()
+        mn, md = yn * zd + zn * yd, 2 * yd * zd
+        return (tn * md ** 5 > mn ** 5 * td) == (z > y)
+
+    for _ in range(8):
+        for z in (math.nextafter(y, math.inf), math.nextafter(y, 0.0)):
+            if above(z):
+                y = z
+                break
+        else:
+            break
+    return y
+
+
 def merson_init(y0, t0: float = 0.0, h0: float = 1.0) -> MersonState:
     return MersonState(t=float(t0), h=float(h0), y=y0, steps=0,
                        steps_total=0)
@@ -117,6 +165,17 @@ def _max_of_leaves(per_leaf):
     leaves = _flat(per_leaf)
     dev = leaves[0].device
     return functools.reduce(torch.maximum, (x.to(dev) for x in leaves))
+
+
+def _prologue(state: MersonState, tf: float):
+    """(t0, h, h_cont, prefinished) of a solve call to ``tf``: h reversed
+    toward tf, the first step pre-truncated (RK_MPI_SAsolver.c:300-307);
+    the continuation h stays at the (reversed) input value unless a
+    NEXTFINISH saves a fresh untrimmed estimate."""
+    t0, h0 = float(state.t), float(state.h)
+    h_rev = -h0 if ((tf > t0 and h0 < 0) or (tf < t0 and h0 > 0)) else h0
+    prefinished = (h_rev == 0) or (abs(tf - t0) <= abs(h_rev))
+    return t0, (tf - t0 if prefinished else h_rev), h_rev, prefinished
 
 
 def merson_solve(
@@ -159,16 +218,7 @@ def merson_solve(
     h_min = float(params.h_min)
     local_mode = params.delta_mode == "local"
 
-    t0, h0 = float(state.t), float(state.h)
-
-    # --- prologue: reverse h toward final_time; pre-truncate the first step
-    # (RK_MPI_SAsolver.c:300-307) ---
-    h_rev = -h0 if ((tf > t0 and h0 < 0) or (tf < t0 and h0 > 0)) else h0
-    prefinished = (h_rev == 0) or (abs(tf - t0) <= abs(h_rev))
-    h = tf - t0 if prefinished else h_rev
-    # continuation h: stays at the (reversed) input value unless a
-    # NEXTFINISH saves a fresh untrimmed estimate
-    h_cont = h_rev
+    t0, h, h_cont, prefinished = _prologue(state, tf)
 
     if attempt_fn is not None and eps_mult is not None:
         raise ValueError("eps_mult is not supported with attempt_fn")
@@ -252,7 +302,7 @@ def merson_solve(
 
         # eps == 0 and a NaN eps both take the factor 2 (a where() on
         # eps > 0 in the JAX package); eps == inf gives 0
-        fac = 0.8 * (delta / eps) ** 0.2 if eps > 0.0 else 2.0
+        fac = 0.8 * pow_02(delta / eps) if eps > 0.0 else 2.0
 
         nan_occurred = params.handle_nan and not math.isfinite(eps)
         accept = (eps < delta) or (abs(h) < h_min)
@@ -333,4 +383,51 @@ def merson_solve(
         trace = (torch.tensor(t_tr, dtype=torch.float64),
                  torch.tensor(h_tr, dtype=torch.float64))
         return new_state, status, trace
+    return new_state, status
+
+
+def merson_solve_device(state: MersonState, final_time: float,
+                        params: MersonParams, attempt_fn):
+    """``merson_solve(None, state, final_time, params,
+    attempt_fn=attempt_fn)`` with the loop on the device: the counterpart
+    of the JAX package's ``lax.while_loop`` solve.  Returns what
+    merson_solve returns, ``(state, status)`` or, with ``record_trace``,
+    ``(state, status, (t_trace, h_trace))``, the same bits.
+
+    ``attempt_fn`` is an attempt object on the device protocol
+    (ops/cuda/control.py ``DeviceAttempt``: ``DeltaAttempt``,
+    ``DeltaAttemptComp``, ``FusedAttempt``, ``StageAttempt``).  The
+    prologue forms h in float64 here and writes the control block; each
+    attempt's step control is the ``merson_control`` kernel and its commit
+    the ``commit`` kernel, reading the accept flag on the device.  On the
+    card the loop replays a CUDA graph of control.py's ``BLOCK``
+    attempts, captured at first use per attempt object and device and
+    kept across calls, and reads the control block back
+    once per replay until the loop halts (done, or ``max_steps`` attempts
+    in this call).  For a state on the CPU, or an object built with
+    ``plain=True``, the same loop runs the plain versions attempt by
+    attempt, with no graph.  Nothing falls back to the host loop: a failed
+    capture or launch raises.  There is no service callback: a caller
+    records the trace (``record_trace``) and drains it between calls, as
+    the JAX app's chunked branch does.
+    """
+    if params.delta_mode not in ("global", "local"):
+        raise ValueError(f"unknown delta_mode {params.delta_mode!r}")
+    tf = float(final_time)
+    t0, h, h_cont, prefinished = _prologue(state, tf)
+    y = _flat(state.y)[0]
+    loop = attempt_fn.device_loop(y.device)
+    loop.begin(state.y, t=t0, h=h, h_cont=h_cont, steps=int(state.steps),
+               steps_total=int(state.steps_total), finished=prefinished,
+               tf=tf, params=params)
+    c = loop.run()
+    done = bool(c.done)
+    # normal exits continue from the untrimmed estimate; a max_steps exit
+    # must resume from the current working step
+    new_state = MersonState(t=c.t, h=c.h_cont if done else c.h,
+                            y=loop.unpack(), steps=int(c.steps),
+                            steps_total=int(c.steps_total))
+    status = int(c.status) if done else MAX_STEPS
+    if params.record_trace:
+        return new_state, status, loop.trace()
     return new_state, status

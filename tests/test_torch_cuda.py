@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 PyTorch version at a small odd shape, the double-buffered attempt against
 the fused_stage chain, short solves whose launch counters show that every
-attempt went through the kernels, and the shard kernels (K1s, K3, K2s):
+attempt went through the kernels, the device-resident loop against the
+host loop bit for bit, and the shard kernels (K1s, K3, K2s):
 against their plain versions, and the mesh paths on virtual shards of the
 card against the single-device paths bit for bit.
 
@@ -24,7 +25,7 @@ from porousfreezethaw_tpu_torch.models.freezing.parameters import (
     FreezingParams, shift_temperature_origin)
 from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
 from porousfreezethaw_tpu_torch.solvers.merson import (
-    MersonParams, merson_init, merson_solve)
+    MersonParams, merson_init, merson_solve, merson_solve_device)
 
 pytestmark = pytest.mark.cuda
 
@@ -271,6 +272,56 @@ def test_solves_go_through_k2dy_and_k4(dev):
                             attempt_fn=st.FusedAttempt(geom, prm, 0))
     assert state.steps_total == 25 and st.fused_attempt.launches == 125
     assert torch.isfinite(state.y).all()
+
+
+@pytest.mark.parametrize("path", ["delta", "delta_comp", "fused_attempt",
+                                  "stage"])
+def test_device_loop_equals_host_loop(dev, path):
+    """merson_solve_device (CUDA graphs of attempts, the control and
+    commit kernels) against merson_solve on the card: 3 chunks of 25
+    attempts with a trace, bit for bit; the launch counters count every
+    launch of the graphs' replays (whole blocks of BLOCK attempts), and
+    the control and commit once per attempt, plus the idle attempt before
+    the capture."""
+    from porousfreezethaw_tpu_torch.ops.cuda import control
+    prm = _params()
+    geom = GridGeometry(0.03, 0.03, 0.06, SHAPE[2], SHAPE[1], SHAPE[0])
+    w, _ = _inputs(dev)
+    w[0] = torch.linspace(-5, 5, SHAPE[2], device=dev)
+    params = MersonParams(delta=1e-3, max_steps=25, record_trace=25,
+                          handle_nan=True,
+                          accept_growth_min=1.05 if path == "stage" else 0.0)
+    if path == "stage":
+        stage_fn = st.make_fused_stage(geom, prm, 0)
+        att = st.StageAttempt(geom, prm, 0)
+
+        def host(s):
+            return merson_solve(None, s, 1e9, params, stage_fn=stage_fn)
+    else:
+        cls = {"delta": st.DeltaAttempt, "delta_comp": st.DeltaAttemptComp,
+               "fused_attempt": st.FusedAttempt}[path]
+        host_att, att = cls(geom, prm, 0), cls(geom, prm, 0)
+
+        def host(s):
+            return merson_solve(None, s, 1e9, params, attempt_fn=host_att)
+    sa = sb = merson_init(w, 0.0, 1e-6)
+    for call in range(3):
+        a = host(sa)
+        control.merson_control.launches = control.commit.launches = 0
+        b = merson_solve_device(sb, 1e9, params, att)
+        n = b[0].steps_total - sb.steps_total
+        assert n == 25
+        assert control.merson_control.launches == control.commit.launches
+        blocks = -(-n // control.BLOCK)
+        assert control.commit.launches == (control.BLOCK * blocks
+                                           + (call == 0))
+        assert a[1] == b[1]
+        assert (a[0].t, a[0].h, a[0].steps, a[0].steps_total) == (
+            b[0].t, b[0].h, b[0].steps, b[0].steps_total)
+        assert torch.equal(a[0].y, b[0].y)
+        assert all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
+        sa, sb = a[0], b[0]
+    assert torch.isfinite(sb.y).all()
 
 
 # --------------------------------------------------------------------------

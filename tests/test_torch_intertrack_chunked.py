@@ -1,0 +1,118 @@
+"""The app's chunked device-loop branch (the one on the card for the
+single-device f32 kernel paths) on the CPU, through the plain versions of
+its kernels (``intertrack.uses_device_loop`` patched to take it there),
+against the host-loop branch on the 12-node case of
+tests/test_intertrack_app.py:
+the same snapshots byte for byte and the same RK debug log lines (step,
+t, tau, snapshot; not the wall-clock fields) for the increment form, its
+compensated commit and the classic stage; a trigger file taken at the
+next chunk boundary, after which the run goes on as if untriggered; and
+PFT_SERVICE_CHUNK's check."""
+
+import os
+import re
+from unittest import mock
+
+import pytest
+import torch
+
+from porousfreezethaw_tpu_torch.apps import intertrack
+from porousfreezethaw_tpu_torch.apps.intertrack import main as torch_main
+from porousfreezethaw_tpu_torch.io.netcdf3 import read_netcdf
+from tests.test_intertrack_app import BASE
+
+torch.set_num_threads(1)
+
+SNAPS = ("image.000.ncd", "image.001.ncd", "image.002.ncd")
+CHUNK = 6
+STEP = re.compile(r"step (\d+), t=\s*(\S+), tau=\s*(\S+), .*"
+                  r"Est\. time to snapshot (\d+) \(t=\s*(\S+)\)")
+
+
+def run(out_dir, params_text, controller):
+    """The app on the CPU with the step control ``controller``, "host" (its
+    own on the CPU) or "device" (the chunked branch); (its log, the RK
+    debug log's step fields)."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    debug = out_dir / "rk.log"
+    pfile = out_dir / "Params"
+    pfile.write_text(params_text + f"\nset debug_logfile = {debug}\n")
+    old = os.environ.get("OUTPUT")
+    os.environ["OUTPUT"] = str(out_dir)
+    device_loop = ((lambda device, dev_attempt: dev_attempt is not None)
+                   if controller == "device" else intertrack.uses_device_loop)
+    try:
+        with mock.patch.object(intertrack, "uses_device_loop", device_loop):
+            rc = torch_main([str(pfile), "--precision", "f32", "--device",
+                             "cpu"])
+    finally:
+        if old is None:
+            os.environ.pop("OUTPUT", None)
+        else:
+            os.environ["OUTPUT"] = old
+    assert rc == 0
+    log = (out_dir / "intertrack.log").read_text()
+    steps = [STEP.search(ln).groups() for ln in
+             debug.read_text().splitlines() if ln.strip()]
+    return log, steps
+
+
+@pytest.mark.parametrize("extra", ["", "compensated_commit 1\n",
+                                   "increment_form 0\n"],
+                         ids=["delta", "compensated", "stage"])
+def test_chunked_branch_equals_host_loop(tmp_path, monkeypatch, extra):
+    monkeypatch.setenv("PFT_SERVICE_CHUNK", str(CHUNK))
+    log_h, steps_h = run(tmp_path / "host", BASE + extra, "host")
+    log_d, steps_d = run(tmp_path / "device", BASE + extra, "device")
+    assert "Step control: host loop" in log_h
+    assert f"chunks of {CHUNK} attempts" in log_d
+    # more accepted steps than one chunk holds: several chunks drained
+    assert len(steps_d) > 2 * CHUNK
+    assert steps_d == steps_h
+    assert [int(s[0]) for s in steps_d] == list(range(1, len(steps_d) + 1))
+    for name in SNAPS:
+        assert ((tmp_path / "device" / name).read_bytes()
+                == (tmp_path / "host" / name).read_bytes()), name
+    counts = [re.search(r"Successful R-K steps: (\d+) of (\d+)", lg).groups()
+              for lg in (log_h, log_d)]
+    assert counts[0] == counts[1]
+
+
+def test_trigger_file_taken_at_the_chunk_boundary(tmp_path, monkeypatch):
+    """A trigger file present from the start: the host loop takes it after
+    the first accepted step, the chunked branch after its first chunk of
+    CHUNK attempts.  The on-demand snapshot holds the state at that
+    boundary, the trigger is removed, and the run then goes on exactly as
+    an untriggered one (a chunk boundary is a seamless restart)."""
+    monkeypatch.setenv("PFT_SERVICE_CHUNK", str(CHUNK))
+    _, steps_plain = run(tmp_path / "plain", BASE, "device")
+    out = tmp_path / "trig"
+    out.mkdir()
+    trigger = out / "t"
+    trigger.write_text("")
+    log, steps = run(out, BASE + f"set snapshot_trigger = {trigger}\n",
+                     "device")
+    assert not trigger.exists()
+    m = re.search(r"On-demand snapshot triggered .*?(\d+) R-K steps, "
+                  r"t=(\S+)", log)
+    n_at = int(m[1])
+    # the first chunk's accepted steps, more than the host loop's one
+    assert 1 < n_at <= CHUNK
+    snap = read_netcdf(str(out / "image.000.000.ncd"))
+    assert float(snap.attrs["t"]) == pytest.approx(
+        float(steps[n_at - 1][1]), rel=1e-4)
+    assert steps == steps_plain
+    assert ((out / SNAPS[2]).read_bytes()
+            == (tmp_path / "plain" / SNAPS[2]).read_bytes())
+
+
+@pytest.mark.parametrize("value", ["0", "-3", "many"])
+def test_service_chunk_must_be_a_positive_integer(monkeypatch, value):
+    monkeypatch.setenv("PFT_SERVICE_CHUNK", value)
+    with pytest.raises(SystemExit, match="positive integer"):
+        intertrack.service_chunk()
+
+
+def test_service_chunk_default(monkeypatch):
+    monkeypatch.delenv("PFT_SERVICE_CHUNK", raising=False)
+    assert intertrack.service_chunk() == 1024
