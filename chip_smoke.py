@@ -6,7 +6,8 @@
     python3 chip_smoke.py --phases env,build,kernels,controller,app
     python3 chip_smoke.py --phases env,dem_cells         # the DEM cell list
     python3 chip_smoke.py --phases env,build,kernels,solve,bench,app,mesh,dem,dem_cells,profile
-    python3 chip_smoke.py --phases env,dem_settle   # the DEM settle, ~40 min
+    python3 chip_smoke.py --phases env,dem_settle   # the DEM settle
+    python3 chip_smoke.py --phases env,dem_settle,dem_settle_host  # both loops
 
 Run from the root of a checkout.  Phases, one JSON line each:
 
@@ -29,13 +30,17 @@ Run from the root of a checkout.  Phases, one JSON line each:
             0, inf, NaN, a denormal; the NaN backoff and its abort; h_min;
             the growth floor; the trimmed last step and the finish;
             max_steps; trace clipping; the local mode; a backward step;
-            the phase switch; a halted block), pft_commit in its three
-            modes with the flag at 0 and 1 at MR; the _dev entries of the
+            the phase switch; a halted block), the same cases on float64
+            partials (the DEM's) with one whose peak lies below delta and
+            rounds to it in float32, pft_commit in its three modes with
+            the flag at 0 and 1 at MR and its float64 copy at the DEM's
+            shapes; the _dev entries of the
             stage kernels against their by-value entries at MR bit for
             bit (every stage variant, calc modes 0/1/2, t on each side of
             the switch) and idle on a halted block; the control kernel's
             growth power against the host's and Python's ** on 100000
-            values; the two kernels' times beside their bounds
+            values; the two kernels' times beside their bounds, and their
+            float64 variants' at the DEM's short solve (n = 200)
 4. solve    MR GradP (100x100x200) f32 solves of 300 attempts through
             merson_solve, increment form (DeltaAttempt) and classic
             double-buffered (FusedAttempt): kernels, then the plain
@@ -92,33 +97,49 @@ Run from the root of a checkout.  Phases, one JSON line each:
             same counts and state bits; the LR Temp golden (f64) through
             run_iteration at z3 (windows of 34, 33, 33 planes), the
             single-device run's counts and snapshot bytes
-8. dem      the spheres DEM (plain PyTorch, no kernel of its own): the
+8. dem      the spheres DEM (its right-hand side plain PyTorch; the
+            control and commit kernels in float64 on the device loop): the
             dense right-hand side of the four variants at n = 200 on the
             card against the port's on the CPU (f64 to 1e-12 of max|ref|
             per leaf, f32 to 1e-5); a short f64 friction_angular solve to
-            t = 10 * 8/399 on the card and on the CPU (equal step counts;
-            ms/attempt, wall and device); the particle-sharded dense term
-            on p4 virtual shards, its right-hand side and the short
-            solve's counts and state bit for bit against one device; the
-            bench's dense dem_200 and dem_2000 rows (f32) at reduced steps
+            t = 10 * 8/399 through the device loop (DEMAttempt, CUDA
+            graphs) and the host loop on the card, and the host loop on
+            the CPU (the two card loops bit for bit, the CPU's counts;
+            ms/attempt, device ms, busy share and launches per attempt of
+            each loop, the graph's capture time, the idle attempts' cost;
+            the main path of the float64 control and commit kernels); the
+            particle-sharded dense term on p4 virtual shards (the host
+            loop), its right-hand side and the short solve's counts and
+            state bit for bit against one device; the bench's dense
+            dem_200 and dem_2000 rows (f32, the device loop) at reduced
+            steps, with their launches, capture time and peak memory
 9. dem_cells  the DEM cell list (models/dem/forces.py): cell_lanes and
             cell_list against the dense term at n = 200 (four variants,
             f64 to 1e-12 of max|dense| per leaf, f32 to 1e-5), at n =
             4000 (f64) and at n = 20000 (f64, against the dense term
             sharded over p20 virtual shards); the dense icond's occupancy
             at 4000-20000 (at most 8); the overflow's NaN (n = 12, K = 8);
-            the short solve with cell_lanes (state within 1e-10 of
-            dense's); the bench's rows dense 4000/6000 and cell_lanes K = 8
-            4000-20000 at reduced attempts, with device ms and launches
-            per attempt (torch.profiler) and peak memory
+            the short solve with cell_lanes through the device loop (state
+            within 1e-10 of dense's); the bench's rows dense 4000/6000 and
+            cell_lanes K = 8 4000-20000 at reduced attempts through the
+            device loop, with device ms and launches per attempt
+            (torch.profiler over a block's replay), the capture time and
+            peak memory
 
 and, only when asked for, ``profile``: torch.profiler over 100 attempts
 at LR and at MR, through DeltaAttempt and FusedAttempt, and at MR through
 ShardedDeltaAttempt on a z4 mesh of the card (the device's busy share and
 the time by kernel); ``dem_settle``: the settle of VALIDATION.md (200
 spheres, friction_angular, f64, T = 8, 400 snapshots) through the spheres
-app on the card, its final positions and their eps_s at res = 100, held
-to the reference ensemble (0.60 < eps_s < 0.72, scripts/dem_settle_bed.py).
+app on the card (its device loop, --device-buffer 8), its final positions
+and their eps_s at res = 100, held to the reference ensemble (0.60 <
+eps_s < 0.72, scripts/dem_settle_bed.py), its counts beside the host
+loop's, and its idle attempts; first, the settle's first 32 snapshot
+targets through the device loop and the host loop on the card, bit for
+bit; ``dem_settle_host``: the whole settle through the app's host loop
+(about half an hour on the card), and with ``dem_settle`` in the same
+run, its counts at all 400 snapshots and its final positions byte for
+byte against the device loop's.
 
 The launches in the kernel summary come from the run that is each
 kernel's main path, with the counters set to 0 just before it: the plain
@@ -126,7 +147,9 @@ golden (the app's device loop) for fused_stage, delta_g, merson_control
 and commit, the compensated golden for
 delta_g_dy, the bench's --fused attempt row for fused_attempt, the golden
 at z4 for fused_stage_split and delta_g_shard, the compensated golden at
-z4 for delta_g_shard_dy, the bench's z1,y1 row for fused_stage_shard.
+z4 for delta_g_shard_dy, the bench's z1,y1 row for fused_stage_shard, the
+DEM's short f64 solve through the device loop for merson_control_f64 and
+commit_f64.
 
 It exits non-zero, before printing the final line, when CUDA is missing or
 any phase fails.  A run of every phase of PHASES (optional phases may be
@@ -139,6 +162,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import hashlib
 import itertools
 import json
@@ -156,7 +180,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernels", "solve", "controller", "bench", "app",
           "mesh", "dem", "dem_cells")
-OPTIONAL_PHASES = ("profile", "dem_settle")
+OPTIONAL_PHASES = ("profile", "dem_settle", "dem_settle_host")
 SEED = 20251016
 # the increment form's golden (reference log, LR GradP snapshot 1) and the
 # f64 golden (reference log, LR Temp snapshot 1; tests/test_golden_lr.py)
@@ -584,13 +608,19 @@ def phase_kernels(dev) -> dict:
         out[kern]["copy_ms"] = _copy_ms(out[kern]["bound_ms"], dev)
     emit("delta_digest", sha256=_delta_digest(dev))
     # the controller's kernels and the _dev entries
-    checks = dict(control=_check_control(dev, prm), commit=_check_commit(dev),
+    checks = dict(control=_check_control(dev, prm),
+                  control_f64=_check_control(dev, prm, wide=True),
+                  commit=_check_commit(dev),
+                  commit_f64=_check_commit_f64(dev),
                   dev_entries=_check_dev_entries(dev, prm),
                   pow_02=_pow_sweep(dev))
     emit("controller_checks", **checks)
     out.update(_controller_rows(dev, prm, {
         "merson_control": checks["control"]["max_abs_err"],
         "commit": checks["commit"]["max_abs_err"]}))
+    out.update(_controller_rows_f64(dev, prm, {
+        "merson_control_f64": checks["control_f64"]["max_abs_err"],
+        "commit_f64": checks["commit_f64"]["max_abs_err"]}))
     return out
 
 
@@ -741,7 +771,7 @@ def _masked(c) -> bytes:
 
 def _float_fields(c) -> np.ndarray:
     """The floating-point fields of a control block, as float64."""
-    return np.array([c.t, c.h, c.h_cont, *c.ts, c.h32, c.D1, *c.dD])
+    return np.array([c.t, c.h, c.h_cont, *c.hs, *c.ts, c.h32, c.D1, *c.dD])
 
 
 def _max_abs_diff(a, b) -> float:
@@ -754,15 +784,24 @@ def _max_abs_diff(a, b) -> float:
     return float(np.where(np.isnan(d), np.inf, d).max(initial=0.0))
 
 
-def _check_control(dev, prm) -> dict:
+def _check_control(dev, prm, wide=False) -> dict:
     """pft_merson_control against control_plain on every case: the block
     (every field but the pointers) and the trace bit for bit; also the
-    largest difference of the block's float fields and the trace."""
+    largest difference of the block's float fields and the trace.
+    ``wide``: the partials in float64 (the DEM's), with a case whose peak
+    lies below delta and rounds to it in float32."""
     from porousfreezethaw_tpu_torch.ops.cuda import control as ctl
 
     bad, err = [], 0.0
-    for name, fields, parts in _control_cases(prm):
+    cases = _control_cases(prm)
+    if wide:
+        parts = cases[0][2].astype(np.float64)
+        parts[int(np.argmax(parts))] = np.nextafter(1e-3, 0.0)
+        cases = [(n, f, p.astype(np.float64)) for n, f, p in cases] + [
+            ("rounds_to_delta", {}, parts)]
+    for name, fields, parts in cases:
         c0 = _control_block(prm, **fields)
+        c0.eps_f64 = int(wide)
         out = {}
         for where in ("kernel", "plain"):
             d = dev if where == "kernel" else torch.device("cpu")
@@ -784,7 +823,8 @@ def _check_control(dev, prm) -> dict:
         same = out["kernel"][:2] == out["plain"][:2]
         err = max(err, _max_abs_diff(out["kernel"][3], out["plain"][3]))
         r = out["kernel"][2]
-        emit("control_case", case=name, bitwise=same, accept=r.accept,
+        emit("control_case", case=name, eps_f64=r.eps_f64, bitwise=same,
+             accept=r.accept,
              t=r.t, h=r.h, h_cont=r.h_cont, done=r.done, halt=r.halt,
              status=r.status, finished=r.finished, steps=r.steps,
              steps_total=r.steps_total, dD=list(r.dD))
@@ -792,9 +832,8 @@ def _check_control(dev, prm) -> dict:
             bad.append(name)
     if bad:
         raise AssertionError(f"pft_merson_control differs from its plain "
-                             f"version: {bad}")
-    return dict(cases=len(_control_cases(prm)), bitwise=True,
-                max_abs_err=err)
+                             f"version (eps_f64 {int(wide)}): {bad}")
+    return dict(cases=len(cases), bitwise=True, max_abs_err=err)
 
 
 def _check_commit(dev) -> dict:
@@ -834,6 +873,38 @@ def _check_commit(dev) -> dict:
     if not all(results.values()):
         raise AssertionError(f"pft_commit differs from its plain version: "
                              f"{results}")
+    return dict(results, max_abs_err=err)
+
+
+def _check_commit_f64(dev) -> dict:
+    """pft_commit's copy of float64 planes against commit_plain, the flag
+    at 0 and 1, bit for bit: the DEM's state at DEM_N and at the bench's
+    2000 spheres (3 leaves of (n, 3)), and an odd count of elements."""
+    from porousfreezethaw_tpu_torch.ops.cuda import control as ctl
+
+    rng = np.random.default_rng(SEED + 15)
+    results, err = {}, 0.0
+    for shape in ((3, DEM_N, 3), (3, 2000, 3), (3, 67, 3)):
+        base = [torch.from_numpy(rng.standard_normal(shape)).to(dev)
+                for _ in range(2)]
+        for accept in (0, 1):
+            got = {}
+            for where in ("kernel", "plain"):
+                d = dev if where == "kernel" else torch.device("cpu")
+                block = ctl.ControlBlock(d, torch.zeros(1, device=d))
+                block.write(ctl.Control(accept=accept))
+                hi = base[0].clone()
+                ctl.commit(block, ctl.COMMIT_COPY, hi, src=base[1])
+                got[where] = hi
+            same = torch.equal(got["kernel"], got["plain"])
+            err = max(err, float((got["kernel"] - got["plain"]).abs().max()))
+            key = f"{'x'.join(map(str, shape))}/accept{accept}"
+            results[key] = same
+            emit("commit_case", mode=ctl.COMMIT_COPY, dtype="float64",
+                 shape=list(shape), accept=accept, bitwise=same)
+    if not all(results.values()):
+        raise AssertionError(f"pft_commit's float64 copy differs from its "
+                             f"plain version: {results}")
     return dict(results, max_abs_err=err)
 
 
@@ -1037,6 +1108,78 @@ def _controller_rows(dev, prm, errs) -> dict:
             bound_share=bound_ms / avg(key, "kernel_device"),
             timed=what + TIMED_BY)
     out["commit"]["twosum_device_ms"] = avg("commit_twosum", "kernel_device")
+    return out
+
+
+def _controller_rows_f64(dev, prm, errs) -> dict:
+    """The summary rows of the float64 variants of pft_merson_control and
+    pft_commit, at the shapes of their main path, the DEM's short solve
+    (friction_angular, DEM_N spheres, f64): the control step on the three
+    leaf maxima, the commit's copy of the (3, DEM_N, 3) state, accepted;
+    times beside their bounds and the largest error against the plain
+    versions (``errs``, by row)."""
+    from porousfreezethaw_tpu_torch.ops.cuda import control as ctl
+
+    eps = torch.full((3,), 1e-3 * 0.8 ** 5, dtype=torch.float64, device=dev)
+    c = _control_block(prm, n_trace=0)
+    c.eps, c.eps_n, c.eps_f64 = eps.data_ptr(), 3, 1
+    blocks = {}
+    for where, d in (("kernel", dev), ("plain", torch.device("cpu"))):
+        blocks[where] = ctl.ControlBlock(d, eps)
+        blocks[where].write(c)
+        blocks["commit_" + where] = ctl.ControlBlock(d, eps)
+        blocks["commit_" + where].write(ctl.Control(accept=1))
+    shape = (3, DEM_N, 3)
+    hi = torch.rand(shape, dtype=torch.float64, device=dev)
+    src = torch.rand(shape, dtype=torch.float64, device=dev)
+    times = {}
+    for impl in ("plain", "kernel", "kernel_device", "kernel2", "plain2"):
+        timer = _queued_ms if impl == "kernel_device" else _time
+        where = "plain" if impl.startswith("plain") else "kernel"
+        b, bc = blocks[where], blocks["commit_" + where]
+        times[impl] = dict(
+            control=timer(lambda: ctl.merson_control(b), 50),
+            commit=timer(lambda: ctl.commit(bc, ctl.COMMIT_COPY, hi,
+                                            src=src), 50))
+    copy_ms = _time(lambda: hi.copy_(src), 50)
+    emit("controller_kernel_times", dtype="float64", shape=list(shape),
+         eps_slots=3, ms=times, library_copy_ms=copy_ms)
+
+    def avg(key, *impls):
+        return float(np.mean([times[i][key] for i in impls]))
+
+    out = {}
+    state_bytes = 8 * int(np.prod(shape))
+    for name, key, nbytes, ops, library, what in (
+            ("merson_control_f64", "control", 8 * 3 + 2 * 272, CONTROL_OPS,
+             None, f"one step on 3 float64 leaf maxima (the DEM at "
+             f"n = {DEM_N})"),
+            ("commit_f64", "commit", 2 * state_bytes, 0, copy_ms,
+             f"the accepted copy of the float64 DEM state {shape}; "
+             f"library_ms: one Tensor.copy_")):
+        bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                       ops / F64_FLOP_PER_S) * 1e3
+        out[name] = dict(
+            name=name, route="cuda",
+            source="porousfreezethaw_tpu_torch/csrc/control.cu",
+            replaces=("porousfreezethaw_tpu/solvers/merson.py:239"
+                      if key == "control" else
+                      "porousfreezethaw_tpu/solvers/merson.py:283"),
+            replaces_what=("the body of the lax.while_loop controller on "
+                           "the DEM's float64 dict state (XLA, no Pallas "
+                           "kernel)" if key == "control" else
+                           "the accepted-update select of the while-loop "
+                           "body on the DEM's float64 leaves (XLA, no "
+                           "Pallas kernel)"),
+            launches=0, max_abs_err=errs[name],
+            ms=avg(key, "kernel", "kernel2"),
+            plain_ms=avg(key, "plain", "plain2"),
+            bound_ms=bound_ms,
+            bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops
+            / F64_FLOP_PER_S else "operations",
+            library_ms=library, device_ms=avg(key, "kernel_device"),
+            bound_share=bound_ms / avg(key, "kernel_device"),
+            timed=what + TIMED_BY)
     return out
 
 
@@ -1446,7 +1589,9 @@ def _counters(st) -> dict:
             "delta_g_dy": st.delta_g.launches_dy,
             "fused_attempt": st.fused_attempt.launches,
             "merson_control": control.merson_control.launches,
-            "commit": control.commit.launches}
+            "commit": control.commit.launches,
+            "merson_control_f64": control.merson_control.launches_f64,
+            "commit_f64": control.commit.launches_f64}
 
 
 def _reset_counters(st) -> None:
@@ -1454,6 +1599,7 @@ def _reset_counters(st) -> None:
     st.fused_stage.launches = st.delta_g.launches = 0
     st.delta_g.launches_dy = st.fused_attempt.launches = 0
     control.merson_control.launches = control.commit.launches = 0
+    control.merson_control.launches_f64 = control.commit.launches_f64 = 0
 
 
 def phase_bench(dev) -> dict:
@@ -2508,7 +2654,9 @@ DEM_STATE_TOL = 1e-10
 # multiply-adds
 DEM_F32_TOL = 1e-5
 # (n, timed attempts, warm attempts) of the bench rows
-DEM_BENCH_ROWS = ((200, 400, 100), (2000, 100, 20))
+# timed windows of a dozen blocks, so that rounding the last one up to
+# BLOCK attempts stays a few percent of the row
+DEM_BENCH_ROWS = ((200, 400, 100), (2000, 400, 20))
 # the particle mesh of phase dem: virtual shards of the card
 DEM_MESH = "p4"
 
@@ -2575,66 +2723,122 @@ def _dem_rhs_checks(dev):
 
 
 def _dem_short_solve(dev):
-    """friction_angular, n = 200, f64, dense icond seed 0, to DEM_SHORT_T on
-    the card and on the CPU: equal counts; ms/attempt, wall and (under
-    torch.profiler, the same solve again) device."""
+    """friction_angular, n = DEM_N, f64, dense icond seed 0, to DEM_SHORT_T
+    through the device-resident loop (DEMAttempt through
+    merson_solve_device) and the host loop (merson_solve) on the card, and
+    the host loop on the CPU.  The two card loops give equal counts and
+    state bits; their counts equal the CPU's, the state within
+    DEM_STATE_TOL of it.  For each card loop: ms/attempt (the median of two
+    unprofiled runs in turns), device ms and launches per attempt (each
+    profiled once more, torch.profiler) and the busy share.  The device
+    loop's first run captures its graph (capture_s) and is the main path
+    of the float64 control and commit kernels: their counters, set to 0
+    just before it, count whole blocks and the idle attempt before the
+    capture.  The idle attempts (those launched past the loop's end) cost
+    one idle attempt's device time each (an idle block's replay over its
+    attempts)."""
     from torch.profiler import ProfilerActivity, profile
 
     from porousfreezethaw_tpu_torch.models.dem import (
-        DEMConfig, icond_dense, make_dem_rhs)
+        DEMAttempt, DEMConfig, icond_dense, make_dem_rhs)
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
+    from porousfreezethaw_tpu_torch.ops.cuda.control import BLOCK
     from porousfreezethaw_tpu_torch.solvers.merson import (
-        MersonParams, merson_init, merson_solve)
+        MersonParams, merson_init, merson_solve, merson_solve_device)
 
     cfg = DEMConfig(variant="friction_angular", n=DEM_N)
     y0, _ = icond_dense(cfg, seed=0)
     params = MersonParams(delta=cfg.delta, h_min=cfg.ht_min)
+    rhs = make_dem_rhs(cfg, dtype=torch.float64, device=dev)
+    att = DEMAttempt(rhs)
+    cpu_rhs = make_dem_rhs(cfg, dtype=torch.float64, device="cpu")
 
-    def run(device):
-        rhs = make_dem_rhs(cfg, dtype=torch.float64, device=device)
-        st = merson_init({k: torch.as_tensor(v, device=device)
-                          for k, v in y0.items()}, 0.0, cfg.ht)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
+    def run(loop):
+        device = torch.device("cpu") if loop == "cpu" else dev
+        st0 = merson_init({k: torch.as_tensor(v, device=device)
+                           for k, v in y0.items()}, 0.0, cfg.ht)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        st, status = merson_solve(rhs, st, DEM_SHORT_T, params)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        return st, status, time.perf_counter() - t0
+        if loop == "device":
+            res = merson_solve_device(st0, DEM_SHORT_T, params, att)
+        else:
+            res = merson_solve(cpu_rhs if loop == "cpu" else rhs, st0,
+                               DEM_SHORT_T, params)
+        torch.cuda.synchronize()
+        return res[0], res[1], time.perf_counter() - t0
 
-    card, status, wall = run(dev)
-    cpu, cpu_status, cpu_wall = run(torch.device("cpu"))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        again, _, prof_wall = run(dev)
-    device_us, kernels, rows = _device_time(prof)
-    diff = max(float((card.y[k].cpu() - cpu.y[k]).abs().max())
-               for k in y0)
+    _reset_counters(st)
+    dev_st, dev_status, first_wall = run("device")
+    counted = _counters(st)
+    card, status, _ = run("host")
+    cpu, cpu_status, cpu_wall = run("cpu")
+    walls = {"host": [], "device": []}
+    for loop in ("host", "device", "device", "host"):
+        walls[loop].append(run(loop)[2])
+    prof = {}
+    for loop in ("host", "device"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            again = run(loop)[0]
+        prof[loop] = (_device_time(p), again.steps_total)
+    n = card.steps_total
+    launched = counted["commit_f64"]
+    idle_attempt_ms = _idle_block_ms(att, dev) / BLOCK
+    same = (dev_status == status and (dev_st.t, dev_st.h, dev_st.steps, n)
+            == (card.t, card.h, card.steps, dev_st.steps_total)
+            and all(torch.equal(dev_st.y[k], card.y[k]) for k in card.y))
     # per leaf, the card's state against the CPU's relative to max|CPU|
     rel = {k: float((card.y[k].cpu() - cpu.y[k]).abs().max())
            / max(float(cpu.y[k].abs().max()), 1e-300) for k in y0}
-    n = card.steps_total
+    loops = {}
+    for loop in ("host", "device"):
+        (us, kernels, rows), m = prof[loop]
+        med = float(np.median(walls[loop]))
+        loops[loop] = dict(
+            ms_per_attempt=1e3 * med / n,
+            repeats_s=walls[loop],
+            device_ms_per_attempt=us / 1e3 / m if us else "not measured",
+            launches_per_attempt=kernels / m if us else None,
+            busy_share=(us / 1e3 / m) / (1e3 * med / n) if us
+            else "not measured",
+            profiled_attempts=m,
+            top=[dict(kernel=k[:60], count=c, us=u)
+                 for u, k, c in rows[:6]])
+    idle = launched - 1 - n
     rec = dict(variant="friction_angular", n=DEM_N, dtype="f64",
                t=card.t, steps=card.steps, attempts=n,
                cpu_steps=cpu.steps, cpu_attempts=cpu.steps_total,
-               wall_s=wall, ms_per_attempt=1e3 * wall / n,
-               cpu_wall_s=cpu_wall, cpu_ms_per_attempt=1e3 * cpu_wall / n,
-               profiled_wall_s=prof_wall,
-               device_ms_per_attempt=(device_us / 1e3 / n if device_us
-                                      else "not measured"),
-               kernels_per_attempt=kernels / n if device_us else None,
-               device_busy_share=(device_us / 1e6 / prof_wall if device_us
-                                  else "not measured"),
-               max_abs_state_diff=diff, max_rel_state_diff=rel,
-               state_tol=DEM_STATE_TOL,
-               top=[dict(kernel=k[:60], count=c, us=us)
-                    for us, k, c in rows[:8]])
+               cpu_ms_per_attempt=1e3 * cpu_wall / n,
+               loops_bitwise=same, host=loops["host"],
+               device=loops["device"],
+               speedup=(loops["host"]["ms_per_attempt"]
+                        / loops["device"]["ms_per_attempt"]),
+               block=BLOCK,
+               graph_capture_s=att.device_loop(dev).capture_s,
+               first_device_run_s=first_wall,
+               attempt_launches=launched,
+               control_launches=counted["merson_control_f64"],
+               idle_attempts=idle, idle_attempt_ms=idle_attempt_ms,
+               idle_share_of_wall=(idle * idle_attempt_ms
+                                   / (1e3 * float(np.median(
+                                       walls["device"])))),
+               max_rel_state_diff=rel, state_tol=DEM_STATE_TOL)
     emit("dem_solve", **rec)
     rec["state"] = card.y
-    if not (status == cpu_status == 0 and again.steps_total == n
+    rec["ms_per_attempt"] = loops["device"]["ms_per_attempt"]
+    rec["launches"] = {"merson_control_f64": counted["merson_control_f64"],
+                       "commit_f64": launched}
+    if not (status == cpu_status == 0 and same
+            and prof["device"][1] == prof["host"][1] == n
             and (card.steps, n) == (cpu.steps, cpu.steps_total)):
         raise AssertionError(f"dem short solve: card {card.steps}/{n} "
                              f"status {status}, CPU {cpu.steps}/"
-                             f"{cpu.steps_total} status {cpu_status}")
+                             f"{cpu.steps_total} status {cpu_status}, "
+                             f"the loops bitwise {same}")
+    if not (launched == counted["merson_control_f64"] and launched >= n + 1
+            and (launched - 1) % BLOCK == 0):
+        raise AssertionError(f"dem short solve: {counted} for {n} "
+                             f"attempts in blocks of {BLOCK}")
     bad = {k: e for k, e in rel.items() if not e <= DEM_STATE_TOL}
     if bad:
         raise AssertionError(f"dem short solve: state {bad} above "
@@ -2642,20 +2846,70 @@ def _dem_short_solve(dev):
     return rec
 
 
+def _block_profile(dev, n, nb, cap) -> dict:
+    """Device ms and kernel launches per attempt of the bench's bed of n
+    spheres (f32, neighbor ``nb``, capacity ``cap``) through the device
+    loop: torch.profiler over one replay of a block of BLOCK attempts,
+    after the capture."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from porousfreezethaw_tpu_torch.models.dem import (
+        DEMAttempt, make_dem_rhs)
+    from porousfreezethaw_tpu_torch.ops.cuda.control import BLOCK
+    from porousfreezethaw_tpu_torch.solvers.merson import (
+        MersonParams, merson_init, merson_solve_device)
+
+    cfg, y0 = _bed(n, moving=False)
+    att = DEMAttempt(make_dem_rhs(cfg, dtype=torch.float32, neighbor=nb,
+                                  cell_capacity=cap or 16, device=dev))
+    st = merson_init({k: torch.as_tensor(v, dtype=torch.float32,
+                                         device=dev)
+                      for k, v in y0.items()}, 0.0, cfg.ht)
+    params = MersonParams(delta=cfg.delta, h_min=cfg.ht_min,
+                          handle_nan=True, max_steps=BLOCK)
+    merson_solve_device(st, 1e9, params, att)     # captures
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        done = merson_solve_device(st, 1e9, params, att)[0].steps_total
+        torch.cuda.synchronize()
+    device_us, kernels, rows = _device_time(prof)
+    if done != BLOCK:
+        raise AssertionError(f"block profile at n = {n}: {done} attempts")
+    return dict(device_ms_per_attempt=(device_us / 1e3 / done if device_us
+                                       else "not measured"),
+                launches_per_attempt=kernels / done if device_us else None,
+                top=[dict(kernel=k[:50], count=c, us=us)
+                     for us, k, c in rows[:5]])
+
+
 def _dem_bench(dev):
+    """The bench's dense DEM rows (f32) through the device loop, with the
+    control and commit launches of each (whole blocks), the graph's
+    capture time, the peak memory (the graph's pool included), and device
+    ms and launches per attempt (_block_profile)."""
     from porousfreezethaw_tpu_torch import bench
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
     recs = []
     for n, steps, warm in DEM_BENCH_ROWS:
         args = bench.parse_args(["--suite", "dem", "--device", str(dev),
                                  "--steps", str(steps), "--warm-steps",
                                  str(warm)])
+        gc.collect()
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
+        _reset_counters(st)
         rec = bench.bench_dem(args, n_spheres=n)
         rec["peak_memory_mb"] = torch.cuda.max_memory_allocated(dev) / 1e6
+        rec["launches"] = {k: c for k, c in _counters(st).items() if c}
+        rec.update(_block_profile(dev, n, "dense", 0))
         emit("dem_bench", **rec)
         if not (rec["value"] > 0 and rec["metric"]
                 == f"dem_{n}_particle_rhs_evals_per_s"
-                and rec["device"] == torch.cuda.get_device_name(dev)):
+                and rec["device"] == torch.cuda.get_device_name(dev)
+                and rec["controller"] == "device"
+                and rec["launches"].get("commit", 0)
+                >= warm + steps + 1):
             raise AssertionError(f"dem bench row {n}: {rec}")
         recs.append(rec)
     return recs
@@ -2720,21 +2974,78 @@ def phase_dem(dev) -> dict:
     return short
 
 
-def phase_dem_settle(dev) -> None:
-    """Optional: VALIDATION.md's settle through the spheres app on the
-    card (seed 0), its final positions, and their eps_s at res = 100 on
-    the card, beside the repo's records: eps_s 0.6529 (JAX) and 0.6549
-    (the reference's run), ensemble 0.64-0.71; z-extent 0.078-1.340; JAX's
-    170,206 / 205,471 steps."""
+# an earlier record of the settle through the app's host loop on the card,
+# from before the controllers took the growth power from pow_02: its
+# steps, attempts and eps_s (phase dem_settle_host runs today's)
+SETTLE_HOST_LOOP = (183469, 221608, 0.64996)
+# the settle's first snapshots, through the first contacts (from t = 0.48)
+SETTLE_PREFIX = 32
+
+
+def _settle_prefix(dev) -> dict:
+    """The settle's first SETTLE_PREFIX snapshot targets, solved as the app
+    solves them (solve_guarded to each target in turn), through the device
+    loop and the host loop on the card: the counts at every target and
+    the state at the last bit for bit; each loop's wall (the graph's
+    capture inside the device loop's)."""
+    from porousfreezethaw_tpu_torch.models.dem import (
+        DEMAttempt, DEMConfig, icond_dense, make_dem_rhs, solve_guarded)
+    from porousfreezethaw_tpu_torch.ops.cuda import build
+    from porousfreezethaw_tpu_torch.solvers.merson import (
+        MersonParams, merson_init)
+
+    # the kernels are built at first use: without phase build, that would
+    # fall inside the device loop's wall
+    build.load_library()
+    cfg = DEMConfig(variant="friction_angular", n=200, T=8.0,
+                    snapshots=400)
+    y0, _ = icond_dense(cfg, seed=0)
+    rhs = make_dem_rhs(cfg, dtype=torch.float64, device=dev)
+    params = MersonParams(delta=cfg.delta, h_min=cfg.ht_min)
+    runs = {}
+    for loop, solver in (("device", DEMAttempt(rhs)), ("host", rhs)):
+        st = merson_init({k: torch.as_tensor(v, device=dev)
+                          for k, v in y0.items()}, 0.0, cfg.ht)
+        counts = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for snap in range(SETTLE_PREFIX):
+            st, status, _ = solve_guarded(
+                solver, st, (cfg.T / (cfg.snapshots - 1)) * snap, params)
+            counts.append((st.steps, st.steps_total, status))
+        torch.cuda.synchronize()
+        runs[loop] = (st, counts, time.perf_counter() - t0)
+    (a, ca, wa), (b, cb, wb) = runs["device"], runs["host"]
+    n = a.steps_total
+    rec = dict(snapshots=SETTLE_PREFIX, t=a.t, steps=a.steps, attempts=n,
+               counts_equal=ca == cb,
+               state_bitwise=(a.t, a.h) == (b.t, b.h) and all(
+                   torch.equal(a.y[k], b.y[k]) for k in a.y),
+               device_ms_per_attempt=1e3 * wa / n,
+               host_ms_per_attempt=1e3 * wb / b.steps_total,
+               speedup=wb / wa)
+    emit("dem_settle_prefix", **rec)
+    if not (rec["counts_equal"] and rec["state_bitwise"]
+            and all(c[2] == 0 for c in ca)):
+        raise AssertionError(f"dem settle prefix: the loops differ: {rec}")
+    return rec
+
+
+def _settle_app(dev, name) -> dict:
+    """VALIDATION.md's settle through the spheres app on the card (seed 0,
+    --device-buffer 8) into chiprun_out/<name>: the app's rc and wall, the
+    (steps, attempts) at every snapshot, the final positions (their text
+    too) and the control and commit kernels' float64 launches."""
     import contextlib
 
-    from porousfreezethaw_tpu_torch.analysis import eps_s
     from porousfreezethaw_tpu_torch.apps import spheres
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
 
-    out = os.path.join(REPO, "chiprun_out", "dem_settle")
+    out = os.path.join(REPO, "chiprun_out", name)
     os.makedirs(out, exist_ok=True)
     final = os.path.join(out, "spheres_final_positions.txt")
     log_path = os.path.join(out, "spheres.log")
+    _reset_counters(st)
     t0 = time.perf_counter()
     # the app's console lines go to the log as they come, so that a run cut
     # short still shows how far it got
@@ -2749,20 +3060,91 @@ def phase_dem_settle(dev) -> None:
     wall = time.perf_counter() - t0
     with open(log_path) as f:
         text = f.read()
-    steps = re.findall(r"(\d+) R-K steps \((\d+) total\)", text)
-    pos = np.loadtxt(final)
+    with open(final) as f:
+        final_text = f.read()
+    counts = [(int(a), int(b)) for a, b in
+              re.findall(r"(\d+) R-K steps \((\d+) total\)", text)]
+    return dict(rc=rc, wall_s=wall, counts=counts,
+                pos=np.loadtxt(final), final_text=final_text,
+                launched=_counters(st)["commit_f64"])
+
+
+def phase_dem_settle(dev) -> dict:
+    """Optional: VALIDATION.md's settle through the spheres app on the
+    card (seed 0; the app's device loop, --device-buffer 8), its final
+    positions, and their eps_s at res = 100 on the card, beside the
+    repo's records: eps_s 0.6529 (JAX) and 0.6549 (the reference's run),
+    ensemble 0.64-0.71; z-extent 0.078-1.340; JAX's 170,206 / 205,471
+    steps; the app's host loop on the card, SETTLE_HOST_LOOP.  The control
+    and commit counters give the attempts launched, and the idle ones
+    among them (past each solve call's end) their share of the wall.
+    First, the settle's first SETTLE_PREFIX snapshots through both loops
+    bit for bit (_settle_prefix), whose counts the app's must equal.
+    Returns the app's run (_settle_app)."""
+    from porousfreezethaw_tpu_torch.analysis import eps_s
+
+    prefix = _settle_prefix(dev)
+    run = _settle_app(dev, "dem_settle")
+    pos, counts = run["pos"], run["counts"]
     val = eps_s(pos, r=0.1, res=100, device=dev)
-    rec = dict(rc=rc, wall_s=wall, steps=int(steps[-1][0]),
-               attempts=int(steps[-1][1]),
-               ms_per_attempt=1e3 * wall / int(steps[-1][1]), eps_s=val,
+    steps, attempts = counts[-1]
+    at_prefix = list(counts[SETTLE_PREFIX - 1])
+    rec = dict(rc=run["rc"], wall_s=run["wall_s"], controller="device",
+               counts_at_prefix=at_prefix, steps=steps, attempts=attempts,
+               ms_per_attempt=1e3 * run["wall_s"] / attempts, eps_s=val,
+               attempt_launches=run["launched"],
+               idle_attempts=run["launched"] - attempts,
                z_extent=[float(pos[:, 2].min()), float(pos[:, 2].max())],
                records=dict(eps_s_jax=0.6529, eps_s_reference=0.6549,
                             ensemble=[0.64, 0.71],
                             z_extent_jax=[0.078, 1.340],
-                            steps_jax=[170206, 205471]))
+                            steps_jax=[170206, 205471],
+                            host_loop=list(SETTLE_HOST_LOOP)))
     emit("dem_settle", **rec)
-    if rc != 0 or not 0.60 < val < 0.72:
+    if (run["rc"] != 0 or not 0.60 < val < 0.72
+            or at_prefix != [prefix["steps"], prefix["attempts"]]):
         raise AssertionError(f"dem settle: {rec}")
+    return run
+
+
+def phase_dem_settle_host(dev, device_run=None) -> None:
+    """Optional: the whole settle of phase dem_settle through the app's
+    host loop on the card (``models.dem.attempt.uses_device_loop``
+    patched to False): its counts, wall and eps_s.  When phase dem_settle
+    ran in the same invocation (``device_run``), the two loops must give
+    the same counts at every one of the 400 snapshots and the same final
+    positions byte for byte."""
+    from porousfreezethaw_tpu_torch.analysis import eps_s
+    from porousfreezethaw_tpu_torch.models.dem import attempt as dem_attempt
+
+    own = dem_attempt.uses_device_loop
+    dem_attempt.uses_device_loop = lambda device, mesh: False
+    try:
+        run = _settle_app(dev, "dem_settle_host")
+    finally:
+        dem_attempt.uses_device_loop = own
+    pos, counts = run["pos"], run["counts"]
+    steps, attempts = counts[-1]
+    rec = dict(rc=run["rc"], wall_s=run["wall_s"], controller="host",
+               steps=steps, attempts=attempts,
+               ms_per_attempt=1e3 * run["wall_s"] / attempts,
+               eps_s=eps_s(pos, r=0.1, res=100, device=dev),
+               attempt_launches=run["launched"],
+               z_extent=[float(pos[:, 2].min()), float(pos[:, 2].max())],
+               host_loop_record=list(SETTLE_HOST_LOOP))
+    if device_run is not None:
+        rec.update(device_loop=list(device_run["counts"][-1]),
+                   device_wall_s=device_run["wall_s"],
+                   counts_equal=counts == device_run["counts"],
+                   final_positions_equal=(run["final_text"]
+                                          == device_run["final_text"]),
+                   speedup=run["wall_s"] / device_run["wall_s"])
+    emit("dem_settle_host", **rec)
+    if (run["rc"] != 0 or run["launched"] != 0 or len(counts) != 400
+            or (device_run is not None
+                and not (rec["counts_equal"]
+                         and rec["final_positions_equal"]))):
+        raise AssertionError(f"dem settle, host loop: {rec}")
 
 
 # --------------------------------------------------------------------------
@@ -2784,7 +3166,7 @@ CELL_BENCH_ROWS = ((4000, "dense", 0), (4000, "cell_lanes", CELL_K),
                    (6000, "dense", 0), (6000, "cell_lanes", CELL_K),
                    (10000, "cell_lanes", CELL_K),
                    (20000, "cell_lanes", CELL_K))
-CELL_BENCH_STEPS, CELL_BENCH_WARM, CELL_PROFILED = 60, 20, 10
+CELL_BENCH_STEPS, CELL_BENCH_WARM = 60, 20
 
 
 def _bed(n, seed=SEED, moving=True):
@@ -2883,28 +3265,32 @@ def _cells_rhs(dev) -> None:
 
 
 def _cells_short_solve(dev, short) -> None:
-    """The short f64 solve of phase dem with cell_lanes: its end state
-    within DEM_STATE_TOL of the dense one's (``short``, the card's) per
-    leaf; the counts beside dense's."""
+    """The short f64 solve of phase dem with cell_lanes, through the device
+    loop: its end state within DEM_STATE_TOL of the dense one's
+    (``short``, the card's) per leaf; the counts beside dense's; the wall
+    of a second run, after the first's capture."""
     from porousfreezethaw_tpu_torch.models.dem import (
-        DEMConfig, icond_dense, make_dem_rhs)
+        DEMAttempt, DEMConfig, icond_dense, make_dem_rhs)
     from porousfreezethaw_tpu_torch.solvers.merson import (
-        MersonParams, merson_init, merson_solve)
+        MersonParams, merson_init, merson_solve_device)
 
     cfg = DEMConfig(variant="friction_angular", n=DEM_N)
     y0, _ = icond_dense(cfg, seed=0)
-    rhs = make_dem_rhs(cfg, neighbor="cell_lanes", device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st, status = merson_solve(
-        rhs, merson_init({k: torch.as_tensor(v, device=dev)
-                          for k, v in y0.items()}, 0.0, cfg.ht),
-        DEM_SHORT_T, MersonParams(delta=cfg.delta, h_min=cfg.ht_min))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    att = DEMAttempt(make_dem_rhs(cfg, neighbor="cell_lanes", device=dev))
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, status = merson_solve_device(
+            merson_init({k: torch.as_tensor(v, device=dev)
+                         for k, v in y0.items()}, 0.0, cfg.ht),
+            DEM_SHORT_T, MersonParams(delta=cfg.delta, h_min=cfg.ht_min),
+            att)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     rel = _rel_errs(st.y, short["state"])
     rec = dict(neighbor="cell_lanes", n=DEM_N, dtype="f64", t=st.t,
-               steps=st.steps, attempts=st.steps_total,
+               controller="device", steps=st.steps, attempts=st.steps_total,
+               graph_capture_s=att.device_loop(dev).capture_s,
                dense=[short["steps"], short["attempts"]],
                max_rel_state_diff=rel, state_tol=DEM_STATE_TOL,
                ms_per_attempt=1e3 * wall / st.steps_total,
@@ -2917,51 +3303,30 @@ def _cells_short_solve(dev, short) -> None:
 
 def _cells_bench(dev) -> list:
     """The bench's DEM rows at 4000-20000 (dense and cell_lanes, f32) at
-    reduced attempts: ms/attempt (bench.bench_dem), peak memory, and, from
-    torch.profiler over CELL_PROFILED attempts from the bed, device ms and
-    kernel launches per attempt."""
-    from torch.profiler import ProfilerActivity, profile
-
+    reduced attempts, through the device loop: ms/attempt
+    (bench.bench_dem), the graph's capture time, peak memory (the graph's
+    pool included), and device ms and launches per attempt
+    (_block_profile)."""
     from porousfreezethaw_tpu_torch import bench
-    from porousfreezethaw_tpu_torch.models.dem import make_dem_rhs
-    from porousfreezethaw_tpu_torch.solvers.merson import (
-        MersonParams, merson_init, merson_solve)
 
     recs = []
     for n, nb, cap in CELL_BENCH_ROWS:
         args = bench.parse_args([
             "--suite", "dem", "--device", str(dev), "--steps",
             str(CELL_BENCH_STEPS), "--warm-steps", str(CELL_BENCH_WARM)])
+        gc.collect()
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         rec = bench.bench_dem(args, n_spheres=n, neighbor=nb,
                               cell_capacity=cap or None)
         rec["peak_memory_mb"] = torch.cuda.max_memory_allocated(dev) / 1e6
-        cfg, y0 = _bed(n, moving=False)
-        rhs = make_dem_rhs(cfg, dtype=torch.float32, neighbor=nb,
-                           cell_capacity=cap or 16, device=dev)
-        st = merson_init({k: torch.as_tensor(v, dtype=torch.float32,
-                                             device=dev)
-                          for k, v in y0.items()}, 0.0, cfg.ht)
-        params = MersonParams(delta=cfg.delta, h_min=cfg.ht_min,
-                              handle_nan=True, max_steps=CELL_PROFILED)
-        merson_solve(rhs, st, 1e9, params)          # warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            done = merson_solve(rhs, st, 1e9, params)[0].steps_total
-            torch.cuda.synchronize()
-        device_us, kernels, rows = _device_time(prof)
-        rec.update(
-            label=f"dem_{n}_{nb}" + (f"_k{cap}" if cap else ""),
-            device_ms_per_attempt=(device_us / 1e3 / done if device_us
-                                   else "not measured"),
-            launches_per_attempt=kernels / done if device_us else None,
-            top=[dict(kernel=k[:50], count=c, us=us)
-                 for us, k, c in rows[:5]])
+        rec.update(_block_profile(dev, n, nb, cap),
+                   label=f"dem_{n}_{nb}" + (f"_k{cap}" if cap else ""))
         emit("dem_cells_bench", **rec)
         suffix = "_celllanes" if nb == "cell_lanes" else ""
         if not (rec["value"] > 0 and rec["metric"]
-                == f"dem_{n}{suffix}_particle_rhs_evals_per_s"):
+                == f"dem_{n}{suffix}_particle_rhs_evals_per_s"
+                and rec["controller"] == "device"):
             raise AssertionError(f"dem cells bench row {n} {nb}: {rec}")
         recs.append(rec)
     return recs
@@ -3021,12 +3386,16 @@ def main(argv=None) -> int:
         launches.update(mesh_launches)
     if "dem" in phases:
         short = phase_dem(dev)
+        launches.update(short["launches"])
     if "dem_cells" in phases:
         phase_dem_cells(dev, short)
     if "profile" in phases:
         phase_profile(dev)
+    settle = None
     if "dem_settle" in phases:
-        phase_dem_settle(dev)
+        settle = phase_dem_settle(dev)
+    if "dem_settle_host" in phases:
+        phase_dem_settle_host(dev, settle)
 
     for name in set(kernels) & set(launches):
         kernels[name]["launches"] = launches[name]

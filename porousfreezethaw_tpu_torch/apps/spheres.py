@@ -17,6 +17,15 @@ spheres_friction_angular.c:611-613).  The console lines are the JAX
 app's.  ``--device cuda`` is the default and raises without a GPU; nothing
 falls back to the CPU.
 
+The step control: on the card without a mesh the solves run the
+device-resident loop (``merson_solve_device`` through a ``DEMAttempt``,
+``models/dem/attempt.py``; CUDA graphs of attempts, the counterpart of the
+JAX app's jitted ``lax.while_loop``), on the dense term and the cell
+strategies, in f64 and f32; a ``--mesh`` run and ``--device cpu`` keep
+the host loop (``merson_solve``), as the JAX app does on the CPU
+(``models.dem.dem_solver`` decides; no option picks the loop).  The two
+give the same snapshots byte for byte.
+
 ``--neighbor cell_list|cell_lanes`` runs the pair term on the cell list
 (``models/dem/forces.py``) of ``--cell-capacity`` slots a cell: the solve
 then goes in chunks of 512 attempts (the JAX app's chunk on an
@@ -26,6 +35,19 @@ snapshot; past the capacity the run stops with the JAX app's message (the
 ``p2``; virtual shards of the CPU) shards the particles and runs the
 sharded dense pair term, whose results are the single-device ones bit for
 bit.
+
+``--device-buffer B`` is the counterpart of the JAX app's scan over B
+snapshot targets: B solves, each snapshot's state copied on the device
+into a (B, L, n, 3) buffer, the buffer fetched with one copy a batch (a
+``fetch``), then the batch's console lines and snapshots, byte for byte
+those of B = 0.  The JAX app bounds each interval of a batch by its chunk
+of 512 attempts and redoes a batch per snapshot when an interval exceeds
+it; here every interval runs ``solve_guarded``'s chunks of 512 attempts
+with the occupancy check between them (the cell strategies) or one
+unbounded solve (dense), so no interval exceeds a bound and no batch is
+redone.  A failed interval (a solver status or a cell overflow) ends the
+batch: its earlier snapshots are written, then the run stops as with B =
+0.
 """
 
 from __future__ import annotations
@@ -42,13 +64,18 @@ from ..core.device import field_dtype, resolve_device
 from ..io.csv_snaps import snapshot_path, write_dem_snapshot
 from ..io.rklog import format_time
 from ..models.dem import (
-    CellOverflowError, DEMConfig, icond_2spheres, icond_dense, icond_sparse,
-    make_dem_rhs, solve_guarded, write_final_positions)
+    CellOverflowError, DEMConfig, dem_solver, icond_2spheres, icond_dense,
+    icond_sparse, make_dem_rhs, solve_guarded, write_final_positions)
 from ..parallel.sharding import gather_dem_state, make_mesh, shard_dem_state
 from ..solvers.merson import MersonParams, merson_init
 
 ICONDS = {"dense": icond_dense, "sparse": icond_sparse,
           "2spheres": icond_2spheres}
+
+
+def fetch(buf: torch.Tensor):
+    """A batch's snapshot buffer on the host: its one copy."""
+    return buf.cpu().numpy()
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -80,10 +107,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "chunk boundary and overflow aborts loudly "
                          "(cell_lanes also NaN-poisons on overflow)")
     ap.add_argument("--device-buffer", type=int, default=0, metavar="B",
-                    help="accepted for the JAX app's command lines; the "
-                         "port runs the same per-snapshot loop whatever B "
-                         "is (each attempt already syncs once for eps, so "
-                         "batching the snapshot fetches saves nothing)")
+                    help="solve B snapshot intervals, keep their states in "
+                         "a device buffer and fetch it with one copy a "
+                         "batch (the same snapshots as B = 0)")
     ap.add_argument("--final-positions", default=None, metavar="PATH",
                     help="write resting sphere centers after the run "
                          "(extract_final_positions.m contract; the "
@@ -135,36 +161,79 @@ def main(argv: Optional[List[str]] = None) -> int:
     except ValueError as exc:
         ap.error(str(exc))
     state = merson_init(y_dev, 0.0, cfg.ht)
+    solver = dem_solver(rhs, device)
+
+    def one(y):
+        return gather_dem_state(y) if mesh is not None else y
 
     def host_state(y):
-        y = gather_dem_state(y) if mesh is not None else y
-        return {k: v.cpu().numpy() for k, v in y.items()}
-
-    def solve(st, ft):
-        try:
-            return solve_guarded(rhs, st, ft, params)[:2]
-        except CellOverflowError as exc:
-            raise SystemExit(str(exc))
+        return {k: v.cpu().numpy() for k, v in one(y).items()}
 
     def t_target(snap):
         return (cfg.T / (cfg.snapshots - 1)) * snap
 
+    def save(snap, y_host, steps, total, elapsed):
+        print(f"Done. Elapsed wall time: {format_time(elapsed)}, "
+              f"{steps} R-K steps ({total} total)")
+        print(f"Saving snapshot {snap + 1} of {cfg.snapshots}.")
+        write_dem_snapshot(snapshot_path(args.output, snap + 1), y_host,
+                           color, angular=cfg.angular)
+
+    def fail(status, overflow):
+        if overflow is not None:
+            raise SystemExit(str(overflow))
+        print(f"\nsolver failed with status {status}")
+        raise SystemExit(1)
+
+    B = args.device_buffer
+    buf = None
+    if B > 0:
+        first = one(state.y)
+        keys = list(first)
+        buf = torch.empty((B, len(keys)) + tuple(first["pos"].shape),
+                          dtype=dtype, device=first["pos"].device)
     start = time.time()
     elapsed = 0.0
-    for snap in range(cfg.snapshots):
-        print(f"Solving until t={t_target(snap):f} ....", end="",
-              flush=True)
+    snap = 0
+    while snap < cfg.snapshots:
+        nb = 1 if buf is None else min(B, cfg.snapshots - snap)
         t0 = time.time()
-        state, status = solve(state, t_target(snap))
-        if status != 0:
-            print(f"\nsolver failed with status {status}")
-            raise SystemExit(1)
+        done, status, overflow, counts = 0, 0, None, []
+        for i in range(nb):
+            if buf is None:
+                print(f"Solving until t={t_target(snap):f} ....", end="",
+                      flush=True)
+            try:
+                state, status = solve_guarded(solver, state,
+                                              t_target(snap + i),
+                                              params)[:2]
+            except CellOverflowError as exc:
+                overflow = exc
+            if overflow is not None or status != 0:
+                break
+            if buf is not None:
+                y = one(state.y)
+                for j, k in enumerate(keys):
+                    buf[i, j].copy_(y[k])
+            counts.append((state.steps, state.steps_total))
+            done += 1
         elapsed += time.time() - t0
-        print(f"Done. Elapsed wall time: {format_time(elapsed)}, "
-              f"{state.steps} R-K steps ({state.steps_total} total)")
-        print(f"Saving snapshot {snap + 1} of {cfg.snapshots}.")
-        write_dem_snapshot(snapshot_path(args.output, snap + 1),
-                           host_state(state.y), color, angular=cfg.angular)
+        if buf is None:
+            if done:
+                save(snap, host_state(state.y), *counts[0], elapsed)
+        elif done:
+            host = fetch(buf)
+            for i in range(done):
+                print(f"Solving until t={t_target(snap + i):f} ....",
+                      end="")
+                save(snap + i, {k: host[i, j] for j, k in enumerate(keys)},
+                     *counts[i], elapsed)
+        if done < nb:
+            if buf is not None:
+                print(f"Solving until t={t_target(snap + done):f} ....",
+                      end="", flush=True)
+            fail(status, overflow)
+        snap += nb
 
     if args.final_positions:
         write_final_positions(args.final_positions, host_state(state.y))

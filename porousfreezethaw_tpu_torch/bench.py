@@ -45,7 +45,10 @@ the cell strategies in solver calls of 512 attempts with the fullest cell
 checked after each (``models.dem.solve_guarded``), under its metric
 ``dem_{N}[_celllist|_celllanes]_particle_rhs_evals_per_s``
 (particle*RHS-evals/s/chip against the MATLAB twin's 820 at N = 200,
-BASELINE.md).
+BASELINE.md).  On the card its solves run the device-resident loop
+(``merson_solve_device`` through a ``DEMAttempt``), as the spheres app
+does (``models.dem.dem_solver``); on the CPU the host loop
+(``"controller"`` in the record).
 
 ``--matrix`` runs the LR/MR/HR x GradP/SigmaP1-P/Temp rows, the MR GradP
 delta row, the MR GradP mesh rows (``z1`` and ``z1,y1``) and the DEM rows
@@ -76,7 +79,8 @@ from .core.device import (
     field_dtype, numpy_dtype, profile_trace, resolve_device)
 from .core.grid import GridGeometry
 from .models.dem import (
-    CELL_CHUNK, DEMConfig, icond_dense, make_dem_rhs, solve_guarded)
+    CELL_CHUNK, DEMConfig, dem_solver, icond_dense, make_dem_rhs,
+    solve_guarded)
 from .models.freezing import (
     FreezingParams, build_glass_field, build_initial_conditions, make_rhs,
     read_ball_positions, shift_temperature_origin)
@@ -305,6 +309,8 @@ def bench_dem(args, n_spheres=None, neighbor=None, cell_capacity=None,
     rhs = make_dem_rhs(cfg, dtype=torch.float32, neighbor=neighbor,
                        cell_capacity=cap, device=device)
     cells = rhs.neighbor_struct
+    solver = dem_solver(rhs, device)
+    controller = "host" if solver is rhs else "device"
     steps = args.steps or (20000 if n <= 400 else 2000)
     warm = args.warm_steps or steps
     params = MersonParams(delta=cfg.delta, h_min=cfg.ht_min,
@@ -312,8 +318,8 @@ def bench_dem(args, n_spheres=None, neighbor=None, cell_capacity=None,
     occupancy = []
 
     def run(st, attempts):
-        st, _, occ = solve_guarded(rhs, st, 1e9, params, attempts=attempts,
-                                   chunk=chunk)
+        st, _, occ = solve_guarded(solver, st, 1e9, params,
+                                   attempts=attempts, chunk=chunk)
         if occ is not None:
             occupancy.append(occ)
         return st
@@ -347,6 +353,9 @@ def bench_dem(args, n_spheres=None, neighbor=None, cell_capacity=None,
         "ms_per_attempt": wall / done * 1e3,
         "device": name,
         "neighbor": neighbor,
+        "controller": controller,
+        "graph_capture_s": (solver.device_loop(device).capture_s
+                            if controller == "device" else None),
         "cell_capacity": cap if cells is not None else None,
         "max_occupancy": max(occupancy) if occupancy else None,
         "dtype": "f32",

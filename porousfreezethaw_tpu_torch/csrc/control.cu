@@ -11,7 +11,9 @@
 // the control block back once per block (ops/cuda/control.py).
 //
 // pft_merson_control is one block.  It reduces the eps partials of the
-// stage-5 tail with the NaN-propagating max, then one thread runs the
+// stage-5 tail with the NaN-propagating max, in their width (float32 for
+// the freezing kernels, float64 or float32 for the DEM's leaf maxima,
+// models/dem/attempt.py), then one thread runs the
 // per-attempt logic of the host loop (solvers/merson.py merson_solve) in
 // float64, every operation an _rn intrinsic, so that nvcc contracts none
 // of them and each rounds as Python's float does: the local mode's |h/3|,
@@ -19,21 +21,25 @@
 // accept_growth_min on eps < delta, the NaN backoff and its abort, the
 // trimming of the last step and the continuation h, the per-call
 // max_steps, the status, the trace write at the clipped index; then the
-// float32 scalars of the next attempt.  The power is correctly rounded
-// (pow_02 below), as the host's solvers/merson.py pow_02 is: neither the C
-// library's pow, which Python's ** calls, nor CUDA's is.
+// scalars of the next attempt: the float32 ones of the stage kernels and
+// the float64 coefficients h/3, h/6, h/8, h of the DEM's stages.  The
+// power is correctly rounded (pow_02 below), as the host's
+// solvers/merson.py pow_02 is: neither the C library's pow, which
+// Python's ** calls, nor CUDA's is.
 //
 // pft_commit reads the accept flag and returns at once when it is 0, so a
 // rejected attempt costs one empty launch.  Otherwise it copies (u, p) of
-// y_spec into the state (DeltaAttempt, the stage path), adds the
+// y_spec into the state (DeltaAttempt, the stage path; the DEM's float64
+// or float32 leaves, copied as 4-byte words), adds the
 // increment dy into the (hi, lo) planes by TwoSum (DeltaAttemptComp), or
 // flips the slot index cur (FusedAttempt).
 //
 // What bounds them on Hopper: pft_merson_control moves a few hundred
 // bytes (the partials and the block) and does some hundred float64
 // operations; its time is the launch.  The copy and TwoSum commits are
-// bound by their bytes: 4 planes (copy) or 10 (TwoSum) of the grid, each
-// thread moving 16 bytes at a time where the planes allow it.
+// bound by their bytes: 4 planes (copy) or 10 (TwoSum) of the grid, or
+// twice the DEM state, each thread moving 16 bytes at a time where the
+// planes allow it.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -111,11 +117,15 @@ __device__ __forceinline__ double top_of(const Control& c, double t) {
     return t < c.t_switch ? c.top1 : c.top2;
 }
 
-// The float32 scalars of the next attempt from c.t and c.h
+// The scalars of the next attempt from c.t and c.h
 // (ops/cuda/control.py next_scalars_plain).
 __device__ void next_scalars(Control& c) {
     const double t = c.t, h = c.h;
-    const double t3 = __dadd_rn(t, __ddiv_rn(h, 3.0));
+    c.hs[0] = __ddiv_rn(h, 3.0);
+    c.hs[1] = __ddiv_rn(h, 6.0);
+    c.hs[2] = __ddiv_rn(h, 8.0);
+    c.hs[3] = h;
+    const double t3 = __dadd_rn(t, c.hs[0]);
     const double t2 = __dadd_rn(t, __ddiv_rn(h, 2.0));
     const double t1 = __dadd_rn(t, h);
     c.ts[0] = __double2float_rn(t);
@@ -131,14 +141,14 @@ __device__ void next_scalars(Control& c) {
     c.dD[4] = __double2float_rn(__dsub_rn(top_of(c, t1), D));
 }
 
-// One attempt's step control on its error estimate eps32: the loop body of
-// merson_solve after the stages, line for line (ops/cuda/control.py
-// control_plain).
-__device__ void control_step(Control& c, float eps32) {
+// One attempt's step control on its error estimate eps_in (the partials'
+// max, exact in float64): the loop body of merson_solve after the stages,
+// line for line (ops/cuda/control.py control_plain).
+__device__ void control_step(Control& c, double eps_in) {
     const double t = c.t, h = c.h;
     const double h3 = __ddiv_rn(h, 3.0);
     c.steps_total += 1;
-    double eps = (double)eps32;
+    double eps = eps_in;
     if (c.local_mode) eps = __dmul_rn(eps, fabs(h3));
     // eps == 0 and a NaN eps take 2; eps == inf gives 0
     double fac = eps > 0.0 ? __dmul_rn(0.8, pow_02(__ddiv_rn(c.delta, eps)))
@@ -179,29 +189,41 @@ __device__ void control_step(Control& c, float eps32) {
     next_scalars(c);
 }
 
-__global__ void __launch_bounds__(CONTROL_THREADS)
-merson_control_kernel(Control* c) {
-    __shared__ float warp_max[CONTROL_THREADS / 32];
-    // a halted loop (the idle attempts at the end of a captured block)
-    // commits nothing
-    if (c->halt) {
-        if (threadIdx.x == 0) c->accept = 0;
-        return;
-    }
-    const float* eps = c->eps;
-    const long long n = c->eps_n;
-    float m = -INFINITY;
+__device__ __forceinline__ double nan_max(double a, double b) {
+    return (a > b || a != a) ? a : b;
+}
+
+// The NaN-propagating max of the n partials at eps, in their width T, for
+// thread 0 (the other threads' results are partial).
+template <typename T>
+__device__ T eps_max(const void* eps_v, long long n) {
+    __shared__ T warp_max[CONTROL_THREADS / 32];
+    const T* eps = static_cast<const T*>(eps_v);
+    T m = -INFINITY;
     for (long long i = threadIdx.x; i < n; i += CONTROL_THREADS)
         m = nan_max(m, eps[i]);
     for (int off = 16; off > 0; off >>= 1)
         m = nan_max(m, __shfl_down_sync(0xffffffffu, m, off));
     if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
     __syncthreads();
-    if (threadIdx.x == 0) {
+    if (threadIdx.x == 0)
         for (int i = 1; i < CONTROL_THREADS / 32; ++i)
             m = nan_max(m, warp_max[i]);
-        control_step(*c, m);
+    return m;
+}
+
+__global__ void __launch_bounds__(CONTROL_THREADS)
+merson_control_kernel(Control* c) {
+    // a halted loop (the idle attempts at the end of a captured block)
+    // commits nothing
+    if (c->halt) {
+        if (threadIdx.x == 0) c->accept = 0;
+        return;
     }
+    // every thread reads the same flag, so the branch is uniform
+    const double m = c->eps_f64 ? eps_max<double>(c->eps, c->eps_n)
+                                : (double)eps_max<float>(c->eps, c->eps_n);
+    if (threadIdx.x == 0) control_step(*c, m);
 }
 
 // ---------------------------------------------------------------------------
@@ -287,14 +309,23 @@ int pft_merson_control(void* ctl, void* stream) {
 }
 
 // The commit of one attempt when ctl's accept flag is set: mode 0 copies n
-// floats of src into hi; mode 1 adds n floats of src into (hi, lo) by
-// TwoSum; mode 2 flips *cur.  Every pointer is device memory.  Returns
-// cudaGetLastError() after the launch; 1000 + n for bad arguments.
-int pft_commit(const void* ctl, int mode, float* hi, float* lo,
-               const float* src, int* cur, long long n, void* stream) {
+// elements of elem_bytes (4 or 8) of src into hi, as 4-byte words; mode 1
+// adds n floats of src into (hi, lo) by TwoSum; mode 2 flips *cur.  Every
+// pointer is device memory.  Returns cudaGetLastError() after the launch;
+// 1000 + n for bad arguments.
+int pft_commit(const void* ctl, int mode, void* hi_v, void* lo_v,
+               const void* src_v, int* cur, long long n, int elem_bytes,
+               void* stream) {
     const Control* c = static_cast<const Control*>(ctl);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    float* hi = static_cast<float*>(hi_v);
+    float* lo = static_cast<float*>(lo_v);
+    const float* src = static_cast<const float*>(src_v);
     if (!c) return 1001;
+    if (elem_bytes != 4 && !(elem_bytes == 8 && mode == COMMIT_COPY))
+        return 1004;
+    // a copy moves bits: a float64 element is two 4-byte words
+    n *= elem_bytes / 4;
     if (mode == COMMIT_FLIP)
         return cur ? launch_commit<COMMIT_FLIP, 1>(c, hi, lo, src, cur, n, s)
                    : 1002;

@@ -1,6 +1,6 @@
 // The control block of the device-resident Merson controller: the state of
 // merson_solve's loop (solvers/merson.py), its per-call constants and the
-// float32 scalars of the next attempt's stages, in device memory.  One
+// scalars of the next attempt's stages, in device memory.  One
 // layout for the host (ops/cuda/control.py mirrors it field by field and
 // checks its size against pft_control_size()) and every kernel:
 //
@@ -12,7 +12,10 @@
 //   fused_stage.cu, fused_attempt.cu, delta_g.cu
 //                    the _dev entries of the stage kernels, which read
 //                    (t_s, h) or (h, D1, dDi) of their stage from here and
-//                    return at once once the loop has halted.
+//                    return at once once the loop has halted;
+//   models/dem/attempt.py
+//                    the DEM's plain PyTorch stages, which read the float64
+//                    coefficients hs through 0-d views of the block.
 #pragma once
 
 #include <stdint.h>
@@ -26,11 +29,15 @@ struct Control {
     // Dirichlet top (top1 before t_switch, top2 from it) in float64
     double tf, delta, h_min, growth_min;
     double top1, top2, t_switch;
+    // the float64 stage coefficients of the next attempt, h/3, h/6, h/8
+    // and h, each rounded as the host loop's Python floats round them
+    double hs[4];
     long long steps, steps_total;
     long long start_steps, start_total, max_steps;
-    // device memory: the eps partials of the stage-5 tail, the (t, h)
-    // trace of accepted steps (n_trace entries each, or null)
-    const float* eps;
+    // device memory: the eps partials of the stage-5 tail (float32, or
+    // float64 where eps_f64 is set), the (t, h) trace of accepted steps
+    // (n_trace entries each, or null)
+    const void* eps;
     double* t_tr;
     double* h_tr;
     long long eps_n;
@@ -40,6 +47,7 @@ struct Control {
                        // attempts in this call
     int status, accept;
     int handle_nan, local_mode;
+    int eps_f64;       // the eps partials are float64 (a DEM state's width)
     // the float32 scalars of the next attempt, formed from t and h as the
     // host loop forms them: the stage times t, t + h/3, t + h/3, t + h/2,
     // t + h; h; the Dirichlet value D(t) and D(t_s) - D(t) of stages 2-5

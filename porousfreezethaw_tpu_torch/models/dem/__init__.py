@@ -1,3 +1,4 @@
+from .attempt import DEMAttempt, dem_solver
 from .config import DEMConfig, Wall, DEFAULT_WALLS, VARIANTS
 from .coupling import write_final_positions
 from .forces import (

@@ -57,7 +57,8 @@ from typing import Dict, List
 import torch
 
 from ...core.device import resolve_device
-from ...solvers.merson import MAX_STEPS, merson_solve
+from ...solvers.merson import MAX_STEPS, merson_solve, merson_solve_device
+from .attempt import DEMAttempt
 from .config import DEMConfig
 
 # attempts per solver call with a cell structure (the JAX app's chunk on an
@@ -142,8 +143,10 @@ def make_cell_list(cfg: DEMConfig, capacity: int = 16, bounds=None,
         in_range = ((cand >= 0) & (cand <= top)).all(dim=-1)  # (n, 27)
         cand_cid = torch.where(in_range, flat(cand), 0)
         ids = table[(cand_cid[..., None] * K + kk).reshape(n, -1)]
+        # in_range of each candidate's cell, by an expand: its size comes
+        # from the shapes, so a CUDA graph's capture meets no sync
         mask = ((ids >= 0) & (ids != idx[:, None])
-                & in_range.repeat_interleave(K, dim=1))
+                & in_range[:, :, None].expand(n, 27, K).reshape(n, -1))
         return ids.clamp_min(0), mask, overflow
 
     def cell_occupancy(pos) -> int:
@@ -168,6 +171,9 @@ def solve_guarded(rhs, state, final_time: float, params,
     after every ``chunk`` attempts: densification past the capacity would
     drop pairs, and the check names the cause before the NaN backoff
     grinds h into the floor.  Without a cell structure it is one solve.
+    Given a :class:`DEMAttempt` in place of ``rhs``, each solve call is
+    ``merson_solve_device`` (the device-resident loop), with the same
+    chunks and checks.
 
     Returns ``(state, status, max_occupancy)`` (None without cells);
     raises :class:`CellOverflowError` with the JAX app's message."""
@@ -178,9 +184,11 @@ def solve_guarded(rhs, state, final_time: float, params,
         left = (params.max_steps if attempts is None
                 else attempts - (state.steps_total - start))
         step = left if cells is None else min(chunk, left)
-        state, status = merson_solve(rhs, state, final_time,
-                                     dataclasses.replace(params,
-                                                         max_steps=step))
+        prm = dataclasses.replace(params, max_steps=step)
+        if isinstance(rhs, DEMAttempt):
+            state, status = merson_solve_device(state, final_time, prm, rhs)
+        else:
+            state, status = merson_solve(rhs, state, final_time, prm)
         if cells is not None:
             occ = cells.cell_occupancy(state.y["pos"])
             occupancy = occ if occupancy is None else max(occupancy, occ)
@@ -258,11 +266,14 @@ def make_dem_rhs(cfg: DEMConfig, dtype: torch.dtype = torch.float64,
     consts: Dict[torch.device, tuple] = {}
 
     def constants(dev):
-        """gravity, wall points and wall normals on ``dev``."""
+        """gravity, wall points, wall normals and the NaN of the guarded
+        capacity on ``dev``, copied once: a copy from the host inside a
+        CUDA graph's capture fails."""
         if dev not in consts:
             consts[dev] = (torch.tensor(cfg.gravity, dtype=dtype, device=dev),
                            torch.as_tensor(P_w, dtype=dtype, device=dev),
-                           torch.as_tensor(n_w, dtype=dtype, device=dev))
+                           torch.as_tensor(n_w, dtype=dtype, device=dev),
+                           torch.tensor(math.nan, dtype=dtype, device=dev))
         return consts[dev]
 
     def pair_accels(pos, vel, angvel, npos, nvel, nang, mask):
@@ -327,7 +338,7 @@ def make_dem_rhs(cfg: DEMConfig, dtype: torch.dtype = torch.float64,
             # (the solver's NaN handling rejects the step; the app and
             # the bench check cell_occupancy at chunk boundaries and name
             # the cause)
-            nan = torch.tensor(math.nan, dtype=acc.dtype, device=acc.device)
+            nan = constants(acc.device)[3]
             acc = torch.where(overflow, nan, acc)
             if angacc is not None:
                 angacc = torch.where(overflow, nan, angacc)
@@ -338,7 +349,7 @@ def make_dem_rhs(cfg: DEMConfig, dtype: torch.dtype = torch.float64,
         """dy/dt of the rows in ``y``: pairs, gravity and walls."""
         pos, vel = y["pos"], y["vel"]
         angvel = y.get("angvel")
-        gravity, walls_P, walls_n = constants(pos.device)
+        gravity, walls_P, walls_n, _ = constants(pos.device)
 
         # ---- particle pairs ----
         if nbr is not None:
@@ -386,6 +397,7 @@ def make_dem_rhs(cfg: DEMConfig, dtype: torch.dtype = torch.float64,
         # the app and the bench check a cell structure's occupancy at
         # chunk boundaries; None for the dense term, which has no capacity
         rhs.neighbor_struct = nbr
+        rhs.cfg, rhs.dtype, rhs.mesh = cfg, dtype, None
         return rhs
 
     def rhs_sharded(t, ys: List[Dict[str, torch.Tensor]]
@@ -404,4 +416,5 @@ def make_dem_rhs(cfg: DEMConfig, dtype: torch.dtype = torch.float64,
         return out
 
     rhs_sharded.neighbor_struct = None      # the mesh path is dense-only
+    rhs_sharded.cfg, rhs_sharded.dtype, rhs_sharded.mesh = cfg, dtype, mesh
     return rhs_sharded

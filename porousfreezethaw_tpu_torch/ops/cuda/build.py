@@ -142,12 +142,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pft_delta_g_dev.argtypes = lib.pft_fused_stage_dev.argtypes
     lib.pft_delta_g_dev.restype = ci
     # the controller (control.cu): ctl, stream; ctl, mode, hi, lo, src,
-    # cur, n, stream; q, out, n, stream
+    # cur, n, elem_bytes, stream; q, out, n, stream
     lib.pft_control_size.argtypes = []
     lib.pft_control_size.restype = ci
     lib.pft_merson_control.argtypes = [vp, vp]
     lib.pft_merson_control.restype = ci
-    lib.pft_commit.argtypes = [vp, ci, vp, vp, vp, vp, cll, vp]
+    lib.pft_commit.argtypes = [vp, ci, vp, vp, vp, vp, cll, ci, vp]
     lib.pft_commit.restype = ci
     lib.pft_pow_02.argtypes = [vp, vp, cll, vp]
     lib.pft_pow_02.restype = ci

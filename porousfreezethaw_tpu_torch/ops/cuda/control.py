@@ -3,16 +3,19 @@ and commit kernels' wrappers with their plain versions, and the loop that
 replays CUDA graphs of attempts.
 
 The counterpart of the JAX package's ``lax.while_loop`` controller
-(``porousfreezethaw_tpu/solvers/merson.py:135-385``), for the attempt
-objects of ``stencil.py``.  An attempt on the device protocol is its five
-stage launches (the ``_dev`` entries of the stage kernels, which read
-their scalars from the control block), ``merson_control`` (the step
-control of ``merson_solve``'s loop body, ``csrc/control.cu``) and
-``commit`` (the accepted-state update, read from the accept flag on the
-device).  :class:`DeviceLoop` captures a block of ``BLOCK`` attempts once
-in a CUDA graph and replays it, reading the control block back once per
-replay, until the loop halts; ``solvers/merson.py merson_solve_device``
-drives it.
+(``porousfreezethaw_tpu/solvers/merson.py:135-385``), for the freezing
+attempt objects of ``stencil.py`` (float32) and the DEM's
+(``models/dem/attempt.py``, float64 or float32).  An attempt on the device
+protocol is its five stages (the ``_dev`` entries of the stage kernels,
+which read their float32 scalars from the control block; or the DEM's
+plain PyTorch stages, which read the float64 coefficients ``hs`` through
+0-d views of it), ``merson_control`` (the step control of
+``merson_solve``'s loop body, ``csrc/control.cu``, on eps partials of
+either width) and ``commit`` (the accepted-state update, read from the
+accept flag on the device).  :class:`DeviceLoop` captures a block of
+``BLOCK`` attempts once in a CUDA graph and replays it, reading the
+control block back once per replay, until the loop halts;
+``solvers/merson.py merson_solve_device`` drives it.
 
 The control block (:class:`Control`, ``csrc/control.cuh`` field by field)
 lives in device memory for the kernels.  For a block on the CPU the
@@ -23,12 +26,13 @@ block in place, and the commit in PyTorch.  An attempt object built with
 state, so the plain versions also run on the card.  On a block in device
 memory every wrapper launches its kernel or raises; nothing falls back.
 
-Launch counts: ``merson_control.launches`` and ``commit.launches``, and
-the stage kernels' own counters for their ``_dev`` launches.  A graph
-replay launches without running the wrappers, so :class:`DeviceLoop`
-counts per replay what the replay launches: each counter grows by its
-launches per attempt (taken while capturing, which launches nothing, and
-then taken back) times ``BLOCK``.  The idle attempts after the loop halts
+Launch counts: ``merson_control.launches`` and ``commit.launches`` (their
+float64 variants apart, in ``launches_f64``), and the stage kernels' own
+counters for their ``_dev`` launches.  A graph replay launches without
+running the wrappers, so :class:`DeviceLoop` counts per replay what the
+replay launches: each counter grows by its launches per attempt (taken
+while capturing, which launches nothing, and then taken back) times
+``BLOCK``.  The idle attempts after the loop halts
 (a block that ends past ``done``) are launches too and are counted; so
 is the idle attempt that precedes the capture.
 """
@@ -38,6 +42,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -47,9 +52,11 @@ from ...models.freezing.delta import two_sum
 from ...solvers.merson import NAN_ABORT, pow_02
 
 # the attempts of one captured graph: a block that ends past the loop's
-# end costs its remaining attempts as empty launches (7 each), and the
-# host reads the control block once per block (chip_smoke.py phase
-# controller measures both)
+# end costs its remaining attempts as empty launches (7 each on the
+# freezing paths) or, on the DEM's plain stages, as whole attempts, and
+# the host reads the control block once per block (chip_smoke.py phases
+# controller and dem measure both; the DEM's idle attempts are 2.4% of
+# the settle's wall)
 BLOCK = 32
 
 COMMIT_COPY, COMMIT_TWOSUM, COMMIT_FLIP = 0, 1, 2
@@ -68,7 +75,7 @@ class Control(ctypes.Structure):
         ("tf", ctypes.c_double), ("delta", ctypes.c_double),
         ("h_min", ctypes.c_double), ("growth_min", ctypes.c_double),
         ("top1", ctypes.c_double), ("top2", ctypes.c_double),
-        ("t_switch", ctypes.c_double),
+        ("t_switch", ctypes.c_double), ("hs", ctypes.c_double * 4),
         ("steps", ctypes.c_longlong), ("steps_total", ctypes.c_longlong),
         ("start_steps", ctypes.c_longlong),
         ("start_total", ctypes.c_longlong),
@@ -81,6 +88,7 @@ class Control(ctypes.Structure):
         ("halt", ctypes.c_int), ("status", ctypes.c_int),
         ("accept", ctypes.c_int),
         ("handle_nan", ctypes.c_int), ("local_mode", ctypes.c_int),
+        ("eps_f64", ctypes.c_int),
         ("ts", ctypes.c_float * 5), ("h32", ctypes.c_float),
         ("D1", ctypes.c_float), ("dD", ctypes.c_float * 5),
     ]
@@ -115,10 +123,16 @@ def _stream(device: torch.device) -> int:
 class ControlBlock:
     """One control block: ``buf``, ``sizeof(Control)`` bytes on ``device``
     (the kernels') or on the CPU (the plain versions', which work on it in
-    place through ``host``), with the eps partials and the trace it
-    points at."""
+    place through ``host``), with the eps partials (float32 or float64)
+    and the trace it points at.  ``hs`` are 0-d float64 views of the
+    block's ``hs`` (h/3, h/6, h/8, h of the next attempt), which a stage
+    in PyTorch reads as tensors, so that a captured graph reads each
+    attempt's values and no host float is baked in."""
 
     def __init__(self, device: torch.device, eps: torch.Tensor):
+        if eps.dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"eps partials are float32 or float64, got "
+                             f"{eps.dtype}")
         self.device = device
         self.eps = eps
         self.buf = torch.zeros(ctypes.sizeof(Control), dtype=torch.uint8,
@@ -127,6 +141,9 @@ class ControlBlock:
         self.host: Optional[Control] = (
             Control.from_address(self.buf.data_ptr())
             if device.type == "cpu" else None)
+        hs = self.buf[Control.hs.offset:][:Control.hs.size].view(
+            torch.float64)
+        self.hs = tuple(hs[i] for i in range(len(hs)))
 
     @property
     def on_device(self) -> bool:
@@ -157,10 +174,12 @@ def _f32(x: float) -> float:
 
 
 def next_scalars_plain(c: Control) -> None:
-    """The float32 scalars of the next attempt from ``c.t`` and ``c.h``, as
-    the host loop's attempts form them (``csrc/control.cu``
-    ``next_scalars``)."""
+    """The scalars of the next attempt from ``c.t`` and ``c.h``, as the host
+    loop's attempts form them (``csrc/control.cu`` ``next_scalars``): the
+    float64 coefficients h/3, h/6, h/8, h and the stage kernels' float32
+    scalars."""
     t, h = c.t, c.h
+    c.hs[:] = [h / 3, h / 6, h / 8, h]
     t3, t2, t1 = t + h / 3, t + h / 2, t + h
 
     def top(ts):
@@ -178,8 +197,8 @@ def control_plain(c: Control, eps_blocks: torch.Tensor, t_tr=None,
                   h_tr=None) -> None:
     """Plain version of the ``merson_control`` kernel: one attempt's step
     control on the block ``c`` in place, its eps the NaN-propagating max
-    of ``eps_blocks`` (``merson_solve``'s loop body after the stages, line
-    for line, in Python floats)."""
+    of ``eps_blocks``, float32 or float64 (``merson_solve``'s loop body
+    after the stages, line for line, in Python floats)."""
     if c.halt:
         c.accept = 0
         return
@@ -245,17 +264,21 @@ def commit_plain(c: Control, mode: int, hi: torch.Tensor, lo=None, src=None,
 
 def merson_control(ctl: ControlBlock) -> None:
     """One attempt's step control on ``ctl``: the kernel for a block in
-    device memory, else its plain version."""
+    device memory, else its plain version.  The block's ``eps_f64`` must
+    say the width of ``ctl.eps`` (``DeviceLoop.begin`` writes it)."""
     if not ctl.on_device:
         return control_plain(ctl.host, ctl.eps, ctl.t_tr, ctl.h_tr)
     with torch.cuda.device(ctl.device):
         rc = _library().pft_merson_control(ctl.buf.data_ptr(),
                                            _stream(ctl.device))
     _check_rc("pft_merson_control", rc)
-    merson_control.launches += 1
+    if ctl.eps.dtype == torch.float64:
+        merson_control.launches_f64 += 1
+    else:
+        merson_control.launches += 1
 
 
-merson_control.launches = 0
+merson_control.launches = merson_control.launches_f64 = 0
 
 
 def commit(ctl: ControlBlock, mode: int, hi: torch.Tensor, lo=None,
@@ -264,18 +287,23 @@ def commit(ctl: ControlBlock, mode: int, hi: torch.Tensor, lo=None,
     flag is set: ``COMMIT_COPY`` copies ``src`` into ``hi``,
     ``COMMIT_TWOSUM`` adds ``src`` into ``(hi, lo)`` by TwoSum,
     ``COMMIT_FLIP`` flips the int32 slot index ``cur``.  The kernel for a
-    block in device memory (float32 planes, contiguous, on its device),
-    else the plain version."""
+    block in device memory (contiguous planes of one shape on its device:
+    float32, or float32 or float64 for the copy), else the plain
+    version."""
     if not ctl.on_device:
         return commit_plain(ctl.host, mode, hi, lo, src, cur)
     if mode not in (COMMIT_COPY, COMMIT_TWOSUM, COMMIT_FLIP):
         raise ValueError(f"commit: unknown mode {mode}")
     planes = [x for x in (hi, lo, src) if x is not None]
+    dtypes = ((torch.float32, torch.float64) if mode == COMMIT_COPY
+              else (torch.float32,))
     for x in planes:
-        if (x.device != ctl.device or x.dtype != torch.float32
+        if (x.device != ctl.device or x.dtype not in dtypes
+                or x.dtype != planes[0].dtype
                 or not x.is_contiguous() or x.shape != planes[0].shape):
-            raise ValueError("commit: contiguous float32 planes of one "
-                             f"shape on {ctl.device}")
+            raise ValueError(
+                f"commit: contiguous {' or '.join(map(str, dtypes))} "
+                f"planes of one shape and type on {ctl.device}")
     if mode == COMMIT_FLIP and (cur is None or cur.device != ctl.device
                                 or cur.dtype != torch.int32):
         raise ValueError(f"commit: cur must be int32 on {ctl.device}")
@@ -284,15 +312,19 @@ def commit(ctl: ControlBlock, mode: int, hi: torch.Tensor, lo=None,
         return None if x is None else x.data_ptr()
 
     n = 0 if mode == COMMIT_FLIP else hi.numel()
+    wide = mode == COMMIT_COPY and hi.dtype == torch.float64
     with torch.cuda.device(ctl.device):
         rc = _library().pft_commit(ctl.buf.data_ptr(), mode, ptr(hi),
                                    ptr(lo), ptr(src), ptr(cur), n,
-                                   _stream(ctl.device))
+                                   8 if wide else 4, _stream(ctl.device))
     _check_rc("pft_commit", rc)
-    commit.launches += 1
+    if wide:
+        commit.launches_f64 += 1
+    else:
+        commit.launches += 1
 
 
-commit.launches = 0
+commit.launches = commit.launches_f64 = 0
 
 
 def pow_02_device(q: torch.Tensor) -> torch.Tensor:
@@ -314,7 +346,8 @@ def _counters():
     from . import stencil as st
     return [(st.fused_stage, "launches"), (st.fused_attempt, "launches"),
             (st.delta_g, "launches"), (st.delta_g, "launches_dy"),
-            (merson_control, "launches"), (commit, "launches")]
+            (merson_control, "launches"), (commit, "launches"),
+            (merson_control, "launches_f64"), (commit, "launches_f64")]
 
 
 # ---------------------------------------------------------------------------
@@ -326,11 +359,12 @@ class DeviceAttempt:
 
     Subclasses allocate the buffers of a device once (``_dev_alloc``: a
     dict of the state, the stage outputs and, under ``"eps"``, the eps
-    partials, with as many slots as the kernels' tail has blocks when
-    ``kernel``, else one), copy a state in (``_dev_load``) and out
-    (``_dev_unpack``, a copy), and enqueue one attempt on a control block
-    (``_dev_attempt``): its stage launches, ``merson_control`` and
-    ``commit``, every launch on the same buffers, so that a block of
+    partials, float32 or float64, with as many slots as the kernels' tail
+    has blocks when ``kernel``, else one, or one a leaf for the DEM), copy
+    a state in (``_dev_load``) and out (``_dev_unpack``, a copy), and
+    enqueue one attempt on a control block (``_dev_attempt``): its stage
+    launches, ``merson_control`` and ``commit``, every launch on the same
+    buffers (or on memory that a capture's pool holds), so that a block of
     attempts can be captured once.  ``dirichlet`` is (top1, top2,
     t_switch) of the Dirichlet top, from which the control block forms the
     delta kernel's D1 and dDi."""
@@ -361,7 +395,9 @@ class DeviceAttempt:
 class DeviceLoop:
     """The device-resident loop of one attempt object on one device: its
     static buffers, its control block and its graph of ``BLOCK``
-    attempts, captured at first use and kept."""
+    attempts, captured at first use and kept.  ``capture_s`` is the wall
+    time of the capture (the idle attempt before it, the capture and the
+    graph's instantiation), None before it."""
 
     def __init__(self, attempt: DeviceAttempt, device: torch.device):
         self.attempt = attempt
@@ -369,6 +405,7 @@ class DeviceLoop:
         self.bufs = attempt._dev_alloc(device, self.kernel)
         self.ctl = ControlBlock(device if self.kernel
                                 else torch.device("cpu"), self.bufs["eps"])
+        self.capture_s: Optional[float] = None
         self._captured: Optional[Tuple[torch.cuda.CUDAGraph, list]] = None
 
     def begin(self, y, *, t: float, h: float, h_cont: float, steps: int,
@@ -393,6 +430,7 @@ class DeviceLoop:
             start_total=steps_total,
             max_steps=min(int(params.max_steps), 2**62),
             eps=ctl.eps.data_ptr(), eps_n=ctl.eps.numel(),
+            eps_f64=int(ctl.eps.dtype == torch.float64),
             t_tr=ctl.t_tr.data_ptr() if n else None,
             h_tr=ctl.h_tr.data_ptr() if n else None, n_trace=n,
             finished=int(finished), done=0,
@@ -429,11 +467,13 @@ class DeviceLoop:
         """The graph of ``BLOCK`` attempts and the launches per attempt of
         each counter, captured at first use.  One idle attempt on a halted
         block first makes each kernel's first-use set-up (its attributes
-        and occupancy query), which a capture must not meet; the block is
-        restored after, and the counters keep that attempt's launches but
-        not the capture's, which launches nothing."""
+        and occupancy query; a plain stage's constants), which a capture
+        must not meet; the block is restored after, and the counters keep
+        that attempt's launches but not the capture's, which launches
+        nothing."""
         if self._captured is not None:
             return self._captured
+        t0 = time.perf_counter()
         ctl = self.ctl
         saved = ctl.read()
         idle = saved.copy()
@@ -458,5 +498,7 @@ class DeviceLoop:
             per_attempt.append(((o, a), n))
             setattr(o, a, b1)
         ctl.write(saved)
+        torch.cuda.synchronize(ctl.device)
+        self.capture_s = time.perf_counter() - t0
         self._captured = (graph, per_attempt)
         return self._captured

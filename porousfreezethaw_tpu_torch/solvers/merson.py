@@ -33,10 +33,10 @@ loop in Python and reads eps back with one device sync per attempt; the
 service callback is a plain Python call after each accepted step.
 ``merson_solve_device``, the counterpart of the JAX package's
 ``lax.while_loop``, runs it on the device for the attempt objects of
-ops/cuda/stencil.py: the step control and the commit are kernels
-(ops/cuda/control.py), a block of attempts is one CUDA graph, and the
-host reads the control block back once per block; it gives the host
-loop's bits.  Both take the growth factor's power from ``pow_02``, the
+ops/cuda/stencil.py and the DEM's (models/dem/attempt.py): the step
+control and the commit are kernels (ops/cuda/control.py), a block of
+attempts is one CUDA graph, and the host reads the control block back
+once per block; it gives the host loop's bits.  Both take the growth factor's power from ``pow_02``, the
 correctly rounded ``q ** 0.2``.
 """
 
@@ -396,15 +396,16 @@ def merson_solve_device(state: MersonState, final_time: float,
 
     ``attempt_fn`` is an attempt object on the device protocol
     (ops/cuda/control.py ``DeviceAttempt``: ``DeltaAttempt``,
-    ``DeltaAttemptComp``, ``FusedAttempt``, ``StageAttempt``).  The
-    prologue forms h in float64 here and writes the control block; each
-    attempt's step control is the ``merson_control`` kernel and its commit
-    the ``commit`` kernel, reading the accept flag on the device.  On the
-    card the loop replays a CUDA graph of control.py's ``BLOCK``
-    attempts, captured at first use per attempt object and device and
-    kept across calls, and reads the control block back
-    once per replay until the loop halts (done, or ``max_steps`` attempts
-    in this call).  For a state on the CPU, or an object built with
+    ``DeltaAttemptComp``, ``FusedAttempt``, ``StageAttempt`` on a float32
+    freezing state; models/dem/attempt.py ``DEMAttempt`` on the DEM's dict
+    state, float64 or float32).  The prologue forms h in float64 here and
+    writes the control block; each attempt's step control is the
+    ``merson_control`` kernel and its commit the ``commit`` kernel,
+    reading the accept flag on the device.  On the card the loop replays a
+    CUDA graph of control.py's ``BLOCK`` attempts, captured at first use
+    per attempt object and device and kept across calls, and reads the
+    control block back once per replay until the loop halts (done, or
+    ``max_steps`` attempts in this call).  For a state on the CPU, or an object built with
     ``plain=True``, the same loop runs the plain versions attempt by
     attempt, with no graph.  Nothing falls back to the host loop: a failed
     capture or launch raises.  There is no service callback: a caller

@@ -2,7 +2,9 @@
 PyTorch version at a small odd shape, the double-buffered attempt against
 the fused_stage chain, short solves whose launch counters show that every
 attempt went through the kernels, the device-resident loop against the
-host loop bit for bit, and the shard kernels (K1s, K3, K2s):
+host loop bit for bit (the freezing paths, and the DEM's with the control
+and commit kernels in float64 and float32), and the shard kernels (K1s,
+K3, K2s):
 against their plain versions, and the mesh paths on virtual shards of the
 card against the single-device paths bit for bit.
 
@@ -322,6 +324,136 @@ def test_device_loop_equals_host_loop(dev, path):
         assert all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
         sa, sb = a[0], b[0]
     assert torch.isfinite(sb.y).all()
+
+
+# --------------------------------------------------------------------------
+# the control and commit kernels in float64, and the DEM's device loop
+# --------------------------------------------------------------------------
+
+def _control_f64_cases():
+    """(name, fields, float64 partials) of the control kernel's float64
+    reduction: below and above delta, a value below delta that float32
+    rounds to it, 0, NaN and inf with and without the backoff."""
+    rng = np.random.default_rng(7)
+    below = np.nextafter(1e-3, 0.0)
+
+    def parts(peak):
+        p = rng.uniform(0.0, 1e-4, 37)
+        if peak == 0.0:
+            p[:] = 0.0
+        p[rng.integers(37)] = peak
+        return p
+
+    return [("below", {}, parts(2e-4)), ("above", {}, parts(5e-3)),
+            ("rounds_to_delta", {}, parts(below)), ("zero", {}, parts(0.0)),
+            ("nan", {}, parts(np.nan)), ("inf", {}, parts(np.inf)),
+            ("nan_backoff", {"handle_nan": 1}, parts(np.nan)),
+            ("inf_backoff", {"handle_nan": 1}, parts(np.inf))]
+
+
+def test_control_f64_partials_match_plain(dev):
+    """pft_merson_control on float64 partials against control_plain, the
+    whole block but its pointers bit for bit (hs included)."""
+    from porousfreezethaw_tpu_torch.ops.cuda import control
+    n0 = control.merson_control.launches_f64
+    for name, fields, parts in _control_f64_cases():
+        out = {}
+        for where in ("kernel", "plain"):
+            d = dev if where == "kernel" else torch.device("cpu")
+            eps = torch.from_numpy(parts).to(d)
+            block = control.ControlBlock(d, eps)
+            c = control.Control(t=1.0, h=0.01, h_cont=0.01, tf=1e9,
+                                delta=1e-3, max_steps=2**62,
+                                eps=eps.data_ptr(), eps_n=eps.numel(),
+                                eps_f64=1, **fields)
+            control.next_scalars_plain(c)
+            block.write(c)
+            control.merson_control(block)
+            r = block.read()
+            r.eps = None
+            out[where] = bytes(r)
+        assert out["kernel"] == out["plain"], name
+    assert control.merson_control.launches_f64 == n0 + 8
+
+
+@pytest.mark.parametrize("n", [1801, 1800])
+def test_commit_f64_copy_matches_plain(dev, n):
+    """pft_commit's copy of float64 planes (n words odd and a multiple of
+    4) against commit_plain, accept 0 and 1, bit for bit."""
+    from porousfreezethaw_tpu_torch.ops.cuda import control
+    rng = np.random.default_rng(8)
+    hi0 = torch.from_numpy(rng.standard_normal(n)).to(dev)
+    src = torch.from_numpy(rng.standard_normal(n)).to(dev)
+    n0 = control.commit.launches_f64
+    for accept in (0, 1):
+        got = {}
+        for where in ("kernel", "plain"):
+            d = dev if where == "kernel" else torch.device("cpu")
+            block = control.ControlBlock(d, torch.zeros(1, device=d))
+            block.write(control.Control(accept=accept))
+            hi = hi0.clone()
+            control.commit(block, control.COMMIT_COPY, hi, src=src)
+            got[where] = hi
+        torch.cuda.synchronize()
+        assert torch.equal(got["kernel"], got["plain"])
+        assert torch.equal(got["kernel"], src if accept else hi0)
+    assert control.commit.launches_f64 == n0 + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_scalar_views_round_as_python_floats_on_the_card(dev, dtype):
+    """x * a with a a 0-d float64 view of a control block in device memory
+    equals x * a with the Python float on the card."""
+    from porousfreezethaw_tpu_torch.ops.cuda import control
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        100_000)).to(dev, dtype)
+    block = control.ControlBlock(dev, torch.zeros(1, device=dev))
+    for h in (0.1, 1 / 3, 2.7182818284590455e-05, 0.0123456789):
+        c = control.Control(h=h)
+        control.next_scalars_plain(c)
+        block.write(c)
+        for a, view in zip((h / 3, h / 6, h / 8, h), block.hs):
+            got = x * view
+            assert got.dtype == dtype and torch.equal(got, x * a)
+
+
+@pytest.mark.parametrize("neighbor", ["dense", "cell_lanes"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_dem_device_loop_equals_host_loop(dev, dtype, neighbor):
+    """DEMAttempt through merson_solve_device (CUDA graphs of attempts,
+    the control and commit kernels in the state's width) against
+    merson_solve on the card: 40 spheres of the dense bed in 3 calls of
+    at most 60 attempts, bit for bit; the control and commit launches
+    count whole blocks and the idle attempt before the capture."""
+    from porousfreezethaw_tpu_torch.models.dem import (
+        DEMAttempt, DEMConfig, icond_dense, make_dem_rhs)
+    from porousfreezethaw_tpu_torch.ops.cuda import control
+    cfg = DEMConfig(variant="friction_angular", n=40)
+    y0, _ = icond_dense(cfg, seed=0)
+    y = {k: torch.as_tensor(v, dtype=dtype, device=dev)
+         for k, v in y0.items()}
+    rhs = make_dem_rhs(cfg, dtype=dtype, neighbor=neighbor, device=dev)
+    att = DEMAttempt(rhs)
+    params = MersonParams(delta=cfg.delta, h_min=cfg.ht_min, max_steps=60,
+                          handle_nan=dtype == torch.float32)
+    wide = dtype == torch.float64
+    name = "launches_f64" if wide else "launches"
+    sa = sb = merson_init(y, 0.0, cfg.ht)
+    for call in range(3):
+        a = merson_solve(rhs, sa, 0.6, params)
+        before = getattr(control.commit, name)
+        b = merson_solve_device(sb, 0.6, params, att)
+        n = b[0].steps_total - sb.steps_total
+        blocks = -(-n // control.BLOCK)
+        assert getattr(control.commit, name) - before == (
+            control.BLOCK * blocks + (call == 0))
+        assert a[1] == b[1]
+        assert (a[0].t, a[0].h, a[0].steps, a[0].steps_total) == (
+            b[0].t, b[0].h, b[0].steps, b[0].steps_total)
+        assert all(torch.equal(a[0].y[k], b[0].y[k]) for k in a[0].y)
+        sa, sb = a[0], b[0]
+    assert sb.steps > 60 and sb.t > 0.0
+    assert att.device_loop(dev).capture_s > 0.0
 
 
 # --------------------------------------------------------------------------
