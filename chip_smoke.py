@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases env,build,kernels,solve,bench,app,mesh,dem,dem_cells,profile
     python3 chip_smoke.py --phases env,dem_settle   # the DEM settle
     python3 chip_smoke.py --phases env,dem_settle,dem_settle_host  # both loops
+    python3 chip_smoke.py --phases env,build,temp_f64_full  # LR Temp f64, 10 h
 
 Run from the root of a checkout.  Phases, one JSON line each:
 
@@ -40,7 +41,9 @@ Run from the root of a checkout.  Phases, one JSON line each:
             the switch) and idle on a halted block; the control kernel's
             growth power against the host's and Python's ** on 100000
             values; the two kernels' times beside their bounds, and their
-            float64 variants' at the DEM's short solve (n = 200)
+            float64 variants' at the f64 LR golden's shapes (one partial,
+            the (3, 100, 50, 50) state) and the copy's at the DEM's short
+            solve (n = 200)
 4. solve    MR GradP (100x100x200) f32 solves of 300 attempts through
             merson_solve, increment form (DeltaAttempt) and classic
             double-buffered (FusedAttempt): kernels, then the plain
@@ -55,13 +58,21 @@ Run from the root of a checkout.  Phases, one JSON line each:
             median and spread), device ms/attempt and busy share
             (torch.profiler), the launches (whole blocks of BLOCK
             attempts on the device loop), each kernel's launches in the
-            profiler's trace equal to its counter's, the idle-block cost
+            profiler's trace equal to its counter's (a trace that lost
+            records is profiled again, _traced_run), the idle-block cost
             of BLOCK, and the growth power against Python's ** and the
-            host's on the runs' eps values, with the host's cost of it
+            host's on the runs' eps values, with the host's cost of it;
+            then the f64 plain-RHS path (PlainAttempt, the f64 app's) at
+            LR Temp, LR GradP and MR GradP (the bench's cases): 96
+            attempts in both loops, 3 repeats each, bit for bit, with
+            ms/attempt, device ms, launches per attempt and per
+            right-hand side, the kernel classes' shares (cat,
+            reductions, elementwise), the busy share, the capture time,
+            the capturing run's memory peak and an idle attempt's cost
 5. bench    the port's bench (porousfreezethaw_tpu_torch.bench) in this
             process: MR GradP f32 with --fused stage, delta and attempt
-            (the device loop), and LR GradP f64 --fused off (the host
-            loop), with the launch counters of each
+            (the device loop), and LR GradP f64 --fused off (the device
+            loop on PlainAttempt), with the launch counters of each
 6. app      the intertrack app on the LR GradP golden case to snapshot 1,
             plain and with compensated_commit 1, through the app's chunked
             device loop, each held to the reference's 3560/4322 steps (5%)
@@ -70,9 +81,13 @@ Run from the root of a checkout.  Phases, one JSON line each:
             the kernels (whole blocks of BLOCK attempts, plus the idle
             attempt before the capture); the plain golden again through
             the host loop (the app's uses_device_loop patched): the same
-            counts, RK debug log lines and snapshot 1; then the LR Temp golden in f64 (the plain PyTorch
-            path on the card), held to 1850/2256 (5%); a short run with
-            --profile-dir whose trace holds CUDA kernel events
+            counts, RK debug log lines and snapshot 1; then the LR Temp
+            golden in f64 (the plain PyTorch right-hand side on the app's
+            device loop, PlainAttempt, and again on its host loop), held
+            to 1850/2256 (5%), the two loops' counts, RK debug log lines
+            and snapshot 1 equal, its idle attempts priced by phase
+            controller's LR Temp row; a short run with --profile-dir
+            whose trace holds CUDA kernel events
 7. mesh     the multi-device paths on virtual shards of the card (a mesh
             whose device list repeats cuda:0): the shard kernels K1s
             (fused_stage_shard), K3 (its interior/edge split,
@@ -107,7 +122,8 @@ Run from the root of a checkout.  Phases, one JSON line each:
             the CPU (the two card loops bit for bit, the CPU's counts;
             ms/attempt, device ms, busy share and launches per attempt of
             each loop, the graph's capture time, the idle attempts' cost;
-            the main path of the float64 control and commit kernels); the
+            the main path of commit_f64_dem, the float64 copy at the
+            DEM's shape); the
             particle-sharded dense term on p4 virtual shards (the host
             loop), its right-hand side and the short solve's counts and
             state bit for bit against one device; the bench's dense
@@ -139,17 +155,21 @@ targets through the device loop and the host loop on the card, bit for
 bit; ``dem_settle_host``: the whole settle through the app's host loop
 (about half an hour on the card), and with ``dem_settle`` in the same
 run, its counts at all 400 snapshots and its final positions byte for
-byte against the device loop's.
+byte against the device loop's; ``temp_f64_full``: the shipped LR Temp
+case (f64, 10 h, 100 snapshots) through the app's device loop, its
+cumulative steps at snapshots 25/50/75/99 and attempts at 99 within 5%
+of the reference's (VALIDATION.md) and its ice fraction's peak and end
+within 1e-3 of 0.5084 and 0.0506.
 
 The launches in the kernel summary come from the run that is each
 kernel's main path, with the counters set to 0 just before it: the plain
 golden (the app's device loop) for fused_stage, delta_g, merson_control
-and commit, the compensated golden for
+and commit, the f64 LR Temp golden (the app's device loop) for
+merson_control_f64 and commit_f64, the compensated golden for
 delta_g_dy, the bench's --fused attempt row for fused_attempt, the golden
 at z4 for fused_stage_split and delta_g_shard, the compensated golden at
 z4 for delta_g_shard_dy, the bench's z1,y1 row for fused_stage_shard, the
-DEM's short f64 solve through the device loop for merson_control_f64 and
-commit_f64.
+DEM's short f64 solve through the device loop for commit_f64_dem.
 
 It exits non-zero, before printing the final line, when CUDA is missing or
 any phase fails.  A run of every phase of PHASES (optional phases may be
@@ -161,6 +181,7 @@ of fewer phases prints none of them.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import gc
 import hashlib
@@ -180,7 +201,8 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernels", "solve", "controller", "bench", "app",
           "mesh", "dem", "dem_cells")
-OPTIONAL_PHASES = ("profile", "dem_settle", "dem_settle_host")
+OPTIONAL_PHASES = ("profile", "dem_settle", "dem_settle_host",
+                   "temp_f64_full")
 SEED = 20251016
 # the increment form's golden (reference log, LR GradP snapshot 1) and the
 # f64 golden (reference log, LR Temp snapshot 1; tests/test_golden_lr.py)
@@ -620,7 +642,8 @@ def phase_kernels(dev) -> dict:
         "commit": checks["commit"]["max_abs_err"]}))
     out.update(_controller_rows_f64(dev, prm, {
         "merson_control_f64": checks["control_f64"]["max_abs_err"],
-        "commit_f64": checks["commit_f64"]["max_abs_err"]}))
+        "commit_f64": checks["commit_f64"]["max_abs_err"],
+        "commit_f64_dem": checks["commit_f64"]["max_abs_err"]}))
     return out
 
 
@@ -771,7 +794,8 @@ def _masked(c) -> bytes:
 
 def _float_fields(c) -> np.ndarray:
     """The floating-point fields of a control block, as float64."""
-    return np.array([c.t, c.h, c.h_cont, *c.hs, *c.ts, c.h32, c.D1, *c.dD])
+    return np.array([c.t, c.h, c.h_cont, *c.hs, *c.ts64, *c.ts, c.h32, c.D1,
+                     *c.dD])
 
 
 def _max_abs_diff(a, b) -> float:
@@ -878,13 +902,14 @@ def _check_commit(dev) -> dict:
 
 def _check_commit_f64(dev) -> dict:
     """pft_commit's copy of float64 planes against commit_plain, the flag
-    at 0 and 1, bit for bit: the DEM's state at DEM_N and at the bench's
-    2000 spheres (3 leaves of (n, 3)), and an odd count of elements."""
+    at 0 and 1, bit for bit: the f64 freezing state of the LR golden
+    (3, 100, 50, 50), the DEM's state at DEM_N and at the bench's 2000
+    spheres (3 leaves of (n, 3)), and an odd count of elements."""
     from porousfreezethaw_tpu_torch.ops.cuda import control as ctl
 
     rng = np.random.default_rng(SEED + 15)
     results, err = {}, 0.0
-    for shape in ((3, DEM_N, 3), (3, 2000, 3), (3, 67, 3)):
+    for shape in ((3,) + LR_SHAPE, (3, DEM_N, 3), (3, 2000, 3), (3, 67, 3)):
         base = [torch.from_numpy(rng.standard_normal(shape)).to(dev)
                 for _ in range(2)]
         for accept in (0, 1):
@@ -1034,6 +1059,7 @@ def _controller_rows(dev, prm, errs) -> dict:
 
     n_eps = st._eps_blocks("pft_delta_eps_blocks", dev, 0, 1, *MR_SHAPE)
     eps = torch.full((n_eps,), 1e-3 * 0.8 ** 5, device=dev)
+    ctl_size = ctypes.sizeof(ctl.Control)
     c = _control_block(prm, n_trace=0)
     c.eps, c.eps_n = eps.data_ptr(), n_eps
     block = ctl.ControlBlock(dev, eps)
@@ -1081,7 +1107,7 @@ def _controller_rows(dev, prm, errs) -> dict:
     out = {}
     plane_bytes = 4 * int(np.prod(shape))
     for name, key, nbytes, ops, library, src_name, what in (
-            ("merson_control", "control", 4 * n_eps + 2 * 232,
+            ("merson_control", "control", 4 * n_eps + 2 * ctl_size,
              CONTROL_OPS, None, "control.cu",
              f"one step on {n_eps} eps partials (MR DeltaAttempt)"),
             ("commit", "commit", 2 * plane_bytes, 0, copy_ms, "control.cu",
@@ -1113,50 +1139,71 @@ def _controller_rows(dev, prm, errs) -> dict:
 
 def _controller_rows_f64(dev, prm, errs) -> dict:
     """The summary rows of the float64 variants of pft_merson_control and
-    pft_commit, at the shapes of their main path, the DEM's short solve
-    (friction_angular, DEM_N spheres, f64): the control step on the three
-    leaf maxima, the commit's copy of the (3, DEM_N, 3) state, accepted;
-    times beside their bounds and the largest error against the plain
-    versions (``errs``, by row)."""
+    pft_commit at the shapes of their main paths: the f64 LR Temp golden
+    (PlainAttempt: the control step on its one float64 partial, the
+    commit's copy of the (3, 100, 50, 50) state, 6 MB, its planes cold in
+    L2) and, for ``commit_f64_dem``, the DEM's short solve
+    (friction_angular, DEM_N spheres: the copy of the (3, DEM_N, 3)
+    state); the copies accepted; times beside their bounds and the largest
+    error against the plain versions (``errs``, by row)."""
     from porousfreezethaw_tpu_torch.ops.cuda import control as ctl
 
-    eps = torch.full((3,), 1e-3 * 0.8 ** 5, dtype=torch.float64, device=dev)
+    eps = torch.full((1,), 1e-3 * 0.8 ** 5, dtype=torch.float64, device=dev)
     c = _control_block(prm, n_trace=0)
-    c.eps, c.eps_n, c.eps_f64 = eps.data_ptr(), 3, 1
+    c.eps, c.eps_n, c.eps_f64 = eps.data_ptr(), 1, 1
     blocks = {}
     for where, d in (("kernel", dev), ("plain", torch.device("cpu"))):
         blocks[where] = ctl.ControlBlock(d, eps)
         blocks[where].write(c)
         blocks["commit_" + where] = ctl.ControlBlock(d, eps)
         blocks["commit_" + where].write(ctl.Control(accept=1))
-    shape = (3, DEM_N, 3)
-    hi = torch.rand(shape, dtype=torch.float64, device=dev)
-    src = torch.rand(shape, dtype=torch.float64, device=dev)
+    lr, dem = (3,) + LR_SHAPE, (3, DEM_N, 3)
+    # pairs of (hi, src) taken in turn, 192 MB in all at LR, so that each
+    # copy reads its planes from device memory and not from the L2
+    pairs = {shape: [tuple(torch.rand(shape, dtype=torch.float64,
+                                      device=dev) for _ in range(2))
+                     for _ in range(16 if shape == lr else 1)]
+             for shape in (lr, dem)}
+    turns = {shape: itertools.cycle(p) for shape, p in pairs.items()}
     times = {}
     for impl in ("plain", "kernel", "kernel_device", "kernel2", "plain2"):
         timer = _queued_ms if impl == "kernel_device" else _time
         where = "plain" if impl.startswith("plain") else "kernel"
         b, bc = blocks[where], blocks["commit_" + where]
-        times[impl] = dict(
-            control=timer(lambda: ctl.merson_control(b), 50),
-            commit=timer(lambda: ctl.commit(bc, ctl.COMMIT_COPY, hi,
-                                            src=src), 50))
-    copy_ms = _time(lambda: hi.copy_(src), 50)
-    emit("controller_kernel_times", dtype="float64", shape=list(shape),
-         eps_slots=3, ms=times, library_copy_ms=copy_ms)
+
+        def copy(shape):
+            hi, src = next(turns[shape])
+            ctl.commit(bc, ctl.COMMIT_COPY, hi, src=src)
+
+        times[impl] = dict(control=timer(lambda: ctl.merson_control(b), 50),
+                           commit=timer(lambda: copy(lr), 48),
+                           commit_dem=timer(lambda: copy(dem), 50))
+
+    def library_copy(shape):
+        hi, src = next(turns[shape])
+        hi.copy_(src)
+
+    copy_ms = {shape: _time(lambda: library_copy(shape), 48)
+               for shape in (lr, dem)}
+    emit("controller_kernel_times", dtype="float64", shapes=[lr, dem],
+         eps_slots=1, ms=times,
+         library_copy_ms={str(k): v for k, v in copy_ms.items()})
 
     def avg(key, *impls):
         return float(np.mean([times[i][key] for i in impls]))
 
     out = {}
-    state_bytes = 8 * int(np.prod(shape))
-    for name, key, nbytes, ops, library, what in (
-            ("merson_control_f64", "control", 8 * 3 + 2 * 272, CONTROL_OPS,
-             None, f"one step on 3 float64 leaf maxima (the DEM at "
-             f"n = {DEM_N})"),
-            ("commit_f64", "commit", 2 * state_bytes, 0, copy_ms,
-             f"the accepted copy of the float64 DEM state {shape}; "
+    for name, key, shape, ops, library, what in (
+            ("merson_control_f64", "control", None, CONTROL_OPS, None,
+             "one step on the f64 LR golden's one float64 partial"),
+            ("commit_f64", "commit", lr, 0, copy_ms[lr],
+             f"the accepted copy of the f64 LR golden's state {lr}, its "
+             f"planes cold in L2; library_ms: one Tensor.copy_"),
+            ("commit_f64_dem", "commit_dem", dem, 0, copy_ms[dem],
+             f"the accepted copy of the float64 DEM state {dem}; "
              f"library_ms: one Tensor.copy_")):
+        nbytes = (8 + 2 * ctypes.sizeof(ctl.Control) if shape is None
+                  else 2 * 8 * int(np.prod(shape)))
         bound_ms = max(nbytes / HBM_BYTES_PER_S,
                        ops / F64_FLOP_PER_S) * 1e3
         out[name] = dict(
@@ -1165,12 +1212,13 @@ def _controller_rows_f64(dev, prm, errs) -> dict:
             replaces=("porousfreezethaw_tpu/solvers/merson.py:239"
                       if key == "control" else
                       "porousfreezethaw_tpu/solvers/merson.py:283"),
-            replaces_what=("the body of the lax.while_loop controller on "
-                           "the DEM's float64 dict state (XLA, no Pallas "
-                           "kernel)" if key == "control" else
-                           "the accepted-update select of the while-loop "
-                           "body on the DEM's float64 leaves (XLA, no "
-                           "Pallas kernel)"),
+            replaces_what=(
+                "the body of the lax.while_loop controller on a float64 "
+                "state (XLA, no Pallas kernel)" if key == "control" else
+                "the accepted-update select of the while-loop body on "
+                + ("the f64 freezing state" if shape == lr
+                   else "the DEM's float64 leaves")
+                + " (XLA, no Pallas kernel)"),
             launches=0, max_abs_err=errs[name],
             ms=avg(key, "kernel", "kernel2"),
             plain_ms=avg(key, "plain", "plain2"),
@@ -1361,11 +1409,16 @@ def _loop_solvers(path, geom, prm):
     return host, device, dev_att
 
 
-def _same_result(a, b) -> bool:
+def _same_state(a, b) -> bool:
+    """Status, t, h, counts and state of two solves bit for bit."""
     sa, sb = a[0], b[0]
     return (a[1] == b[1] and (sa.t, sa.h, sa.steps, sa.steps_total)
             == (sb.t, sb.h, sb.steps, sb.steps_total)
-            and torch.equal(sa.y, sb.y)
+            and torch.equal(sa.y, sb.y))
+
+
+def _same_result(a, b) -> bool:
+    return (_same_state(a, b)
             and all(torch.equal(x, y) for x, y in zip(a[2], b[2])))
 
 
@@ -1382,8 +1435,9 @@ DEVICE_LOOP = {"merson_control": 1, "commit": 1}
 KERNEL_COUNTERS = (("fused_stage_kernel", ("fused_stage",)),
                    ("delta_g_kernel", ("delta_g", "delta_g_dy")),
                    ("fused_attempt_kernel", ("fused_attempt",)),
-                   ("merson_control_kernel", ("merson_control",)),
-                   ("commit_kernel", ("commit",)))
+                   ("merson_control_kernel", ("merson_control",
+                                              "merson_control_f64")),
+                   ("commit_kernel", ("commit", "commit_f64")))
 
 
 def _want_launches(path, n, device_loop=False):
@@ -1425,6 +1479,47 @@ def _profiled_launches(prof) -> dict:
     return got
 
 
+# profiled runs of one solve before a trace that lost kernel records fails
+PROFILE_TRIES = 3
+
+
+def _traced_run(st, run, same, what):
+    """``run()`` under torch.profiler (CPU and CUDA activity) with the
+    counters at 0: each of the port's kernels launched in the trace as
+    many times as its counter added (KERNEL_COUNTERS), and ``same(res)``
+    true of the run's result ``res``.  A trace may lose records of a run
+    that launched them: one that holds fewer launches than counted, of a
+    run whose result is bit for bit right, is profiled again, up to
+    PROFILE_TRIES runs in all.  A wrong result, a trace with more launches
+    than counted, or no trace that agrees raises.  When the profiler
+    records no device time, the launches are not checked.  Returns (the
+    profiler, the traced launches, the traces that lost records)."""
+    from torch.profiler import ProfilerActivity, profile
+    lost = []
+    for _ in range(PROFILE_TRIES):
+        _reset_counters(st)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res = run()
+            torch.cuda.synchronize()
+        counted = _counters(st)
+        if not same(res):
+            raise AssertionError(f"{what}: the profiled run's result "
+                                 f"differs")
+        got = _profiled_launches(prof)
+        want = {name: sum(counted[k] for k in keys)
+                for name, keys in KERNEL_COUNTERS}
+        if not _device_time(prof)[0] or got == want:
+            return prof, got, lost
+        if any(got[k] > want[k] for k in want):
+            raise AssertionError(f"{what}: traced launches {got}, counted "
+                                 f"{want}")
+        lost.append(got)
+    raise AssertionError(f"{what}: traced launches {lost}, counted {want} "
+                         f"in each of {PROFILE_TRIES} profiled runs")
+
+
 def _idle_block_ms(dev_att, dev) -> float:
     """Device ms of one replay of the graph of BLOCK attempts on a halted
     block: the cost of the idle attempts at the end of a solve call."""
@@ -1434,6 +1529,156 @@ def _idle_block_ms(dev_att, dev) -> float:
     c.halt = 1
     loop.ctl.write(c)
     return _time(graph.replay, 20)
+
+
+# the f64 rows of phase controller: (name, grid nodes, calc mode) of the
+# benchmark case (bench.freezing_case), PlainAttempt against the host loop
+CONTROLLER_F64 = (("lr_temp", 100, 2), ("lr_gradp", 100, 0),
+                  ("mr_gradp", 200, 0))
+CONTROLLER_F64_ATTEMPTS = 96     # three whole blocks: no idle attempts
+CONTROLLER_F64_WARM = 32
+
+
+def _kernel_classes(rows) -> dict:
+    """Launches and device us of a profiler's kernel rows by class: the
+    port's control and commit kernels, PyTorch's cat, reductions,
+    elementwise kernels and the rest."""
+    out = {c: {"launches": 0, "us": 0.0} for c in (
+        "control_commit", "cat", "reduction", "elementwise", "other")}
+    for us, key, count in rows:
+        k = key.lower()
+        cls = ("control_commit" if "merson_control_kernel" in k
+               or "commit_kernel" in k else
+               "cat" if "cat" in k else
+               "reduction" if "reduce" in k else
+               "elementwise" if "elementwise" in k else "other")
+        out[cls]["launches"] += count
+        out[cls]["us"] += us
+    total = sum(c["us"] for c in out.values()) or 1.0
+    for c in out.values():
+        c["share"] = c["us"] / total
+    return out
+
+
+def _controller_f64_rows(dev) -> list:
+    """The f64 plain-RHS path (the f64 app's, PlainAttempt) at LR Temp, LR
+    GradP and MR GradP: CONTROLLER_F64_WARM host-loop attempts from the
+    benchmark case, then CONTROLLER_F64_ATTEMPTS attempts through the
+    device loop (its first run captures the graph) and the host loop,
+    CONTROLLER_REPEATS times each in turns, every run bit for bit the
+    first's (state, t, h, counts, status, trace); ms/attempt (median and
+    spread), device ms and launches per attempt, busy share and the
+    kernel classes' shares (torch.profiler over one more run of each), the
+    right-hand side's launches (five profiled calls, t a 0-d tensor), the
+    graph's capture time, the memory peak over the capturing run above
+    what was allocated before it (the static buffers and the graph's
+    pool), and the cost of an idle attempt (an idle block's replay over
+    BLOCK)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from porousfreezethaw_tpu_torch import bench
+    from porousfreezethaw_tpu_torch.models.freezing.attempt import (
+        PlainAttempt)
+    from porousfreezethaw_tpu_torch.models.freezing.equation import make_rhs
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
+    from porousfreezethaw_tpu_torch.ops.cuda.control import BLOCK
+    from porousfreezethaw_tpu_torch.solvers.merson import (
+        MersonParams, merson_init, merson_solve, merson_solve_device)
+
+    n = CONTROLLER_F64_ATTEMPTS
+    rows = []
+    for name, grid_nodes, mode in CONTROLLER_F64:
+        v, geom, prm, w0 = bench.freezing_case(grid_nodes, mode,
+                                               torch.float64)
+        rhs = make_rhs(geom, prm, mode, dev)
+        att = PlainAttempt(rhs, geom.shape, torch.float64)
+
+        def params(max_steps, trace=0):
+            return MersonParams(delta=v["delta"], h_min=v["tau_min"],
+                                max_steps=max_steps, record_trace=trace)
+
+        def host(s, p):
+            return merson_solve(rhs, s, 1e9, p)
+
+        def device(s, p):
+            return merson_solve_device(s, 1e9, p, att)
+
+        y0 = torch.from_numpy(w0).to(dev)
+        start = host(merson_init(y0, 0.0, min(v["tau"], 1e-4)),
+                     params(CONTROLLER_F64_WARM))[0]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ref = device(start, params(n, n))         # captures the graph
+        torch.cuda.synchronize()
+        peak_mb = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+        walls = {"host": [], "device": []}
+        for loop in ("host", "device", "device", "host") * 2:
+            if len(walls[loop]) == CONTROLLER_REPEATS:
+                continue
+            _reset_counters(st)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = (host if loop == "host" else device)(start, params(n, n))
+            torch.cuda.synchronize()
+            walls[loop].append(1e3 * (time.perf_counter() - t0) / n)
+            launches = {k: c for k, c in _counters(st).items() if c}
+            want = ({} if loop == "host" else
+                    {"merson_control_f64": n, "commit_f64": n})
+            if not _same_result(res, ref):
+                raise AssertionError(f"controller f64 {name}: the {loop} "
+                                     f"loop differs from the device loop's "
+                                     f"first run")
+            if launches != want:
+                raise AssertionError(f"controller f64 {name}: {loop} loop "
+                                     f"launches {launches}, want {want}")
+        prof, lost = {}, {}
+        for loop in ("host", "device"):
+            p, _, lost[loop] = _traced_run(
+                st, lambda: (host if loop == "host" else device)(
+                    start, params(n)),
+                lambda res: _same_state(res, ref),
+                f"controller f64 {name}, {loop} loop")
+            prof[loop] = _device_time(p)
+        t_dev = torch.tensor(start.t, dtype=torch.float64, device=dev)
+        rhs(t_dev, start.y)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            for _ in range(5):
+                rhs(t_dev, start.y)
+            torch.cuda.synchronize()
+        rhs_us, rhs_kernels, _ = _device_time(p)
+        idle_ms = _idle_block_ms(att, dev) / BLOCK
+        row = dict(grid=list(geom.shape), case=name, calc_mode=mode,
+                   dtype="f64", attempts=n,
+                   steps=ref[0].steps - start.steps, t=ref[0].t,
+                   h=ref[0].h, status=ref[1], bitwise=True, block=BLOCK,
+                   graph_capture_s=att.device_loop(dev).capture_s,
+                   capture_run_peak_mb=peak_mb,
+                   rhs_launches=(rhs_kernels / 5 if rhs_us
+                                 else "not measured"),
+                   rhs_device_ms=(rhs_us / 1e3 / 5 if rhs_us
+                                  else "not measured"),
+                   idle_attempt_ms=idle_ms, traces_lost=lost)
+        for loop in ("host", "device"):
+            w = sorted(walls[loop])
+            us, kernels, krows = prof[loop]
+            med = float(np.median(w))
+            dms = us / 1e3 / n if us else "not measured"
+            row[loop] = dict(
+                ms_per_attempt=med, repeats=w, spread=w[-1] / w[0],
+                device_ms_per_attempt=dms,
+                launches_per_attempt=kernels / n if us else None,
+                busy_share=dms / med if us else "not measured",
+                classes=_kernel_classes(krows) if us else None,
+                top=[dict(kernel=k[:60], count=c, us=u)
+                     for u, k, c in krows[:6]])
+        row["speedup"] = (row["host"]["ms_per_attempt"]
+                          / row["device"]["ms_per_attempt"])
+        emit("controller_f64", **row)
+        rows.append(row)
+    return rows
 
 
 def phase_controller(dev) -> dict:
@@ -1453,9 +1698,7 @@ def phase_controller(dev) -> dict:
     per attempt; the device loop's are whole blocks of BLOCK attempts
     (the graph launches the idle attempts after the loop halts too).  In
     the profiled run of each loop, the launches of each kernel in the
-    profiler's trace equal what its counter added."""
-    from torch.profiler import ProfilerActivity, profile
-
+    profiler's trace equal what its counter added (_traced_run)."""
     from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
     from porousfreezethaw_tpu_torch.ops.cuda.control import (
         BLOCK, pow_02_device)
@@ -1504,33 +1747,24 @@ def phase_controller(dev) -> dict:
                     raise AssertionError(
                         f"controller {path} at {grid_nodes}: {loop} loop "
                         f"launches {launches}, want {want}")
-            device_ms, traced = {}, {}
+            device_ms, traced, lost = {}, {}, {}
             for loop in ("host", "device"):
-                _reset_counters(st)
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    (host if loop == "host" else device)(start, params(n))
-                    torch.cuda.synchronize()
-                counted = _counters(st)
+                # each kernel's launches in the trace against its counter's
+                prof, traced[loop], lost[loop] = _traced_run(
+                    st, lambda: (host if loop == "host" else device)(
+                        start, params(n)),
+                    lambda res: _same_state(res, ref),
+                    f"controller {path} at {grid_nodes}, {loop} loop")
                 us, kernels, _ = _device_time(prof)
                 device_ms[loop] = (us / 1e3 / n if us else "not measured",
                                    kernels / n if us else None)
-                # each kernel's launches in the trace against its counter's
-                got = _profiled_launches(prof)
-                want = {name: sum(counted[k] for k in keys)
-                        for name, keys in KERNEL_COUNTERS}
-                traced[loop] = got
-                if us and got != want:
-                    raise AssertionError(
-                        f"controller {path} at {grid_nodes}: the {loop} "
-                        f"loop's traced launches {got}, counted {want}")
             idle_ms = _idle_block_ms(dev_att, dev)
             row = dict(grid=list(geom.shape), path=path, attempts=n,
                        steps=ref[0].steps - start.steps, t=ref[0].t,
                        h=ref[0].h, status=ref[1], bitwise=True,
                        block=BLOCK, idle_block_ms=idle_ms,
                        idle_attempt_ms=idle_ms / BLOCK,
-                       traced_launches=traced)
+                       traced_launches=traced, traces_lost=lost)
             for loop in ("host", "device"):
                 w = sorted(walls[loop])
                 dms, kern = device_ms[loop]
@@ -1570,7 +1804,7 @@ def phase_controller(dev) -> dict:
     if fac["vs_host_pow_02"]:
         raise AssertionError(f"the device's growth power differs from the "
                              f"host loop's: {fac}")
-    return dict(rows=rows, fac=fac)
+    return dict(rows=rows, fac=fac, f64=_controller_f64_rows(dev))
 
 
 # --------------------------------------------------------------------------
@@ -1579,7 +1813,7 @@ def phase_controller(dev) -> dict:
 
 # (--fused, --dtype, --grid-nodes, --steps, --warm-steps)
 BENCH_ROWS = (("stage", "f32", 200, 200, 200), ("delta", "f32", 200, 200, 200),
-              ("attempt", "f32", 200, 200, 200), ("off", "f64", 100, 20, 5))
+              ("attempt", "f32", 200, 200, 200), ("off", "f64", 100, 64, 64))
 
 
 def _counters(st) -> dict:
@@ -1604,8 +1838,10 @@ def _reset_counters(st) -> None:
 
 def phase_bench(dev) -> dict:
     """The port's bench rows in this process, each record under bench.py's
-    metric names with the launch counters of its run; returns the
-    counters of the --fused attempt row, the main path of K4."""
+    metric names with the launch counters of its run, every row through
+    the device loop (the f64 --fused off row through PlainAttempt, on the
+    float64 control and commit kernels); returns the counters of the
+    --fused attempt row, the main path of K4."""
     from porousfreezethaw_tpu_torch import bench
     from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
 
@@ -1628,12 +1864,14 @@ def phase_bench(dev) -> dict:
             raise AssertionError(f"bench row {fused}/{dtype}: {rec}")
         path = {"stage": "stage", "delta": "delta",
                 "attempt": "fused_attempt"}.get(fused)
-        want = ({} if path is None else
-                _want_launches(path, _graph_attempts(calls, 1), True))
+        graph = _graph_attempts(calls, 1)
+        want = ({"merson_control_f64": graph, "commit_f64": graph}
+                if path is None else _want_launches(path, graph, True))
         want = {k: want.get(k, 0) for k in launches}
-        if rec["controller"] != ("host" if fused == "off" else "device"):
+        if rec["controller"] != "device" or not rec["graph_capture_s"] > 0:
             raise AssertionError(f"bench row {fused}/{dtype}: controller "
-                                 f"{rec['controller']}")
+                                 f"{rec['controller']}, capture "
+                                 f"{rec['graph_capture_s']}")
         if not (rec["value"] > 0 and rec["metric"].startswith("freezing_")
                 and rec["device"] == torch.cuda.get_device_name(dev)):
             raise AssertionError(f"bench row {fused}/{dtype}: {rec}")
@@ -1846,18 +2084,22 @@ def _app_profile(dev) -> None:
 GOLDEN_COUNTS = {"plain": (3637, 4309), "compensated": (3648, 4327)}
 
 
-def phase_app(dev):
+def phase_app(dev, idle_attempt_ms=None):
     """The goldens and a profiled run; returns the launch counters of the
     main-path runs of fused_stage, delta_g, merson_control and commit (the
-    plain golden, through the app's chunked device loop) and delta_g_dy
-    (the compensated one), and the LR Temp golden's record.  The plain
-    golden also runs through the host loop (the app's uses_device_loop
-    patched): the same counts, RK debug log lines and snapshot 1.
+    plain golden, through the app's chunked device loop), delta_g_dy
+    (the compensated one) and merson_control_f64 and commit_f64 (the f64
+    LR Temp golden, through the app's device loop on PlainAttempt), and
+    the LR Temp golden's record.  The plain golden and the f64 golden
+    also run through the host loop (the app's uses_device_loop patched):
+    the same counts, RK debug log lines and snapshot 1.
 
     Launches: the host loop's are the attempts times the path's launches
-    per attempt; the device loop's are one number of attempt launches
-    for every kernel of the path, no fewer than the attempts: whole
-    blocks of BLOCK attempts and the idle attempt before the capture."""
+    per attempt (none on the f64 path); the device loop's are one number
+    of attempt launches for every kernel of the path, no fewer than the
+    attempts: whole blocks of BLOCK attempts and the idle attempt before
+    the capture.  ``idle_attempt_ms`` (phase controller's LR Temp f64
+    row, when it ran) prices the f64 golden's idle attempts."""
     from porousfreezethaw_tpu_torch.ops.cuda.control import BLOCK
 
     runs = {}
@@ -1870,14 +2112,33 @@ def phase_app(dev):
              "compensated_commit 1\n", (GOLDEN_STEPS, GOLDEN_ATTEMPTS),
              "auto"),
             ("f64", "Params-LR-Temp", "f64", "",
-             (TEMP_STEPS, TEMP_ATTEMPTS), "auto")):
+             (TEMP_STEPS, TEMP_ATTEMPTS), "auto"),
+            ("f64_host", "Params-LR-Temp", "f64", "",
+             (TEMP_STEPS, TEMP_ATTEMPTS), "host")):
         res = _app_run(dev, golden, precision, extra, controller)
         _within(res, *ref)
         n = res["attempts"]
         path = {"plain": "delta", "plain_host": "delta",
                 "compensated": "delta_comp"}.get(key)
-        device_loop = key in ("plain", "compensated")
-        if path is None:
+        device_loop = key in ("plain", "compensated", "f64")
+        if key == "f64":
+            got = res["launches"]
+            m = got["commit_f64"]
+            others = {k: c for k, c in got.items()
+                      if c and k not in ("merson_control_f64", "commit_f64")}
+            idle = m - n
+            emit("app_launches", golden=key, attempts=n,
+                 attempt_launches=m, idle_attempts=idle,
+                 idle_attempt_ms=idle_attempt_ms,
+                 idle_share_of_solver_wall=(
+                     idle * idle_attempt_ms / (1e3 * res["solver_wall_s"])
+                     if idle_attempt_ms and res["solver_wall_s"]
+                     else "not measured"))
+            if (got["merson_control_f64"] != m or m < n
+                    or (m - 1) % BLOCK or others):
+                raise AssertionError(f"f64 golden: launch counts {got} "
+                                     f"for {n} attempts")
+        elif path is None:
             if any(res["launches"].values()):
                 raise AssertionError(f"{key} golden: kernel launches "
                                      f"{res['launches']}")
@@ -1903,20 +2164,25 @@ def phase_app(dev):
             raise AssertionError(f"{key} golden: {len(res['rk'])} RK log "
                                  f"lines for {res['steps']} steps")
         runs[key] = res
-    a, b = runs["plain"], runs["plain_host"]
-    same = dict(counts=(a["steps"], a["attempts"]) == (b["steps"],
-                                                       b["attempts"]),
-                rk_log_lines=a["rk"] == b["rk"],
-                snapshot_1=a["snapshot"] == b["snapshot"])
-    emit("app_controllers", device_loop_s=a["solver_wall_s"],
-         host_loop_s=b["solver_wall_s"], **same)
-    if not all(same.values()):
-        raise AssertionError(f"the app's device loop and host loop differ: "
-                             f"{same}")
+    for key in ("plain", "f64"):
+        a, b = runs[key], runs[key + "_host"]
+        same = dict(counts=(a["steps"], a["attempts"]) == (b["steps"],
+                                                           b["attempts"]),
+                    rk_log_lines=a["rk"] == b["rk"],
+                    snapshot_1=a["snapshot"] == b["snapshot"])
+        emit("app_controllers", golden=key, device_loop_s=a["solver_wall_s"],
+             host_loop_s=b["solver_wall_s"],
+             device_ms_per_attempt=a.get("ms_per_attempt"),
+             host_ms_per_attempt=b.get("ms_per_attempt"), **same)
+        if not all(same.values()):
+            raise AssertionError(f"the app's device loop and host loop "
+                                 f"differ on the {key} golden: {same}")
     _app_profile(dev)
     launches = {k: runs["plain"]["launches"][k] for k in (
         "fused_stage", "delta_g", "merson_control", "commit")}
     launches["delta_g_dy"] = runs["compensated"]["launches"]["delta_g_dy"]
+    for k in ("merson_control_f64", "commit_f64"):
+        launches[k] = runs["f64"]["launches"][k]
     return launches, runs["f64"]
 
 
@@ -2732,7 +2998,7 @@ def _dem_short_solve(dev):
     unprofiled runs in turns), device ms and launches per attempt (each
     profiled once more, torch.profiler) and the busy share.  The device
     loop's first run captures its graph (capture_s) and is the main path
-    of the float64 control and commit kernels: their counters, set to 0
+    of commit_f64_dem: the float64 control and commit counters, set to 0
     just before it, count whole blocks and the idle attempt before the
     capture.  The idle attempts (those launched past the loop's end) cost
     one idle attempt's device time each (an idle block's replay over its
@@ -2826,8 +3092,9 @@ def _dem_short_solve(dev):
     emit("dem_solve", **rec)
     rec["state"] = card.y
     rec["ms_per_attempt"] = loops["device"]["ms_per_attempt"]
-    rec["launches"] = {"merson_control_f64": counted["merson_control_f64"],
-                       "commit_f64": launched}
+    # the main path of commit_f64_dem (merson_control_f64's and
+    # commit_f64's is the f64 LR golden, phase app)
+    rec["launches"] = {"commit_f64_dem": launched}
     if not (status == cpu_status == 0 and same
             and prof["device"][1] == prof["host"][1] == n
             and (card.steps, n) == (cpu.steps, cpu.steps_total)):
@@ -2972,6 +3239,88 @@ def phase_dem(dev) -> dict:
     _dem_mesh(dev, short)
     _dem_bench(dev)
     return short
+
+
+# VALIDATION.md:61-80, the reference's LR Temp run (10 h, 100 snapshots):
+# cumulative successful steps at snapshots 25/50/75/99, the attempts at 99,
+# and the ice fraction's peak and its value at t = 36000 s
+TEMP_FULL_STEPS = {25: 90809, 50: 184002, 75: 248935, 99: 288134}
+TEMP_FULL_ATTEMPTS = 355469
+TEMP_ICE_PEAK, TEMP_ICE_END = 0.5084, 0.0506
+
+
+def phase_temp_f64_full(dev) -> dict:
+    """Optional: the shipped LR Temp case (tests/golden/Params-LR-Temp,
+    f64, 10 h, 100 snapshots) through the app's device loop on the card:
+    the cumulative successful steps at snapshots 25/50/75/99 within 5% of
+    the reference's (TEMP_FULL_STEPS) and the attempts at 99 within 5% of
+    TEMP_FULL_ATTEMPTS; the ice fraction of the snapshots
+    (analysis.series_statistics) peaking at TEMP_ICE_PEAK and reaching
+    TEMP_ICE_END at t = 36000 s, each within 1e-3.  The app's log goes to
+    chiprun_out/temp_f64_full/; the snapshots (600 MB) to a temporary
+    directory, removed after."""
+    from porousfreezethaw_tpu_torch.analysis import series_statistics
+    from porousfreezethaw_tpu_torch.apps.intertrack import main
+    from porousfreezethaw_tpu_torch.ops.cuda import build
+
+    build.load_library()
+    text = open(os.path.join(REPO, "tests", "golden",
+                             "Params-LR-Temp")).read()
+    text += ("\nset ball_positions_file = "
+             + os.path.join(REPO, "data", "spheres_positions.txt") + "\n")
+    keep = os.path.join(REPO, "chiprun_out", "temp_f64_full")
+    os.makedirs(keep, exist_ok=True)
+    out = tempfile.mkdtemp(prefix="pft_chip_smoke_temp_full_")
+    old = os.environ.get("OUTPUT")
+    try:
+        pfile = os.path.join(out, "Params")
+        with open(pfile, "w") as f:
+            f.write(text)
+        os.environ["OUTPUT"] = out
+        t0 = time.perf_counter()
+        rc = main([pfile, "--precision", "f64", "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log = open(os.path.join(out, "intertrack.log")).read()
+        shutil.copy(os.path.join(out, "intertrack.log"), keep)
+        stats = series_statistics(out, device=dev)
+    finally:
+        if old is None:
+            os.environ.pop("OUTPUT", None)
+        else:
+            os.environ["OUTPUT"] = old
+        shutil.rmtree(out, ignore_errors=True)
+    counts = {int(k): (int(a), int(b)) for k, a, b in re.findall(
+        r"Calculating snapshot (\d+) \.\.\. Done on .*?, (\d+) R-K steps "
+        r"\((\d+) total\)", log)}
+    sw = re.search(r"Solver wall time: (\d+):(\d+):(\S+)", log)
+    solver_s = (3600 * int(sw[1]) + 60 * int(sw[2]) + float(sw[3])
+                if sw else None)
+    ice = stats["ice_fraction"]
+    attempts = counts.get(99, (0, 0))[1]
+    rec = dict(rc=rc, wall_s=wall, solver_wall_s=solver_s,
+               device_loop="Step control: device loop" in log,
+               steps={k: counts.get(k, (None,))[0] for k in TEMP_FULL_STEPS},
+               reference_steps=TEMP_FULL_STEPS, attempts=attempts,
+               reference_attempts=TEMP_FULL_ATTEMPTS,
+               ms_per_attempt=(1e3 * solver_s / attempts
+                               if solver_s and attempts else None),
+               snapshots=len(ice), ice_peak=max(ice) if ice else None,
+               ice_peak_t=stats["t"][int(np.argmax(ice))] if ice else None,
+               ice_end=ice[-1] if ice else None,
+               t_end=stats["t"][-1] if ice else None,
+               reference_ice=[TEMP_ICE_PEAK, TEMP_ICE_END])
+    emit("temp_f64_full", **rec)
+    bad = [k for k, ref in TEMP_FULL_STEPS.items()
+           if rec["steps"][k] is None
+           or abs(rec["steps"][k] - ref) > 0.05 * ref]
+    if (rc != 0 or not rec["device_loop"] or bad or len(ice) != 100
+            or abs(attempts - TEMP_FULL_ATTEMPTS) > 0.05 * TEMP_FULL_ATTEMPTS
+            or abs(rec["ice_peak"] - TEMP_ICE_PEAK) > 1e-3
+            or abs(rec["ice_end"] - TEMP_ICE_END) > 1e-3
+            or abs(rec["t_end"] - 36000.0) > 1e-3):
+        raise AssertionError(f"temp_f64_full: {rec}")
+    return rec
 
 
 # an earlier record of the settle through the app's host loop on the card,
@@ -3373,12 +3722,15 @@ def main(argv=None) -> int:
         kernels.update(phase_kernels(dev))
     if "solve" in phases:
         phase_solve(dev)
+    idle_ms = None
     if "controller" in phases:
-        phase_controller(dev)
+        ctrl = phase_controller(dev)
+        idle_ms = next(r["idle_attempt_ms"] for r in ctrl["f64"]
+                       if r["case"] == "lr_temp")
     if "bench" in phases:
         launches["fused_attempt"] = phase_bench(dev)["fused_attempt"]
     if "app" in phases:
-        app_launches, temp_f64 = phase_app(dev)
+        app_launches, temp_f64 = phase_app(dev, idle_ms)
         launches.update(app_launches)
     if "mesh" in phases:
         mesh_kernels, mesh_launches = phase_mesh(dev, temp_f64)
@@ -3396,6 +3748,8 @@ def main(argv=None) -> int:
         settle = phase_dem_settle(dev)
     if "dem_settle_host" in phases:
         phase_dem_settle_host(dev, settle)
+    if "temp_f64_full" in phases:
+        phase_temp_f64_full(dev)
 
     for name in set(kernels) & set(launches):
         kernels[name]["launches"] = launches[name]

@@ -38,19 +38,23 @@ Snapshots are then written shard by shard.
 activities, and CUDA's on the card) into ``DIR/trace.json``, a Chrome
 trace, as the JAX app wraps its run in ``jax.profiler.trace``.
 
-Step control: on ``--device cuda`` the single-device f32 kernel paths
-(increment form, compensated or not, and the classic stage) run the
+Step control: on ``--device cuda`` every single-device path runs the
 device-resident loop (``merson_solve_device``: CUDA graphs of attempts
-whose step control and commit are kernels), the counterpart
-of the JAX app's accelerator branch: the solve goes in chunks of
-``PFT_SERVICE_CHUNK`` attempts (a positive integer, 1024 by default),
-each recording the (t, h) of its accepted steps on the device; between
-chunks the app writes them to the RK debug log and checks the trigger
-file, so a trigger takes effect at the next chunk boundary (a chunk's
-attempts later than the reference's per-step check at most).  Every other
-path, and ``--device cpu``, keeps the host loop with the per-step service
-callback, as the JAX app does on the CPU (``uses_device_loop`` decides).
-The log names the controller.
+whose step control and commit are kernels), the counterpart of the JAX
+app's accelerator branch: the f32 kernel paths (increment form,
+compensated or not, and the classic stage) and the plain right-hand side
+of f64 and of f32 with a noise field (``models/freezing/attempt.py``
+``PlainAttempt``, its stage times read from the control block).  The
+solve goes in chunks of ``PFT_SERVICE_CHUNK`` attempts (a positive
+integer, 1024 by default), each recording the (t, h) of its accepted
+steps on the device and continuing the last one's control block, so that
+the chunks give one solve call's bits; between chunks the app writes the
+steps to the RK debug log and checks the trigger file, so a trigger takes
+effect at the next chunk boundary (a chunk's attempts later than the
+reference's per-step check at most).  ``--device cpu`` and every
+``--mesh`` run keep the host loop with the per-step service callback, as
+the JAX app does on the CPU (``uses_device_loop`` decides).  The log
+names the controller, and for the host loop why.
 """
 
 from __future__ import annotations
@@ -74,6 +78,7 @@ from ..core.grid import GridGeometry
 from ..io.rklog import RKDebugLog, RunLog, format_date, format_time
 from ..io.snapshots import (
     load_checkpoint, write_snapshot, write_snapshot_sharded)
+from ..models.freezing.attempt import PlainAttempt
 from ..models.freezing.equation import make_noise_field, make_rhs
 from ..models.freezing.glass import build_glass_field, read_ball_positions
 from ..models.freezing.icond import build_initial_conditions
@@ -88,7 +93,7 @@ from ..parallel.halo import make_halo_rhs
 from ..parallel.sharding import (
     gather_freezing_state, make_mesh, shard_freezing_state)
 from ..solvers.merson import (
-    INTERRUPTED, MAX_STEPS, MersonParams, merson_init, merson_solve,
+    INTERRUPTED, MersonParams, merson_init, merson_solve,
     merson_solve_device)
 
 DEFAULT_BALL_POSITIONS = "data/spheres_positions.txt"  # equation.c:35
@@ -107,9 +112,8 @@ class IntertrackError(RuntimeError):
 
 def uses_device_loop(device: torch.device, dev_attempt) -> bool:
     """Whether a solve runs the chunked device loop: on the card, for the
-    single-device float32 kernel paths, whose attempt object
-    ``dev_attempt`` is on the device protocol (None on every other
-    path)."""
+    single-device paths, whose attempt object ``dev_attempt`` is on the
+    device protocol (None on a mesh)."""
     return device.type == "cuda" and dev_attempt is not None
 
 
@@ -289,7 +293,7 @@ def run_iteration(
 
     y0 = torch.as_tensor(np.ascontiguousarray(w0))
     rhs = stage_fn = attempt_fn = None
-    # the attempt object of the device loop (single-device kernel paths)
+    # the attempt object of the device loop (every single-device path)
     dev_attempt = None
     # The increment-form (delta) attempt is the f32 default for all
     # models: its exact f(w+d)-f(w) stages remove the f32 stage-state
@@ -344,6 +348,9 @@ def run_iteration(
             log("Fused stage kernel: ON (%s)\n", device.type)
     else:
         rhs = make_rhs(geom, solver_params, calc_mode, device, noise=noise)
+        # the device loop's attempt only: attempt_fn stays None, which
+        # keys the f32 noise path's growth rule below
+        dev_attempt = PlainAttempt(rhs, geom.shape, dtype)
     y0 = (shard_freezing_state(y0, mesh) if mesh is not None
           else y0.to(device))
 
@@ -387,22 +394,25 @@ def run_iteration(
             "card), chunks of %d attempts\n", BLOCK, chunk)
 
         def solve(st, ft):
-            while True:
-                prev_steps = st.steps
-                st, status, (tt, hh) = merson_solve_device(st, ft, cparams,
-                                                           dev_attempt)
-                n_new = st.steps - prev_steps
+            triggered = False
+
+            def between(tt, hh, n_new, prev_steps):
+                nonlocal triggered
                 if debug_log is not None and n_new:
                     for i, (t_i, h_i) in enumerate(zip(tt[:n_new].tolist(),
                                                        hh[:n_new].tolist())):
                         debug_log.log_step(t_i, h_i, prev_steps + i + 1)
-                if trigger_file and os.path.exists(trigger_file):
-                    return st, INTERRUPTED
-                if status == MAX_STEPS:
-                    continue
-                return st, status
+                triggered = bool(trigger_file) and os.path.exists(
+                    trigger_file)
+                return triggered
+
+            st, status, _ = merson_solve_device(st, ft, cparams, dev_attempt,
+                                                between=between)
+            return st, INTERRUPTED if triggered else status
     else:
-        log("Step control: host loop\n")
+        log("Step control: host loop (%s)\n",
+            "sharded over a mesh" if mesh is not None
+            else f"--device {device.type}")
 
         def solve(st, ft):
             return merson_solve(rhs, st, ft, mparams,

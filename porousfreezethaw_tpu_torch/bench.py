@@ -24,11 +24,13 @@ kernel with its stage-5 tail, ``delta`` the increment-form attempt,
 ``attempt`` the double-buffered attempt, ``off`` the plain PyTorch
 right-hand side (the f64 path); ``auto`` is ``stage`` for f32 on the GPU
 and ``off`` otherwise.  ``--device cuda`` is the default and raises
-without a GPU; nothing falls back to the CPU.  On the card the kernel
-rows (``stage``, ``delta``, ``attempt``, without a mesh) solve through
-the device-resident loop (``merson_solve_device``, CUDA graphs of
-attempts), every other row through the host loop (``merson_solve``), as
-the app does; the record names it under ``"controller"``.
+without a GPU; nothing falls back to the CPU.  On the card every row
+without a mesh solves through the device-resident loop
+(``merson_solve_device``, CUDA graphs of attempts; ``off`` through the
+plain right-hand side's ``PlainAttempt``), a mesh row and the CPU through
+the host loop (``merson_solve``), as the app does; the record names it
+under ``"controller"``, with the graph's capture time
+(``"graph_capture_s"``, null on the host loop).
 
 ``--mesh`` benches the sharded paths over a mesh of the visible devices of
 ``--device``, as ``bench.py`` does: a z mesh the classic stage kernels
@@ -84,6 +86,7 @@ from .models.dem import (
 from .models.freezing import (
     FreezingParams, build_glass_field, build_initial_conditions, make_rhs,
     read_ball_positions, shift_temperature_origin)
+from .models.freezing.attempt import PlainAttempt
 from .ops.cuda.stencil import (
     DeltaAttempt, FusedAttempt, StageAttempt, make_fused_stage)
 from .parallel.fused import ShardedDeltaAttempt2D, make_sharded_fused_stage
@@ -223,8 +226,9 @@ def bench_freezing(args, grid_nodes=None, calc_mode=None) -> dict:
     elif path == "attempt":
         attempt_fn = FusedAttempt(geom, prm, calc_mode)
     controller = ("device" if device.type == "cuda" and mesh is None
-                  and path in KERNEL_PATHS else "host")
+                  else "host")
     dev_attempt = (StageAttempt(geom, prm, calc_mode) if path == "stage"
+                   else PlainAttempt(rhs, geom.shape, dtype) if path == "off"
                    else attempt_fn)
 
     steps = args.steps or max(20, int(4e8 / geom.num_cells))
@@ -282,6 +286,8 @@ def bench_freezing(args, grid_nodes=None, calc_mode=None) -> dict:
         "device": name,
         "fused": path,
         "controller": controller,
+        "graph_capture_s": (dev_attempt.device_loop(device).capture_s
+                            if controller == "device" else None),
         "dtype": args.dtype,
         "grid": [geom.n1, geom.n2, geom.n3],
         "attempts": done,

@@ -21,8 +21,9 @@
 // accept_growth_min on eps < delta, the NaN backoff and its abort, the
 // trimming of the last step and the continuation h, the per-call
 // max_steps, the status, the trace write at the clipped index; then the
-// scalars of the next attempt: the float32 ones of the stage kernels and
-// the float64 coefficients h/3, h/6, h/8, h of the DEM's stages.  The
+// scalars of the next attempt: the float32 ones of the stage kernels, the
+// float64 coefficients h/3, h/6, h/8, h and the float64 stage times t,
+// t + h/3, t + h/2, t + h of the plain PyTorch stages.  The
 // power is correctly rounded (pow_02 below), as the host's
 // solvers/merson.py pow_02 is: neither the C library's pow, which
 // Python's ** calls, nor CUDA's is.
@@ -128,6 +129,10 @@ __device__ void next_scalars(Control& c) {
     const double t3 = __dadd_rn(t, c.hs[0]);
     const double t2 = __dadd_rn(t, __ddiv_rn(h, 2.0));
     const double t1 = __dadd_rn(t, h);
+    c.ts64[0] = t;
+    c.ts64[1] = t3;
+    c.ts64[2] = t2;
+    c.ts64[3] = t1;
     c.ts[0] = __double2float_rn(t);
     c.ts[1] = c.ts[2] = __double2float_rn(t3);
     c.ts[3] = __double2float_rn(t2);

@@ -13,9 +13,11 @@
 //                    the _dev entries of the stage kernels, which read
 //                    (t_s, h) or (h, D1, dDi) of their stage from here and
 //                    return at once once the loop has halted;
-//   models/dem/attempt.py
-//                    the DEM's plain PyTorch stages, which read the float64
-//                    coefficients hs through 0-d views of the block.
+//   ops/cuda/control.py RHSAttempt
+//                    the plain PyTorch stages of the DEM and of the
+//                    freezing f64 and noise paths, which read the float64
+//                    coefficients hs and stage times ts64 through 0-d
+//                    views of the block.
 #pragma once
 
 #include <stdint.h>
@@ -32,6 +34,9 @@ struct Control {
     // the float64 stage coefficients of the next attempt, h/3, h/6, h/8
     // and h, each rounded as the host loop's Python floats round them
     double hs[4];
+    // the float64 stage times of the next attempt, t, t + h/3, t + h/2 and
+    // t + h, formed as the host loop's Python floats are formed
+    double ts64[4];
     long long steps, steps_total;
     long long start_steps, start_total, max_steps;
     // device memory: the eps partials of the stage-5 tail (float32, or

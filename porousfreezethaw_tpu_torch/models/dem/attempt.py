@@ -19,20 +19,17 @@ spheres app and the bench take what it returns, and
 ``forces.solve_guarded`` dispatches on it.
 
 Bits: an attempt is ``merson_solve``'s plain-RHS attempt on the dict
-state, operation for operation: the five stages, ``leaf_eps`` of each
-leaf and the accepted update ``y + (0.5 (K1 + K5) + 2 K4) * h/3``.  Its
+state, operation for operation: the body of ``ops/cuda/control.py``
+``RHSAttempt``, which the freezing f64 and noise paths share.  Its
 scalars h/3, h/6, h/8 and h are 0-d float64 views of the control block
-(``ControlBlock.hs``), formed there as the host loop's Python floats are,
-and a 0-d float64 tensor in ``x * a`` rounds ``a`` to the field dtype as
-a Python float does; so the device loop gives the host loop's state, t,
-h and counts bit for bit (tests/test_torch_dem_device.py).
+(``ControlBlock.hs``), formed there as the host loop's Python floats are;
+so the device loop gives the host loop's state, t, h and counts bit for
+bit (tests/test_torch_dem_device.py).
 
-What an idle attempt costs: the stage kernels of the freezing paths
-return at once on a halted loop; these stages are PyTorch operations,
-which cannot, so each idle attempt of a block that ends past the loop's
-end runs its five right-hand sides (the control kernel sets accept to 0
-and the commit copies nothing): 2.4% of the settle's wall on the card
-(PERF.md), within the graph's ``BLOCK``.
+What an idle attempt costs: the stage kernels of the freezing kernel
+paths return at once on a halted loop; these stages run their five
+right-hand sides: 2.4% of the settle's wall on the card (PERF.md),
+within the graph's ``BLOCK``.
 """
 
 from __future__ import annotations
@@ -41,12 +38,10 @@ from typing import Dict
 
 import torch
 
-from ...ops.cuda.control import (
-    COMMIT_COPY, ControlBlock, DeviceAttempt, commit, merson_control)
-from ...solvers.merson import _axpy, _leaves
+from ...ops.cuda.control import RHSAttempt
 
 
-class DEMAttempt(DeviceAttempt):
+class DEMAttempt(RHSAttempt):
     """One Merson attempt of the single-device DEM right-hand side ``rhs``
     (``make_dem_rhs``: dense, ``cell_list`` or ``cell_lanes``; a ``mesh=``
     right-hand side is refused) on the dict state {pos, vel[, angvel]} of
@@ -58,6 +53,9 @@ class DEMAttempt(DeviceAttempt):
     which the control kernel reduces.  ``neighbor_struct`` is the right-hand side's cell structure (None for
     the dense term), which ``forces.solve_guarded`` checks between
     chunks."""
+
+    # the DEM's right-hand side reads no time
+    timed = False
 
     def __init__(self, rhs):
         if getattr(rhs, "mesh", None) is not None:
@@ -75,10 +73,15 @@ class DEMAttempt(DeviceAttempt):
     def _dev_alloc(self, device: torch.device, kernel: bool) -> dict:
         shape = (len(self.keys), self.n, 3)
         y = torch.empty(shape, dtype=self.dtype, device=device)
-        return {"y": y, "leaves": dict(zip(self.keys, y.unbind(0))),
-                "spec": torch.empty_like(y),
-                "eps": torch.empty(len(self.keys), dtype=self.dtype,
-                                   device=device)}
+        spec = torch.empty_like(y)
+        eps = torch.empty(len(self.keys), dtype=self.dtype, device=device)
+
+        def by_key(x):
+            return dict(zip(self.keys, x.unbind(0)))
+
+        return {"y": y, "leaves": by_key(y), "spec": spec,
+                "spec_leaves": by_key(spec), "eps": eps,
+                "eps_leaves": by_key(eps)}
 
     def _dev_load(self, b: dict, y: Dict[str, torch.Tensor]) -> None:
         if not isinstance(y, dict) or set(y) != set(self.keys):
@@ -93,27 +96,6 @@ class DEMAttempt(DeviceAttempt):
                     f"on {v.device}, want {dst.dtype} {tuple(dst.shape)} "
                     f"on {dst.device}")
             dst.copy_(v)
-
-    def _dev_attempt(self, ctl: ControlBlock, b: dict) -> None:
-        # merson_solve's plain-RHS attempt; the DEM's right-hand side does
-        # not read t
-        h3, h6, h8, h = ctl.hs
-        f, y = self.rhs, b["leaves"]
-        K1 = f(None, y)
-        K2 = f(None, _axpy(h3, K1, y))
-        K3 = f(None, _axpy(h6, _leaves(torch.add, K1, K2), y))
-        K4 = f(None, _axpy(h8, _leaves(lambda a, c: a + 3.0 * c, K1, K3),
-                           y))
-        K5 = f(None, _axpy(h, _leaves(
-            lambda a, c, d: 0.5 * a - 1.5 * c + 2.0 * d, K1, K3, K4), y))
-        eps, spec = b["eps"], b["spec"]
-        for i, k in enumerate(self.keys):
-            torch.amax(torch.abs(0.2 * K1[k] - 0.9 * K3[k] + 0.8 * K4[k]
-                                 - 0.1 * K5[k]), out=eps[i])
-            torch.add(y[k], (0.5 * (K1[k] + K5[k]) + 2.0 * K4[k]) * h3,
-                      out=spec[i])
-        merson_control(ctl)
-        commit(ctl, COMMIT_COPY, b["y"], src=spec)
 
     def _dev_unpack(self, b: dict) -> Dict[str, torch.Tensor]:
         return {k: v.clone() for k, v in b["leaves"].items()}

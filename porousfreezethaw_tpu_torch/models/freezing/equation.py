@@ -48,18 +48,22 @@ _Z, _Y, _X = 0, 1, 2
 
 
 def _neighbor(f: torch.Tensor, axis: int, direction: int,
-              boundary: Optional[float] = None) -> torch.Tensor:
+              boundary: Optional[float | torch.Tensor] = None
+              ) -> torch.Tensor:
     """Value of the neighbour cell in +-1 ``direction`` along ``axis``.
 
     Outside the domain the mirror rule gives the cell's own value (the
-    index is clamped); a Dirichlet ``boundary`` scalar overrides that at
-    the far end (the only Dirichlet face is the top, +z)."""
+    index is clamped); a Dirichlet ``boundary`` overrides that at the far
+    end (the only Dirichlet face is the top, +z): a host float, or a 0-d
+    tensor of ``f``'s dtype on its device, broadcast with no host copy."""
     n = f.shape[axis]
     if direction < 0:
         return torch.cat([f.narrow(axis, 0, 1), f.narrow(axis, 0, n - 1)],
                          dim=axis)
     edge = f.narrow(axis, n - 1, 1)
-    if boundary is not None:
+    if torch.is_tensor(boundary):
+        edge = boundary.expand(edge.shape)
+    elif boundary is not None:
         edge = torch.full_like(edge, boundary)
     return torch.cat([f.narrow(axis, 1, n - 1), edge], dim=axis)
 
@@ -72,12 +76,36 @@ def dirichlet_at(t: float, prm: FreezingParams, dtype: torch.dtype) -> float:
     return physics.dirichlet_top(float(t), prm)
 
 
+class DirichletTop:
+    """The Dirichlet top of ``dirichlet_at`` for a stage time ``t`` given
+    as a 0-d float64 tensor (a view of the device loop's control block),
+    decided on ``device`` with no sync, so that a CUDA graph reads each
+    attempt's time: for float64 fields ``t < phase_switch_time`` in
+    double; for float32 ``t`` and the switch time rounded to float32
+    before the comparison, the values rounded to float32
+    (``physics.dirichlet_top_f32``).  Returns a 0-d tensor of the field
+    dtype.  The constants are made here, before any capture."""
+
+    def __init__(self, prm: FreezingParams, device: torch.device):
+        self.device = device
+        self.consts = {
+            dt: tuple(torch.tensor(v, dtype=dt, device=device) for v in (
+                prm.phase_switch_time, prm.top_temp1, prm.top_temp2))
+            for dt in (torch.float32, torch.float64)}
+
+    def __call__(self, t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        switch, top1, top2 = self.consts[dtype]
+        return torch.where(t.to(self.device, dtype) < switch, top1, top2)
+
+
 def make_rhs(geom: GridGeometry, params: FreezingParams, calc_mode: int,
              device: torch.device | str,
              noise: Optional[np.ndarray] = None,
              inv_h: Optional[Tuple[float, float, float]] = None):
     """Build ``rhs(t, w) -> dw/dt`` for ``w`` of shape (3, n3, n2, n1) on
-    ``device``.  ``t`` is a host scalar.
+    ``device``.  ``t`` is a host scalar, or a 0-d float64 tensor (the
+    device loop's stage time, ``DirichletTop``), for which the RHS makes no
+    host copy and no sync; both decide the top alike.
 
     ``noise`` is the precomputed per-cell temperature noise field
     (PRECALC_DATA.u_noise, equation.c:449-456), a numpy array moved to
@@ -91,6 +119,7 @@ def make_rhs(geom: GridGeometry, params: FreezingParams, calc_mode: int,
     coeffs = physics.Coeffs.of(p_)
     noise_t = (None if noise is None
                else torch.as_tensor(np.asarray(noise), device=device))
+    top_of = DirichletTop(p_, device)
 
     inv_h1, inv_h2, inv_h3 = geom.inv_h if inv_h is None else inv_h
     h1_2, h2_2, h3_2 = inv_h1**2, inv_h2**2, inv_h3**2
@@ -130,7 +159,8 @@ def make_rhs(geom: GridGeometry, params: FreezingParams, calc_mode: int,
             raise ValueError(f"rhs built for {device}, got a state on "
                              f"{w.device}")
         u, p, gl = w[0], w[1], w[2]
-        top = dirichlet_at(float(t), p_, w.dtype)
+        top = (top_of(t, w.dtype) if torch.is_tensor(t)
+               else dirichlet_at(float(t), p_, w.dtype))
         u_noisy = u if noise_t is None else u + noise_t.to(w.dtype)
 
         if mode == CalcMode.TEMP:

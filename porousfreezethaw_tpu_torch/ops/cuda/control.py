@@ -4,15 +4,16 @@ replays CUDA graphs of attempts.
 
 The counterpart of the JAX package's ``lax.while_loop`` controller
 (``porousfreezethaw_tpu/solvers/merson.py:135-385``), for the freezing
-attempt objects of ``stencil.py`` (float32) and the DEM's
-(``models/dem/attempt.py``, float64 or float32).  An attempt on the device
+attempt objects of ``stencil.py`` (float32) and those of a plain
+right-hand side (:class:`RHSAttempt`: the freezing ``PlainAttempt`` and
+the DEM's ``DEMAttempt``, float64 or float32).  An attempt on the device
 protocol is its five stages (the ``_dev`` entries of the stage kernels,
-which read their float32 scalars from the control block; or the DEM's
-plain PyTorch stages, which read the float64 coefficients ``hs`` through
-0-d views of it), ``merson_control`` (the step control of
-``merson_solve``'s loop body, ``csrc/control.cu``, on eps partials of
-either width) and ``commit`` (the accepted-state update, read from the
-accept flag on the device).  :class:`DeviceLoop` captures a block of
+which read their float32 scalars from the control block; or plain
+PyTorch stages, which read the float64 coefficients ``hs`` and stage
+times ``ts64`` through 0-d views of it), ``merson_control`` (the step
+control of ``merson_solve``'s loop body, ``csrc/control.cu``, on eps
+partials of either width) and ``commit`` (the accepted-state update,
+read from the accept flag on the device).  :class:`DeviceLoop` captures a block of
 ``BLOCK`` attempts once in a CUDA graph and replays it, reading the
 control block back once per replay, until the loop halts;
 ``solvers/merson.py merson_solve_device`` drives it.
@@ -49,7 +50,7 @@ import numpy as np
 import torch
 
 from ...models.freezing.delta import two_sum
-from ...solvers.merson import NAN_ABORT, pow_02
+from ...solvers.merson import NAN_ABORT, _leaves, merson_stages, pow_02
 
 # the attempts of one captured graph: a block that ends past the loop's
 # end costs its remaining attempts as empty launches (7 each on the
@@ -76,6 +77,7 @@ class Control(ctypes.Structure):
         ("h_min", ctypes.c_double), ("growth_min", ctypes.c_double),
         ("top1", ctypes.c_double), ("top2", ctypes.c_double),
         ("t_switch", ctypes.c_double), ("hs", ctypes.c_double * 4),
+        ("ts64", ctypes.c_double * 4),
         ("steps", ctypes.c_longlong), ("steps_total", ctypes.c_longlong),
         ("start_steps", ctypes.c_longlong),
         ("start_total", ctypes.c_longlong),
@@ -125,8 +127,9 @@ class ControlBlock:
     (the kernels') or on the CPU (the plain versions', which work on it in
     place through ``host``), with the eps partials (float32 or float64)
     and the trace it points at.  ``hs`` are 0-d float64 views of the
-    block's ``hs`` (h/3, h/6, h/8, h of the next attempt), which a stage
-    in PyTorch reads as tensors, so that a captured graph reads each
+    block's ``hs`` (h/3, h/6, h/8, h of the next attempt) and ``ts64`` of
+    its ``ts64`` (the stage times t, t + h/3, t + h/2, t + h), which a
+    stage in PyTorch reads as tensors, so that a captured graph reads each
     attempt's values and no host float is baked in."""
 
     def __init__(self, device: torch.device, eps: torch.Tensor):
@@ -141,9 +144,12 @@ class ControlBlock:
         self.host: Optional[Control] = (
             Control.from_address(self.buf.data_ptr())
             if device.type == "cpu" else None)
-        hs = self.buf[Control.hs.offset:][:Control.hs.size].view(
-            torch.float64)
-        self.hs = tuple(hs[i] for i in range(len(hs)))
+        self.hs, self.ts64 = (self._f64_views(f)
+                              for f in (Control.hs, Control.ts64))
+
+    def _f64_views(self, field) -> tuple:
+        arr = self.buf[field.offset:][:field.size].view(torch.float64)
+        return tuple(arr[i] for i in range(len(arr)))
 
     @property
     def on_device(self) -> bool:
@@ -176,11 +182,12 @@ def _f32(x: float) -> float:
 def next_scalars_plain(c: Control) -> None:
     """The scalars of the next attempt from ``c.t`` and ``c.h``, as the host
     loop's attempts form them (``csrc/control.cu`` ``next_scalars``): the
-    float64 coefficients h/3, h/6, h/8, h and the stage kernels' float32
-    scalars."""
+    float64 coefficients h/3, h/6, h/8, h, the float64 stage times and the
+    stage kernels' float32 scalars."""
     t, h = c.t, c.h
     c.hs[:] = [h / 3, h / 6, h / 8, h]
     t3, t2, t1 = t + h / 3, t + h / 2, t + h
+    c.ts64[:] = [t, t3, t2, t1]
 
     def top(ts):
         return c.top1 if ts < c.t_switch else c.top2
@@ -392,6 +399,45 @@ class DeviceAttempt:
         return loops[device]
 
 
+class RHSAttempt(DeviceAttempt):
+    """A Merson attempt of a plain PyTorch right-hand side ``rhs`` on the
+    device protocol: ``merson_solve``'s plain-RHS attempt operation for
+    operation (``merson_stages`` on the block's 0-d float64 views ``hs``
+    and, where ``timed``, ``ts64``; then per leaf the NaN-propagating max
+    of ``leaf_eps``'s error and the update ``y + (0.5 (K1 + K5) + 2 K4)
+    h/3``), ``merson_control`` and the copy commit of the update into the
+    state.  A 0-d float64 tensor in ``x * a`` rounds ``a`` to the field
+    dtype as a Python float does, so the two loops agree bit for bit.
+    The subclasses are the DEM's ``DEMAttempt`` (untimed: its right-hand
+    side reads no time) and the freezing ``PlainAttempt``.
+
+    ``_dev_alloc`` gives ``y`` and ``spec`` (one static tensor each),
+    ``leaves``, the state as ``rhs`` takes it (views of ``y``: a tensor or
+    a dict of tensors), and ``spec_leaves`` and ``eps_leaves`` of the
+    same structure (views of ``spec`` and 0-d views of ``eps``, one slot
+    a leaf in the field dtype).  These stages are PyTorch operations,
+    which cannot return early: each idle attempt of a block that ends
+    past the loop's end runs its five right-hand sides (the control
+    kernel sets accept to 0 and the commit copies nothing)."""
+
+    timed = True
+
+    def _dev_attempt(self, ctl: ControlBlock, b: dict) -> None:
+        y = b["leaves"]
+        ts = ctl.ts64 if self.timed else (None,) * 4
+        K1, K3, K4, K5 = merson_stages(self.rhs, y, ctl.hs, ts)
+        h3 = ctl.hs[0]
+
+        def leaf(yv, k1, k3, k4, k5, spec, eps):
+            torch.amax(torch.abs(0.2 * k1 - 0.9 * k3 + 0.8 * k4 - 0.1 * k5),
+                       out=eps)
+            torch.add(yv, (0.5 * (k1 + k5) + 2.0 * k4) * h3, out=spec)
+
+        _leaves(leaf, y, K1, K3, K4, K5, b["spec_leaves"], b["eps_leaves"])
+        merson_control(ctl)
+        commit(ctl, COMMIT_COPY, b["y"], src=b["spec"])
+
+
 class DeviceLoop:
     """The device-resident loop of one attempt object on one device: its
     static buffers, its control block and its graph of ``BLOCK``
@@ -456,6 +502,14 @@ class DeviceLoop:
             c = self.ctl.read()
             if c.halt:
                 return c
+
+    def resume(self, c: Control) -> None:
+        """Continue a halted, unfinished solve from its block ``c`` (as
+        ``run`` returned it) for another ``max_steps`` attempts: the same
+        loop state, a new count and trace."""
+        c = c.copy()
+        c.start_steps, c.start_total, c.halt = c.steps, c.steps_total, 0
+        self.ctl.write(c)
 
     def trace(self):
         return (self.ctl.t_tr.cpu(), self.ctl.h_tr.cpu())

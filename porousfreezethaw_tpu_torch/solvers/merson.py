@@ -33,7 +33,8 @@ loop in Python and reads eps back with one device sync per attempt; the
 service callback is a plain Python call after each accepted step.
 ``merson_solve_device``, the counterpart of the JAX package's
 ``lax.while_loop``, runs it on the device for the attempt objects of
-ops/cuda/stencil.py and the DEM's (models/dem/attempt.py): the step
+ops/cuda/stencil.py and those of a plain right-hand side
+(models/freezing/attempt.py, models/dem/attempt.py): the step
 control and the commit are kernels (ops/cuda/control.py), a block of
 attempts is one CUDA graph, and the host reads the control block back
 once per block; it gives the host loop's bits.  Both take the growth factor's power from ``pow_02``, the
@@ -137,6 +138,24 @@ def _axpy(a: float, x, y):
     which PyTorch rounds to the field dtype first, so f64 controller
     scalars never upcast f32 fields."""
     return _leaves(lambda yv, xv: yv + xv * a, y, x)
+
+
+def merson_stages(rhs, y, hs, ts):
+    """The five stages of a plain-RHS Merson attempt from ``y``:
+    (K1, K3, K4, K5).  ``hs`` are the coefficients (h/3, h/6, h/8, h) and
+    ``ts`` the stage times (t, t + h/3, t + h/2, t + h): Python floats in
+    the host loop, 0-d float64 views of the control block in the device
+    loop's attempts (ops/cuda/control.py ``RHSAttempt``), which thus run
+    the host loop's operations one for one."""
+    h3, h6, h8, h = hs
+    t, t3, t2, t1 = ts
+    K1 = rhs(t, y)
+    K2 = rhs(t3, _axpy(h3, K1, y))
+    K3 = rhs(t3, _axpy(h6, _leaves(torch.add, K1, K2), y))
+    K4 = rhs(t2, _axpy(h8, _leaves(lambda a, b: a + 3.0 * b, K1, K3), y))
+    K5 = rhs(t1, _axpy(h, _leaves(
+        lambda a, b, c: 0.5 * a - 1.5 * b + 2.0 * c, K1, K3, K4), y))
+    return K1, K3, K4, K5
 
 
 def _leaves(fn, *trees):
@@ -283,13 +302,8 @@ def merson_solve(
             else:
                 K5 = stage_fn(t + h, h, y, [(0.5, K1), (-1.5, K3), (2.0, K4)])
         else:
-            K1 = rhs(t, y)
-            K2 = rhs(t + h3, _axpy(h3, K1, y))
-            K3 = rhs(t + h3, _axpy(h6, _leaves(torch.add, K1, K2), y))
-            K4 = rhs(t + h2, _axpy(
-                h8, _leaves(lambda a, b: a + 3.0 * b, K1, K3), y))
-            K5 = rhs(t + h, _axpy(h, _leaves(
-                lambda a, b, c: 0.5 * a - 1.5 * b + 2.0 * c, K1, K3, K4), y))
+            K1, K3, K4, K5 = merson_stages(rhs, y, (h3, h6, h8, h),
+                                           (t, t + h3, t + h2, t + h))
 
         steps_total += 1
         if carry_spec is not None or y_spec is not None:
@@ -387,7 +401,7 @@ def merson_solve(
 
 
 def merson_solve_device(state: MersonState, final_time: float,
-                        params: MersonParams, attempt_fn):
+                        params: MersonParams, attempt_fn, between=None):
     """``merson_solve(None, state, final_time, params,
     attempt_fn=attempt_fn)`` with the loop on the device: the counterpart
     of the JAX package's ``lax.while_loop`` solve.  Returns what
@@ -397,8 +411,9 @@ def merson_solve_device(state: MersonState, final_time: float,
     ``attempt_fn`` is an attempt object on the device protocol
     (ops/cuda/control.py ``DeviceAttempt``: ``DeltaAttempt``,
     ``DeltaAttemptComp``, ``FusedAttempt``, ``StageAttempt`` on a float32
-    freezing state; models/dem/attempt.py ``DEMAttempt`` on the DEM's dict
-    state, float64 or float32).  The prologue forms h in float64 here and
+    freezing state; models/freezing/attempt.py ``PlainAttempt`` on a
+    float64 or float32 one; models/dem/attempt.py ``DEMAttempt`` on the
+    DEM's dict state, float64 or float32).  The prologue forms h in float64 here and
     writes the control block; each attempt's step control is the
     ``merson_control`` kernel and its commit the ``commit`` kernel,
     reading the accept flag on the device.  On the card the loop replays a
@@ -408,12 +423,23 @@ def merson_solve_device(state: MersonState, final_time: float,
     ``max_steps`` attempts in this call).  For a state on the CPU, or an object built with
     ``plain=True``, the same loop runs the plain versions attempt by
     attempt, with no graph.  Nothing falls back to the host loop: a failed
-    capture or launch raises.  There is no service callback: a caller
-    records the trace (``record_trace``) and drains it between calls, as
-    the JAX app's chunked branch does.
+    capture or launch raises.  There is no per-step service callback: a
+    caller records the trace (``record_trace``) and drains it between
+    chunks of ``max_steps`` attempts.
+
+    ``between(t_trace, h_trace, n, steps)``, if given, makes the call run
+    to its end in such chunks: it is called after each chunk with the
+    trace of its ``n`` accepted steps, ``steps`` the count before them; a
+    True return ends the call there, else a chunk that did not end the
+    solve is followed by the next one on the same control block.  Unlike a
+    new call after a ``MAX_STEPS`` exit, that keeps the untrimmed
+    continuation h when a chunk ends between the step that trims the last
+    one and the last one itself, so the chunks give one call's bits.
     """
     if params.delta_mode not in ("global", "local"):
         raise ValueError(f"unknown delta_mode {params.delta_mode!r}")
+    if between is not None and not params.record_trace:
+        raise ValueError("between= drains the trace: set record_trace")
     tf = float(final_time)
     t0, h, h_cont, prefinished = _prologue(state, tf)
     y = _flat(state.y)[0]
@@ -421,7 +447,16 @@ def merson_solve_device(state: MersonState, final_time: float,
     loop.begin(state.y, t=t0, h=h, h_cont=h_cont, steps=int(state.steps),
                steps_total=int(state.steps_total), finished=prefinished,
                tf=tf, params=params)
-    c = loop.run()
+    prev = int(state.steps)
+    while True:
+        c = loop.run()
+        if between is None:
+            break
+        t_tr, h_tr = loop.trace()
+        if between(t_tr, h_tr, int(c.steps) - prev, prev) or c.done:
+            break
+        prev = int(c.steps)
+        loop.resume(c)
     done = bool(c.done)
     # normal exits continue from the untrimmed estimate; a max_steps exit
     # must resume from the current working step

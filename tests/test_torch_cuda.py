@@ -2,7 +2,8 @@
 PyTorch version at a small odd shape, the double-buffered attempt against
 the fused_stage chain, short solves whose launch counters show that every
 attempt went through the kernels, the device-resident loop against the
-host loop bit for bit (the freezing paths, and the DEM's with the control
+host loop bit for bit (the freezing paths, the plain right-hand side's
+in f64 and in f32 with a noise field, and the DEM's, with the control
 and commit kernels in float64 and float32), and the shard kernels (K1s,
 K3, K2s):
 against their plain versions, and the mesh paths on virtual shards of the
@@ -453,6 +454,101 @@ def test_dem_device_loop_equals_host_loop(dev, dtype, neighbor):
         assert all(torch.equal(a[0].y[k], b[0].y[k]) for k in a[0].y)
         sa, sb = a[0], b[0]
     assert sb.steps > 60 and sb.t > 0.0
+    assert att.device_loop(dev).capture_s > 0.0
+
+
+# --------------------------------------------------------------------------
+# the plain-RHS freezing solve on the device loop (f64, f32 with noise)
+# --------------------------------------------------------------------------
+
+def test_stage_times_of_the_control_kernel(dev):
+    """The control kernel's float64 stage times (ts64) after a step equal
+    control_plain's, over random (t, h): the host loop's Python floats."""
+    from porousfreezethaw_tpu_torch.ops.cuda import control
+    rng = np.random.default_rng(10)
+    for t, h in zip((10.0 ** rng.uniform(-6, 5, 200)).tolist(),
+                    (10.0 ** rng.uniform(-9, 2, 200)).tolist()):
+        got = {}
+        for where in ("kernel", "plain"):
+            d = dev if where == "kernel" else torch.device("cpu")
+            eps = torch.zeros(1, dtype=torch.float64, device=d)
+            block = control.ControlBlock(d, eps)
+            c = control.Control(t=t, h=h, h_cont=h, tf=1e12, delta=1e-3,
+                                max_steps=2**62, eps=eps.data_ptr(),
+                                eps_n=1, eps_f64=1)
+            control.next_scalars_plain(c)
+            block.write(c)
+            control.merson_control(block)
+            got[where] = [float(v) for v in block.ts64]
+        c = block.read()
+        assert got["kernel"] == got["plain"] == [
+            c.t, c.t + c.h / 3, c.t + c.h / 2, c.t + c.h]
+
+
+def _plain_case(dev, name):
+    """(rhs, state, MersonParams keywords, params) at SHAPE on dev:
+    'f64_<mode>' (the benchmark case's parameters) or 'noise_f32' (GradP,
+    u stored as u - u*, a noise field of amplitude 0.5)."""
+    from porousfreezethaw_tpu_torch.models.freezing.equation import (
+        make_noise_field, make_rhs)
+    pf = parse_param_file(freezing_params_text(100, 0),
+                          env={"OUTPUT": "unused"})
+    prm = FreezingParams.from_dict(pf.vars)
+    geom = GridGeometry(0.03, 0.03, 0.06, SHAPE[2], SHAPE[1], SHAPE[0])
+    rng = np.random.default_rng(4)
+    w = np.stack([6.0 * (rng.random(SHAPE) - 0.5), rng.random(SHAPE),
+                  0.6 * rng.random(SHAPE)])
+    if name == "noise_f32":
+        prm = shift_temperature_origin(prm, prm.u_star)
+        noise = 0.5 * (rng.random(SHAPE) - 0.5)
+        return (make_rhs(geom, prm, 0, dev, noise=noise.astype(np.float32)),
+                torch.from_numpy(w.astype(np.float32)).to(dev),
+                dict(handle_nan=True, accept_growth_min=1.05), prm)
+    w[0] += prm.u_star
+    return (make_rhs(geom, prm, int(name.split("_")[1]), dev),
+            torch.from_numpy(w).to(dev), {}, prm)
+
+
+@pytest.mark.parametrize("name", ["f64_0", "f64_1", "f64_2", "f64_10",
+                                  "f64_11", "noise_f32"])
+def test_plain_device_loop_equals_host_loop(dev, name):
+    """PlainAttempt through merson_solve_device (CUDA graphs of attempts of
+    the plain right-hand side, its stage times read from the control
+    block; the control and commit kernels in the field's width) against
+    merson_solve on the card, from 0.01 s below the Dirichlet switch
+    across it, in 4 calls of 25 attempts with a trace: bit for bit; the
+    control and commit launches count whole blocks and the idle attempt
+    before the capture."""
+    from porousfreezethaw_tpu_torch.models.freezing.attempt import (
+        PlainAttempt)
+    from porousfreezethaw_tpu_torch.models.freezing.equation import (
+        dirichlet_at)
+    from porousfreezethaw_tpu_torch.ops.cuda import control
+    rhs, y0, kw, prm = _plain_case(dev, name)
+    att = PlainAttempt(rhs, SHAPE, y0.dtype)
+    params = MersonParams(delta=1e-3, h_min=1e-6, max_steps=25,
+                          record_trace=25, **kw)
+    counter = ("launches_f64" if y0.dtype == torch.float64
+               else "launches")
+    t0 = prm.phase_switch_time - 1e-2
+    sa = sb = merson_init(y0, t0, 1e-6)
+    for call in range(4):
+        a = merson_solve(rhs, sa, t0 + 1.0, params)
+        before = getattr(control.commit, counter)
+        b = merson_solve_device(sb, t0 + 1.0, params, att)
+        n = b[0].steps_total - sb.steps_total
+        blocks = -(-n // control.BLOCK)
+        assert getattr(control.commit, counter) - before == (
+            control.BLOCK * blocks + (call == 0))
+        assert a[1] == b[1]
+        assert (a[0].t, a[0].h, a[0].steps, a[0].steps_total) == (
+            b[0].t, b[0].h, b[0].steps, b[0].steps_total)
+        assert torch.equal(a[0].y, b[0].y)
+        assert all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
+        sa, sb = a[0], b[0]
+    assert dirichlet_at(sb.t, prm, y0.dtype) == dirichlet_at(
+        prm.phase_switch_time, prm, y0.dtype)
+    assert torch.isfinite(sb.y).all()
     assert att.device_loop(dev).capture_s > 0.0
 
 

@@ -31,7 +31,7 @@ def test_port_imports_no_jax():
         "models.dem.icond", "models.dem.coupling", "models.dem.forces",
         "solvers.merson", "solvers.rk4", "solvers.dopri", "io.csv_snaps",
         "io.exporters", "convert", "ops.cuda.control",
-        "models.dem.attempt")} <= set(names)
+        "models.dem.attempt", "models.freezing.attempt")} <= set(names)
     code = (
         "import importlib, sys\n"
         "import porousfreezethaw_tpu_torch.apps.intertrack\n"

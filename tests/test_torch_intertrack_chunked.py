@@ -5,7 +5,9 @@ against the host-loop branch on the 12-node case of
 tests/test_intertrack_app.py:
 the same snapshots byte for byte and the same RK debug log lines (step,
 t, tau, snapshot; not the wall-clock fields) for the increment form, its
-compensated commit and the classic stage; a trigger file taken at the
+compensated commit and the classic stage, and for the plain right-hand
+side in f64 and in f32 with a noise field, across the Dirichlet top's
+switch; an f64 mesh run keeping the host loop; a trigger file taken at the
 next chunk boundary, after which the run goes on as if untriggered; and
 PFT_SERVICE_CHUNK's check."""
 
@@ -29,7 +31,7 @@ STEP = re.compile(r"step (\d+), t=\s*(\S+), tau=\s*(\S+), .*"
                   r"Est\. time to snapshot (\d+) \(t=\s*(\S+)\)")
 
 
-def run(out_dir, params_text, controller):
+def run(out_dir, params_text, controller, precision="f32", extra_argv=()):
     """The app on the CPU with the step control ``controller``, "host" (its
     own on the CPU) or "device" (the chunked branch); (its log, the RK
     debug log's step fields)."""
@@ -43,8 +45,8 @@ def run(out_dir, params_text, controller):
                    if controller == "device" else intertrack.uses_device_loop)
     try:
         with mock.patch.object(intertrack, "uses_device_loop", device_loop):
-            rc = torch_main([str(pfile), "--precision", "f32", "--device",
-                             "cpu"])
+            rc = torch_main([str(pfile), "--precision", precision,
+                             "--device", "cpu", *extra_argv])
     finally:
         if old is None:
             os.environ.pop("OUTPUT", None)
@@ -57,14 +59,24 @@ def run(out_dir, params_text, controller):
     return log, steps
 
 
-@pytest.mark.parametrize("extra", ["", "compensated_commit 1\n",
-                                   "increment_form 0\n"],
-                         ids=["delta", "compensated", "stage"])
-def test_chunked_branch_equals_host_loop(tmp_path, monkeypatch, extra):
+# the plain right-hand side's paths (models/freezing/attempt.py
+# PlainAttempt) cross the Dirichlet top's switch at t = 3.7 s
+SWITCH = "phase_switch_time 3.7\n"
+
+
+@pytest.mark.parametrize("precision,extra", [
+    pytest.param("f32", "", id="delta"),
+    pytest.param("f32", "compensated_commit 1\n", id="compensated"),
+    pytest.param("f32", "increment_form 0\n", id="stage"),
+    pytest.param("f64", SWITCH, id="f64"),
+    pytest.param("f32", "u_noise_amp 0.5\n" + SWITCH, id="noise_f32")])
+def test_chunked_branch_equals_host_loop(tmp_path, monkeypatch, precision,
+                                         extra):
     monkeypatch.setenv("PFT_SERVICE_CHUNK", str(CHUNK))
-    log_h, steps_h = run(tmp_path / "host", BASE + extra, "host")
-    log_d, steps_d = run(tmp_path / "device", BASE + extra, "device")
-    assert "Step control: host loop" in log_h
+    log_h, steps_h = run(tmp_path / "host", BASE + extra, "host", precision)
+    log_d, steps_d = run(tmp_path / "device", BASE + extra, "device",
+                         precision)
+    assert "Step control: host loop (--device cpu)" in log_h
     assert f"chunks of {CHUNK} attempts" in log_d
     # more accepted steps than one chunk holds: several chunks drained
     assert len(steps_d) > 2 * CHUNK
@@ -76,6 +88,17 @@ def test_chunked_branch_equals_host_loop(tmp_path, monkeypatch, extra):
     counts = [re.search(r"Successful R-K steps: (\d+) of (\d+)", lg).groups()
               for lg in (log_h, log_d)]
     assert counts[0] == counts[1]
+
+
+def test_mesh_keeps_the_host_loop(tmp_path, monkeypatch):
+    """With the device loop taken wherever an attempt object exists, an
+    f64 run on a z2 mesh (the plain right-hand side with halo copies)
+    still runs the host loop, and its log says why."""
+    monkeypatch.setenv("PFT_SERVICE_CHUNK", str(CHUNK))
+    log, steps = run(tmp_path, BASE, "device", "f64", ("--mesh", "z2"))
+    assert "Plain right-hand side with halo copies" in log
+    assert "Step control: host loop (sharded over a mesh)" in log
+    assert steps
 
 
 def test_trigger_file_taken_at_the_chunk_boundary(tmp_path, monkeypatch):

@@ -464,4 +464,4 @@ def test_control_block_layout_matches_header():
         decl = re.sub(r"^(const\s+)?(long\s+long|\w+)\s*\**", "", decl)
         names += [re.sub(r"[\s*]|\[\d+\]", "", n) for n in decl.split(",")]
     assert names == [n for n, _ in ctl_mod.Control._fields_]
-    assert ctypes.sizeof(ctl_mod.Control) == 272
+    assert ctypes.sizeof(ctl_mod.Control) == 304
