@@ -93,25 +93,31 @@ Run from the root of a checkout.  Phases, one JSON line each:
             (fused_stage_shard), K3 (its interior/edge split,
             fused_stage_split), K2s (delta_g_shard) and its emit="dy" tail
             (delta_g_shard_dy) against their plain versions at MR shards
-            (and two at the tiles' edges); K2s also timed with its inputs
-            cold in L2, K3's interior and edge passes each on its own,
-            beside one launch's floor;
-            sharded against single-device bit for bit at MR on z1, z2,
-            z4, z2,y2, y2 and z2,y3 (y windows of unequal height; overlap
-            on and off); their times; MR solves
-            of 100 attempts at z4 and z2,y2 against the single-device
-            paths (the same counts and state bits); the LR GradP golden
-            through run_iteration at z4 (plain and compensated) and
-            through the app with --mesh z1, each giving the counts and
-            snapshot bytes of the run without a mesh; the bench's MR mesh
-            rows
-            The plain right-hand side with halo copies (parallel/halo.py,
-            the app's branch for every other mesh) against the
-            single-device plain path: MR GradP f32 classic on z2,y2 (100
-            attempts) and LR GradP f32 with a noise field at z2 (50), the
-            same counts and state bits; the LR Temp golden (f64) through
-            run_iteration at z3 (windows of 34, 33, 33 planes), the
-            single-device run's counts and snapshot bytes
+            (and two at the tiles' edges); their _dev entries (the device
+            loop's) against the by-value entries bit for bit at MR shards
+            (every stage, the top shard's Dirichlet top, uneven y windows,
+            the tiles' edges, calc modes 0/1/2, t on each side of the
+            switch) and idle on a halted block; K2s also timed with its
+            inputs cold in L2, K3's interior and edge passes each on its
+            own, beside one launch's floor; sharded against single-device
+            bit for bit at MR on z1, z2, z4, z2,y2, y2 and z2,y3 (y
+            windows of unequal height; overlap on and off); their times;
+            each mesh path through the device loop (CUDA graphs of BLOCK
+            attempts on the shard kernels' _dev entries) and the host loop
+            on the same mesh and the single-device device loop, bit for
+            bit: MR solves of 100 attempts at z4 (delta, compensated,
+            classic with the overlap split) and z2,y2, and of the plain
+            halo path (MR classic f32 on z2,y2 and LR GradP f32 with a
+            noise field at z2, 64 attempts), with ms/attempt, device
+            ms/attempt and busy share of both loops (torch.profiler), the
+            capture time and the capturing run's memory peak; the LR
+            Temp golden (f64) through run_iteration at z3 (windows of 34,
+            33, 33 planes) on the halo device loop, the single-device
+            run's counts and snapshot bytes; the LR GradP golden through
+            run_iteration at z4 (plain and compensated) and through the
+            app with --mesh z1, on the app's chunked device loop, each
+            giving the counts and snapshot bytes of the run without a
+            mesh; the bench's MR mesh rows on the device loop
 8. dem      the spheres DEM (its right-hand side plain PyTorch; the
             control and commit kernels in float64 on the device loop): the
             dense right-hand side of the four variants at n = 200 on the
@@ -124,9 +130,12 @@ Run from the root of a checkout.  Phases, one JSON line each:
             each loop, the graph's capture time, the idle attempts' cost;
             the main path of commit_f64_dem, the float64 copy at the
             DEM's shape); the
-            particle-sharded dense term on p4 virtual shards (the host
-            loop), its right-hand side and the short solve's counts and
-            state bit for bit against one device; the bench's dense
+            particle-sharded dense term on virtual shards: its
+            right-hand side on p4 bit for bit against one device, and the
+            short solve on p2 through the device loop (DEMAttempt on the
+            shards' dicts) and the host loop, bit for bit, with the
+            single-device counts and state bits and both loops'
+            ms/attempt; the bench's dense
             dem_200 and dem_2000 rows (f32, the device loop) at reduced
             steps, with their launches, capture time and peak memory
 9. dem_cells  the DEM cell list (models/dem/forces.py): cell_lanes and
@@ -167,9 +176,10 @@ golden (the app's device loop) for fused_stage, delta_g, merson_control
 and commit, the f64 LR Temp golden (the app's device loop) for
 merson_control_f64 and commit_f64, the compensated golden for
 delta_g_dy, the bench's --fused attempt row for fused_attempt, the golden
-at z4 for fused_stage_split and delta_g_shard, the compensated golden at
-z4 for delta_g_shard_dy, the bench's z1,y1 row for fused_stage_shard, the
-DEM's short f64 solve through the device loop for commit_f64_dem.
+at z4 (the app's device loop) for fused_stage_split and delta_g_shard,
+the compensated golden at z4 for delta_g_shard_dy, the bench's z1,y1 row
+(the device loop) for fused_stage_shard, the DEM's short f64 solve
+through the device loop for commit_f64_dem.
 
 It exits non-zero, before printing the final line, when CUDA is missing or
 any phase fails.  A run of every phase of PHASES (optional phases may be
@@ -231,8 +241,15 @@ F32_FLOP_PER_S = 67e12
 STAGE_OPS, DELTA_OPS, OPS_PER_K, TAIL_OPS = 160, 310, 20, 30
 
 
+_START = time.perf_counter()
+
+
 def emit(phase: str, **kv) -> None:
-    print(json.dumps({"phase": phase, **kv}), flush=True)
+    """One JSON line of a phase, with the seconds since the script began
+    (``at_s``)."""
+    print(json.dumps({"phase": phase, **kv,
+                      "at_s": round(time.perf_counter() - _START, 1)}),
+          flush=True)
 
 
 def sh(cmd) -> str:
@@ -1098,8 +1115,12 @@ def _controller_rows(dev, prm, errs) -> dict:
         hi.copy_(src)
 
     copy_ms = _time(library_copy, 48)
+    # copy_'s device time, to set beside the commit's device_ms: inside a
+    # graph only the device time of a launch counts
+    copy_device_ms = _queued_ms(library_copy, 48)
     emit("controller_kernel_times", shape=list(shape), eps_slots=n_eps,
-         ms=times, library_copy_ms=copy_ms)
+         ms=times, library_copy_ms=copy_ms,
+         library_copy_device_ms=copy_device_ms)
 
     def avg(key, *impls):
         return float(np.mean([times[i][key] for i in impls]))
@@ -1112,7 +1133,8 @@ def _controller_rows(dev, prm, errs) -> dict:
              f"one step on {n_eps} eps partials (MR DeltaAttempt)"),
             ("commit", "commit", 2 * plane_bytes, 0, copy_ms, "control.cu",
              "the accepted copy of (u, p) at MR, its planes cold in L2; "
-             "library_ms: one Tensor.copy_")):
+             "library_ms: one Tensor.copy_, library_device_ms its "
+             "device time")):
         bound_ms = max(nbytes / HBM_BYTES_PER_S,
                        ops / F64_FLOP_PER_S) * 1e3
         out[name] = dict(
@@ -1134,6 +1156,7 @@ def _controller_rows(dev, prm, errs) -> dict:
             bound_share=bound_ms / avg(key, "kernel_device"),
             timed=what + TIMED_BY)
     out["commit"]["twosum_device_ms"] = avg("commit_twosum", "kernel_device")
+    out["commit"]["library_device_ms"] = copy_device_ms
     return out
 
 
@@ -1185,9 +1208,13 @@ def _controller_rows_f64(dev, prm, errs) -> dict:
 
     copy_ms = {shape: _time(lambda: library_copy(shape), 48)
                for shape in (lr, dem)}
+    copy_device_ms = {shape: _queued_ms(lambda: library_copy(shape), 48)
+                      for shape in (lr, dem)}
     emit("controller_kernel_times", dtype="float64", shapes=[lr, dem],
          eps_slots=1, ms=times,
-         library_copy_ms={str(k): v for k, v in copy_ms.items()})
+         library_copy_ms={str(k): v for k, v in copy_ms.items()},
+         library_copy_device_ms={str(k): v
+                                 for k, v in copy_device_ms.items()})
 
     def avg(key, *impls):
         return float(np.mean([times[i][key] for i in impls]))
@@ -1198,10 +1225,12 @@ def _controller_rows_f64(dev, prm, errs) -> dict:
              "one step on the f64 LR golden's one float64 partial"),
             ("commit_f64", "commit", lr, 0, copy_ms[lr],
              f"the accepted copy of the f64 LR golden's state {lr}, its "
-             f"planes cold in L2; library_ms: one Tensor.copy_"),
+             f"planes cold in L2; library_ms: one Tensor.copy_, "
+             f"library_device_ms its device time"),
             ("commit_f64_dem", "commit_dem", dem, 0, copy_ms[dem],
              f"the accepted copy of the float64 DEM state {dem}; "
-             f"library_ms: one Tensor.copy_")):
+             f"library_ms: one Tensor.copy_, library_device_ms its "
+             f"device time")):
         nbytes = (8 + 2 * ctypes.sizeof(ctl.Control) if shape is None
                   else 2 * 8 * int(np.prod(shape)))
         bound_ms = max(nbytes / HBM_BYTES_PER_S,
@@ -1228,6 +1257,8 @@ def _controller_rows_f64(dev, prm, errs) -> dict:
             library_ms=library, device_ms=avg(key, "kernel_device"),
             bound_share=bound_ms / avg(key, "kernel_device"),
             timed=what + TIMED_BY)
+        if shape is not None:
+            out[name]["library_device_ms"] = copy_device_ms[shape]
     return out
 
 
@@ -1432,8 +1463,10 @@ PER_ATTEMPT = {"delta": {"fused_stage": 1, "delta_g": 4},
 DEVICE_LOOP = {"merson_control": 1, "commit": 1}
 
 # the counter of each kernel, by the name of its __global__ function
-KERNEL_COUNTERS = (("fused_stage_kernel", ("fused_stage",)),
-                   ("delta_g_kernel", ("delta_g", "delta_g_dy")),
+KERNEL_COUNTERS = (("fused_stage_kernel", ("fused_stage", "fused_stage_shard",
+                                           "fused_stage_split")),
+                   ("delta_g_kernel", ("delta_g", "delta_g_dy",
+                                       "delta_g_shard", "delta_g_shard_dy")),
                    ("fused_attempt_kernel", ("fused_attempt",)),
                    ("merson_control_kernel", ("merson_control",
                                               "merson_control_f64")),
@@ -1457,11 +1490,18 @@ def _graph_attempts(calls, captures=0) -> int:
 def _path_attempts(launches, path, device_loop) -> int:
     """The attempt launches that ``launches`` (by counter) hold on
     ``path``: one number for every kernel of the path, else an error."""
-    per = dict(PER_ATTEMPT[path], **(DEVICE_LOOP if device_loop else {}))
+    return _attempts_of(launches, dict(
+        PER_ATTEMPT[path], **(DEVICE_LOOP if device_loop else {})), path)
+
+
+def _attempts_of(launches, per, what) -> int:
+    """The attempt launches that ``launches`` (by counter) hold of an
+    attempt of ``per`` launches by counter: one number for every counter
+    of ``per``, and no launch of another, else an error."""
     ms = {launches.get(k, 0) / v for k, v in per.items()}
     others = {k: c for k, c in launches.items() if c and k not in per}
     if len(ms) != 1 or others or not float(next(iter(ms))).is_integer():
-        raise AssertionError(f"{path}: launches {launches} are not whole "
+        raise AssertionError(f"{what}: launches {launches} are not whole "
                              f"attempts of {per}")
     return int(ms.pop())
 
@@ -1497,13 +1537,13 @@ def _traced_run(st, run, same, what):
     from torch.profiler import ProfilerActivity, profile
     lost = []
     for _ in range(PROFILE_TRIES):
-        _reset_counters(st)
+        _reset_all(st)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             res = run()
             torch.cuda.synchronize()
-        counted = _counters(st)
+        counted = _all_counters(st)
         if not same(res):
             raise AssertionError(f"{what}: the profiled run's result "
                                  f"differs")
@@ -1984,7 +2024,7 @@ def _app_run(dev, golden: str, precision: str, extra: str = "",
         os.environ["OUTPUT"] = out
         own = intertrack.uses_device_loop
         if controller == "host":
-            intertrack.uses_device_loop = lambda device, dev_attempt: False
+            intertrack.uses_device_loop = lambda device, mesh: False
         _reset_counters(st)
         t0 = time.perf_counter()
         try:
@@ -2529,69 +2569,295 @@ def _queued_ms(fn, reps):
     return ev[1].elapsed_time(ev[2]) / reps
 
 
-def _mesh_solves(dev):
-    """MR GradP f32, MESH_ATTEMPTS attempts from the bench's start state:
-    each sharded path against its single-device counterpart, the same
-    steps, attempts, t, h and final state bits."""
+def _mesh_dev_entries(dev):
+    """The shard kernels' _dev entries (fused_stage_shard_dev: K1s and
+    K3's interior and edge parts; delta_g_shard_dev: K2s and K2s-dy)
+    against their by-value entries at MR shards, bit for bit (outputs and
+    eps slots): every stage of both kernels, the scalars from a control
+    block with t on each side of the phase switch, calc modes 0/1/2; the
+    shards: a z4 shard, the top z4 shard (the classic stage's Dirichlet
+    top in the by-value entry's ghost stack, decided by the kernel in the
+    _dev entry, is_top), the two y shards of z2,y2 (uneven windows: one
+    at each y chain end) and the tiles' edges; then a halted block, on
+    which both write nothing."""
+    from porousfreezethaw_tpu_torch.core.grid import GridGeometry
+    from porousfreezethaw_tpu_torch.ops.cuda import control as ctl
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
+
+    _, prm = _mr_params()
+    w, ks = _inputs(MR_SHAPE, dev, np.random.default_rng(SEED + 14))
+    geom = GridGeometry(0.03, 0.03, 0.06, MR_SHAPE[2], MR_SHAPE[1],
+                        MR_SHAPE[0])
+    Z, Y, X = MR_SHAPE
+    zq, half = Z // 4, Y // 2
+    shards = (((zq, 2 * zq), slice(None), (0, Y, 0)),
+              ((Z - zq, Z), slice(None), (0, Y, 0)),
+              ((Z // 2, Z), slice(0, half + 1), (0, half, 0)),
+              ((0, Z // 2), slice(half - 1, None), (1, half, half)),
+              ((zq, 2 * zq), slice(half - 1, half + 2), (1, 1, half)),
+              ((Z - 3, Z), slice(86, None), (1, 13, 87)))
+    classic = [(q, cs, s5) for q, (cs, s5) in enumerate(
+        STAGE_CASES.values())]
+    delta = [(q, cs, s5) for q, (cs, s5) in enumerate(
+        DELTA_CASES.values(), 1)]
+    h, n_cmp = 0.05, 0
+    for mode in (0, 1, 2):
+        spec = st.StencilSpec.of(geom, prm, mode)
+        for t in (prm.phase_switch_time - 0.5 * h,
+                  prm.phase_switch_time + 1.0):
+            c = _control_block(prm, t=t, h=h)
+            block = ctl.ControlBlock(dev, torch.zeros(1, device=dev))
+            block.write(c)
+            pairs = []
+            for (lo, hi), rows, win in shards:
+                top, zl, Yl = hi == Z, hi - lo, win[1]
+
+                def slots(fn, *a):
+                    return st._eps_blocks(fn, dev, mode, *a)
+                for q, cs, s5 in classic:
+                    ws, kk, g = _shard_case(w, ks, len(cs), (lo, hi), rows)
+                    kk = list(zip(cs, kk))
+                    gd = (st._dirichlet_ghost(spec, c.ts[q], g, len(cs))
+                          if top else g)
+                    args = (spec, c.ts[q], c.h32, ws, kk)
+                    n_all = slots("pft_stage_eps_blocks", 0, zl, Yl, X)
+                    n_int = slots("pft_stage_eps_blocks", 1, zl, Yl, X)
+                    n_edge = slots("pft_stage_eps_blocks", 2, zl, Yl, X)
+                    for split in (False, True):
+                        if split:
+                            prev = st.fused_stage_shard(
+                                *args, None, window=win, stage5=s5,
+                                part="interior")
+                            ref = st.fused_stage_shard(
+                                *args, gd, window=win, stage5=s5,
+                                part="edge", prev=prev if s5 else (prev,))
+                        else:
+                            ref = st.fused_stage_shard(*args, gd, window=win,
+                                                       stage5=s5)
+                        out = torch.empty((2, zl, Yl, X), device=dev)
+                        eps = torch.empty(n_int + n_edge if split else n_all,
+                                          device=dev)
+                        parts = ((("interior", None, eps[:n_int]),
+                                  ("edge", g, eps[n_int:])) if split
+                                 else (("all", g, eps),))
+                        for part, g_, e in parts:
+                            st.fused_stage_shard_dev(
+                                spec, block, q, ws, kk, g_, out, is_top=top,
+                                window=win, stage5=s5, part=part,
+                                eps=e if s5 else None)
+                        pairs.append((ref, (out, eps) if s5 else out))
+                for q, cs, s5 in delta:
+                    ws, kk, g = _shard_case(w, ks, len(cs), (lo, hi), rows)
+                    kk = list(zip(cs, kk))
+                    for emit_ in (("y", "dy") if s5 else ("y",)):
+                        kw = dict(is_top=top, window=win, stage5=s5,
+                                  emit=emit_)
+                        ref = st.delta_g_shard(spec, c.h32, c.D1, c.dD[q],
+                                               ws, kk, g, **kw)
+                        out = torch.empty((2, zl, Yl, X), device=dev)
+                        eps = torch.empty(slots(
+                            "pft_delta_eps_blocks", 2 if emit_ == "dy" else 1,
+                            zl, Yl, X), device=dev)
+                        st.delta_g_shard_dev(spec, block, q, ws, kk, g, out,
+                                             eps=eps if s5 else None, **kw)
+                        pairs.append((ref, (out, eps) if s5 else out))
+            torch.cuda.synchronize()
+            for ref, got in pairs:
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                got = got if isinstance(got, tuple) else (got,)
+                if not all(torch.equal(a, b) for a, b in zip(ref, got)):
+                    raise AssertionError(
+                        f"a shard _dev entry differs from its by-value "
+                        f"entry (mode {mode}, t {t}, pair {n_cmp})")
+                n_cmp += 1
+    # a halted block: both _dev entries return at once
+    c = _control_block(prm, halt=1)
+    block = ctl.ControlBlock(dev, torch.zeros(1, device=dev))
+    block.write(c)
+    spec = st.StencilSpec.of(geom, prm, 0)
+    (lo, hi), rows, win = shards[1]
+    ws, kk, g = _shard_case(w, ks, 3, (lo, hi), rows)
+    kk = list(zip(DELTA_CASES["stage5"][0], kk))
+    out = torch.full((2, hi - lo, Y, X), 7.0, device=dev)
+    eps = torch.full((st._eps_blocks("pft_stage_eps_blocks", dev, 0, 0,
+                                     hi - lo, Y, X),), 7.0, device=dev)
+    eps_d = torch.full((st._eps_blocks("pft_delta_eps_blocks", dev, 0, 1,
+                                       hi - lo, Y, X),), 7.0, device=dev)
+    st.fused_stage_shard_dev(spec, block, 4, ws, kk, g, out, is_top=True,
+                             window=win, stage5=True, eps=eps)
+    st.delta_g_shard_dev(spec, block, 4, ws, kk, g, out, is_top=True,
+                         window=win, stage5=True, eps=eps_d)
+    torch.cuda.synchronize()
+    idle = bool((out == 7.0).all() and (eps == 7.0).all()
+                and (eps_d == 7.0).all())
+    res = dict(pairs=n_cmp, bitwise=True, halted_untouched=idle,
+               modes=[0, 1, 2], shape=list(MR_SHAPE))
+    emit("mesh_dev_entries", **res)
+    if not idle:
+        raise AssertionError("a shard _dev launch on a halted block wrote")
+    return res
+
+
+def _tree_equal(a, b) -> bool:
+    """Two states bit for bit: tensors, or lists and dicts of them."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_tree_equal(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_tree_equal(x, y)
+                                        for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def _same_solve(a, b, gather=None) -> bool:
+    """Status, t, h, counts, trace and state of two solves with a trace
+    bit for bit, ``b``'s state gathered by ``gather`` first."""
+    sa, sb = a[0], b[0]
+    return (a[1] == b[1] and (sa.t, sa.h, sa.steps, sa.steps_total)
+            == (sb.t, sb.h, sb.steps, sb.steps_total)
+            and _tree_equal(sa.y, sb.y if gather is None else gather(sb.y))
+            and all(torch.equal(x, y) for x, y in zip(a[2], b[2])))
+
+
+def _loop_row(st, what, host, device, single, dev_att, y_mesh, y_one, h0,
+              params, gather, profiled=None) -> dict:
+    """One mesh path from the same state through the host loop and the
+    device loop on the mesh and the single-device device loop (``host``,
+    ``device``, ``single``: ``(state, params) -> merson_solve's result``;
+    ``params`` with a trace of its attempts): the device loop's first run
+    captures the graph (its memory peak above what was allocated before
+    it: the static buffers and the graph's pool), then one timed run of
+    each; all bit for bit (state, t, h, counts, status, trace), the
+    single-device one's state against the mesh's gathered.  Device ms and
+    busy share of both mesh loops from one more run each under
+    torch.profiler (CUDA activity), beside the launches the trace holds
+    and those the counters added (a trace may lose records, _traced_run;
+    these rows report both and hold the run's result bit for bit), or,
+    with ``profiled`` = (host attempts, device attempts), from shorter
+    runs of as many attempts (the profiler's cost grows with the kernels
+    it records: the plain path launches thousands an attempt); the device
+    ms are summed over the streams, so the overlap split, whose ghost
+    copies run on a side stream, can show a busy share above 1."""
+    import dataclasses as dc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from porousfreezethaw_tpu_torch.solvers.merson import merson_init
+    dev = torch.device("cuda:0")
+
+    def timed(solve, y):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve(merson_init(y, 0.0, h0), params)
+        torch.cuda.synchronize()
+        return res, 1e3 * (time.perf_counter() - t0) / res[0].steps_total
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    first, first_ms = timed(device, y_mesh)
+    peak_mb = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+    a, host_ms = timed(host, y_mesh)
+    b, dev_ms = timed(device, y_mesh)
+    timed(single, y_one)                        # captures its graph
+    c, single_ms = timed(single, y_one)
+    same = dict(host_loop=_same_solve(a, b), first_run=_same_solve(first, b),
+                single_device=_same_solve(c, b, gather))
+    n = b[0].steps_total
+    loops = {}
+    for i, (loop, solve, ms) in enumerate((("host", host, host_ms),
+                                           ("device", device, dev_ms))):
+        m = n if profiled is None else profiled[i]
+        p = dc.replace(params, max_steps=m, record_trace=m)
+        _reset_all(st)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            res = solve(merson_init(y_mesh, 0.0, h0), p)
+            torch.cuda.synchronize()
+        counted = _all_counters(st)
+        if not (_same_solve(res, b) if profiled is None
+                else res[0].steps_total == m):
+            raise AssertionError(f"{what}: the profiled {loop} loop's "
+                                 f"result differs")
+        us, kernels, krows = _device_time(prof)
+        dms = us / 1e3 / m if us else "not measured"
+        loops[loop] = dict(
+            ms_per_attempt=ms, device_ms_per_attempt=dms,
+            busy_share=dms / ms if us else "not measured",
+            launches_per_attempt=kernels / m if us else None,
+            profiled_attempts=m, traced_launches=_profiled_launches(prof),
+            counted_launches={name: sum(counted[k] for k in keys)
+                              for name, keys in KERNEL_COUNTERS},
+            top=[dict(kernel=k[:60], count=c_, us=u)
+                 for u, k, c_ in krows[:5]])
+    row = dict(path=what, attempts=n, steps=b[0].steps, t=b[0].t,
+               host=loops["host"], device=loops["device"],
+               speedup=host_ms / dev_ms, single_device_ms_per_attempt=single_ms,
+               graph_capture_s=dev_att.device_loop(dev).capture_s,
+               capture_run_peak_mb=peak_mb,
+               first_run_ms_per_attempt=first_ms, bitwise=same)
+    emit("mesh_loops", **row)
+    if not all(same.values()) or n != params.max_steps:
+        raise AssertionError(f"mesh loops {what}: {n} attempts, bit for "
+                             f"bit {same}")
+    return row
+
+
+def _mesh_loops(dev) -> dict:
+    """MR GradP f32, MESH_ATTEMPTS attempts from the bench's start state,
+    each kernel path on the mesh through both loops (_loop_row): the z4
+    delta attempt, its compensated commit, the classic z4 stage (overlap
+    split, the bench's f32 growth floor) and the z2,y2 attempt."""
+    import dataclasses as dc
+
     from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
     from porousfreezethaw_tpu_torch.parallel import (
         gather_freezing_state, make_mesh, shard_freezing_state)
     from porousfreezethaw_tpu_torch.parallel.fused import (
-        ShardedDeltaAttempt, ShardedDeltaAttempt2D, make_sharded_fused_stage)
+        ShardedDeltaAttempt, ShardedDeltaAttempt2D, ShardedStageAttempt,
+        make_sharded_fused_stage)
     from porousfreezethaw_tpu_torch.solvers.merson import (
-        MersonParams, merson_init, merson_solve)
+        MersonParams, merson_init, merson_solve, merson_solve_device)
 
     geom, prm, v, y0, h0 = _mr_state(dev)
     z4 = make_mesh("z4", [dev] * 4)
     zy = make_mesh("z2,y2", [dev] * 4)
-    paths = (
-        ("delta_z4", z4, dict(attempt_fn=st.DeltaAttempt(geom, prm, 0)),
-         dict(attempt_fn=ShardedDeltaAttempt(geom, prm, 0, z4)), 0.0),
-        ("delta_z2,y2", zy, dict(attempt_fn=st.DeltaAttempt(geom, prm, 0)),
-         dict(attempt_fn=ShardedDeltaAttempt2D(geom, prm, 0, zy)), 0.0),
-        ("compensated_z4", z4,
-         dict(attempt_fn=st.DeltaAttemptComp(geom, prm, 0)),
-         dict(attempt_fn=ShardedDeltaAttempt(geom, prm, 0, z4,
-                                             compensated=True)), 0.0),
-        # the classic path with the bench's f32 noise-floor escape
-        ("classic_z4_overlap", z4,
-         dict(stage_fn=st.make_fused_stage(geom, prm, 0)),
-         dict(stage_fn=make_sharded_fused_stage(geom, prm, 0, z4)), 1.05))
-    results = {}
-    for name, mesh, single, sharded, growth in paths:
+    comp = dict(compensated=True)
+    paths = (("delta_z4", z4, ShardedDeltaAttempt, {}, st.DeltaAttempt),
+             ("compensated_z4", z4, ShardedDeltaAttempt, comp,
+              st.DeltaAttemptComp),
+             ("classic_z4_overlap", z4, ShardedStageAttempt, {},
+              st.StageAttempt),
+             ("delta_z2,y2", zy, ShardedDeltaAttempt2D, {}, st.DeltaAttempt))
+    rows = {}
+    for name, mesh, cls, kw, single_cls in paths:
+        classic = name.startswith("classic")
         params = MersonParams(delta=v["delta"], h_min=v["tau_min"],
                               handle_nan=True, max_steps=MESH_ATTEMPTS,
-                              accept_growth_min=growth)
-        rows = {}
-        for which, kw, y in (("single", single, y0),
-                             ("sharded", sharded,
-                              shard_freezing_state(y0, mesh))):
-            # a short warm-up from the same state, then the timed solve
-            merson_solve(None, merson_init(y, 0.0, h0), 1e9,
-                         dataclasses.replace(params, max_steps=5), **kw)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, _ = merson_solve(None, merson_init(y, 0.0, h0), 1e9,
-                                    params, **kw)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            yy = (gather_freezing_state(state.y, mesh) if which == "sharded"
-                  else state.y)
-            rows[which] = (state, yy, 1e3 * wall / state.steps_total)
-        (a, ya, ms_a), (b, yb, ms_b) = rows["single"], rows["sharded"]
-        same = ((a.steps, a.steps_total, a.t, a.h)
-                == (b.steps, b.steps_total, b.t, b.h)
-                and torch.equal(ya, yb))
-        results[name] = dict(steps=b.steps, attempts=b.steps_total, t=b.t,
-                             h=b.h, ms_per_attempt=ms_b,
-                             single_ms_per_attempt=ms_a, bitwise=same)
-        emit("mesh_solve", path=name, grid=list(geom.shape), **results[name])
-        if not same or b.steps_total != MESH_ATTEMPTS:
-            raise AssertionError(f"mesh solve {name}: sharded "
-                                 f"{b.steps}/{b.steps_total} t={b.t}, single "
-                                 f"{a.steps}/{a.steps_total} t={a.t}, "
-                                 f"state equal {torch.equal(ya, yb)}")
-    return results
+                              record_trace=MESH_ATTEMPTS,
+                              accept_growth_min=1.05 if classic else 0.0)
+        dev_att = cls(geom, prm, 0, mesh, **kw)
+        single_att = single_cls(geom, prm, 0)
+        if classic:
+            stage_fn = make_sharded_fused_stage(geom, prm, 0, mesh)
+
+            def host(s, p, stage_fn=stage_fn):
+                return merson_solve(None, s, 1e9, p, stage_fn=stage_fn)
+        else:
+            host_att = cls(geom, prm, 0, mesh, **kw)
+
+            def host(s, p, host_att=host_att):
+                return merson_solve(None, s, 1e9, p, attempt_fn=host_att)
+        # the kernels' first use (their attributes and occupancy queries)
+        # before the timed runs
+        host(merson_init(shard_freezing_state(y0, mesh), 0.0, h0),
+             dc.replace(params, max_steps=2, record_trace=0))
+        rows[name] = _loop_row(
+            st, name, host,
+            lambda s, p, a=dev_att: merson_solve_device(s, 1e9, p, a),
+            lambda s, p, a=single_att: merson_solve_device(s, 1e9, p, a),
+            dev_att, shard_freezing_state(y0, mesh), y0, h0, params,
+            lambda ys, mesh=mesh: gather_freezing_state(ys, mesh))
+    return rows
 
 
 def _golden_run(dev, extra="", mesh_axes=None, mesh_devices=None,
@@ -2653,12 +2919,29 @@ def _golden_run(dev, extra="", mesh_axes=None, mesh_devices=None,
     return steps, attempts, snap, launches, log
 
 
+def _mesh_per_attempt(shards, compensated=False) -> dict:
+    """The launches of one attempt of the device loop on a z mesh of
+    ``shards`` shards by counter: the delta attempt (stage 1 in K3's two
+    passes, the overlap split), one control, one commit a shard."""
+    per = {"fused_stage_split": 2 * shards,
+           "delta_g_shard": (3 if compensated else 4) * shards,
+           "merson_control": 1, "commit": shards}
+    if compensated:
+        per["delta_g_shard_dy"] = shards
+    return per
+
+
 def _mesh_goldens(dev) -> dict:
     """The LR GradP golden to snapshot 1 without a mesh, with --mesh z1
     through the app, and through run_iteration on a z4 mesh of the card
-    (plain and compensated commit): the same counts and a byte-identical
-    snapshot 1.  Returns the main-path launches of K3 and K2s (the plain
-    z4 run) and K2s-dy (the compensated z4 run)."""
+    (plain and compensated commit), every run through the app's chunked
+    device loop (the log says so and names the mesh): the same counts and
+    a byte-identical snapshot 1; the launches whole blocks of BLOCK
+    attempts of the path's kernels, and the idle attempt before the
+    capture.  Returns the main-path launches of K3 and K2s (the plain z4
+    run) and K2s-dy (the compensated z4 run)."""
+    from porousfreezethaw_tpu_torch.ops.cuda.control import BLOCK
+
     comp = "compensated_commit 1\n"
     bases = {"": _golden_run(dev), comp: _golden_run(dev, comp)}
     launches = {}
@@ -2669,19 +2952,23 @@ def _mesh_goldens(dev) -> dict:
         run = _golden_run(dev, extra, mesh_axes,
                           None if cli else [dev] * shards, cli)
         n = base[1]
-        want = {"fused_stage_split": 2 * shards * n,
-                "delta_g_shard": (3 if extra else 4) * shards * n,
-                "delta_g_shard_dy": shards * n if extra else 0}
-        want = {k: want.get(k, 0) for k in run[3]}
+        m = _attempts_of(run[3], _mesh_per_attempt(shards, bool(extra)),
+                         f"golden {extra.strip()} --mesh {mesh_axes}")
+        emit("mesh_golden_launches", extra=extra.strip(), mesh=mesh_axes,
+             attempts=run[1], attempt_launches=m, idle_attempts=m - run[1])
         if run[:2] != base[:2] or run[2] != base[2]:
             raise AssertionError(
                 f"golden {extra.strip()} --mesh {mesh_axes}: {run[:2]} "
                 f"against {base[:2]} without a mesh, snapshot equal "
                 f"{run[2] == base[2]}")
-        if run[3] != want:
+        if m < n or (m - 1) % BLOCK:
             raise AssertionError(f"golden {extra.strip()} --mesh "
-                                 f"{mesh_axes}: launches {run[3]}, want "
-                                 f"{want}")
+                                 f"{mesh_axes}: launches {run[3]} for {n} "
+                                 f"attempts in blocks of {BLOCK}")
+        if not ("Step control: device loop" in run[4]
+                and f"{shards} shards on" in run[4]):
+            raise AssertionError(f"golden --mesh {mesh_axes}: the log does "
+                                 f"not name the device loop on the mesh")
         if mesh_axes == "z4" and not extra:
             launches["fused_stage_split"] = run[3]["fused_stage_split"]
             launches["delta_g_shard"] = run[3]["delta_g_shard"]
@@ -2692,8 +2979,9 @@ def _mesh_goldens(dev) -> dict:
 
 def _mesh_bench(dev) -> int:
     """The bench's MR mesh rows (bench.py's freezing_200_0_sharded and
-    _sharded_2d); returns the K1s launches of the z1,y1 row, its main
-    path."""
+    _sharded_2d) on the device loop (the classic z1 stage, ShardedStage-
+    Attempt; the z1,y1 attempt); returns the K1s launches of the z1,y1
+    row, its main path."""
     from porousfreezethaw_tpu_torch import bench
     from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
 
@@ -2707,16 +2995,19 @@ def _mesh_bench(dev) -> int:
         torch.cuda.synchronize()
         launches = _all_counters(st)
         emit("mesh_bench", **rec, launches=launches)
-        n = rec["attempts"] + rec["warm_attempts"]
-        want = ({"fused_stage_split": 10 * n} if mesh == "z1" else
-                {"fused_stage_shard": n, "delta_g_shard": 4 * n})
-        want = {k: want.get(k, 0) for k in launches}
-        if not (rec["value"] > 0
+        per = ({"fused_stage_split": 10} if mesh == "z1" else
+               {"fused_stage_shard": 1, "delta_g_shard": 4})
+        per.update(merson_control=1, commit=1)
+        m = _attempts_of(launches, per, f"mesh bench row {mesh}")
+        # one warm-up solve call and the timed one, each of whole blocks,
+        # and the idle attempt before the capture
+        want = _graph_attempts([rec["warm_attempts"], rec["attempts"]], 1)
+        if not (rec["value"] > 0 and rec["controller"] == "device"
                 and rec["metric"] == bench.HEADLINE + "_sharded_" + mesh):
             raise AssertionError(f"mesh bench row {mesh}: {rec}")
-        if launches != want:
+        if m != want:
             raise AssertionError(f"mesh bench row {mesh}: launches "
-                                 f"{launches}, want {want}")
+                                 f"{launches}, {m} attempts, want {want}")
         if mesh == "z1,y1":
             k1s = launches["fused_stage_shard"]
     return k1s
@@ -2725,19 +3016,25 @@ def _mesh_bench(dev) -> int:
 # the LR Temp f64 golden's counts on one card, for phase mesh run without
 # phase app
 TEMP_DEVICE_COUNTS = (1824, 2256)
-# attempts of the plain mesh solves against the single-device plain path
-PLAIN_MR_ATTEMPTS, PLAIN_NOISE_ATTEMPTS = 100, 50
+# attempts of the plain halo paths through both loops (whole blocks of
+# BLOCK), and of their profiled runs: the host loop's, the device loop's
+PLAIN_MR_ATTEMPTS, PLAIN_NOISE_ATTEMPTS = 64, 64
+PLAIN_PROFILED = (8, 32)
 
 
 def _temp_golden_z3(dev, single=None) -> dict:
     """The LR Temp golden (f64) to snapshot 1 through run_iteration on a
     z3 mesh of the card: n3 = 100 in windows of 34, 33 and 33 planes, the
-    plain right-hand side with halo copies; the counts and snapshot bytes
-    of the single-device run ``single`` (phase app's record), or without
-    it the counts TEMP_DEVICE_COUNTS."""
+    plain right-hand side with halo copies, through the app's chunked
+    device loop (PlainAttempt on the shards; the float64 control and
+    commit kernels in whole blocks, one commit for all shards); the counts
+    and snapshot bytes of the single-device run ``single`` (phase app's
+    record), or without it the counts TEMP_DEVICE_COUNTS."""
     from porousfreezethaw_tpu_torch.apps.intertrack import run_iteration
     from porousfreezethaw_tpu_torch.config import parse_param_file
     from porousfreezethaw_tpu_torch.io.rklog import RunLog
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
+    from porousfreezethaw_tpu_torch.ops.cuda.control import BLOCK
 
     text = open(os.path.join(REPO, "tests", "golden",
                              "Params-LR-Temp")).read()
@@ -2751,11 +3048,13 @@ def _temp_golden_z3(dev, single=None) -> dict:
         os.environ["OUTPUT"] = out
         pf = parse_param_file(text)
         log = RunLog(pf.setting("logfile"))
+        _reset_all(st)
         t0 = time.perf_counter()
         stats = run_iteration(pf, log, device=dev, dtype=torch.float64,
                               mesh_axes="z3", mesh_devices=[dev] * 3)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        launches = {k: c for k, c in _all_counters(st).items() if c}
         log.close()
         text_log = open(os.path.join(out, "intertrack.log")).read()
         snap = open(os.path.join(out, "image.001.ncd"), "rb").read()
@@ -2770,44 +3069,47 @@ def _temp_golden_z3(dev, single=None) -> dict:
     got = (stats["steps"], stats["steps_total"])
     same_bytes = (snap == single["snapshot"] if single
                   else "not compared (phase app did not run)")
+    m = launches.get("commit_f64", 0)
     rec = dict(golden="Params-LR-Temp", precision="f64", mesh="z3",
                windows=[34, 33, 33], steps=got[0], attempts=got[1],
                single_device=list(want), snapshot_equal=same_bytes,
                wall_s=wall, ms_per_attempt=1e3 * wall / got[1],
+               single_device_ms_per_attempt=(
+                   single.get("ms_per_attempt") if single
+                   else "not measured"),
+               launches=launches, attempt_launches=m,
                halo_path="Plain right-hand side with halo copies"
-               in text_log)
+               in text_log,
+               device_loop="Step control: device loop" in text_log)
     emit("mesh_plain_golden", **rec)
-    if got != want or same_bytes is False or not rec["halo_path"]:
+    if (got != want or same_bytes is False or not rec["halo_path"]
+            or not rec["device_loop"]):
         raise AssertionError(f"LR Temp golden at z3: {rec}")
+    if (set(launches) != {"merson_control_f64", "commit_f64"}
+            or launches["merson_control_f64"] != m or m < got[1]
+            or (m - 1) % BLOCK):
+        raise AssertionError(f"LR Temp golden at z3: launches {launches} "
+                             f"for {got[1]} attempts")
     return rec
 
 
-def _plain_solve(rhs, y, v, h0, attempts, growth):
-    """``attempts`` attempts of the plain path from ``y``; (state, ms per
-    attempt)."""
-    from porousfreezethaw_tpu_torch.solvers.merson import (
-        MersonParams, merson_init, merson_solve)
-    params = MersonParams(delta=v["delta"], h_min=v["tau_min"],
-                          handle_nan=True, max_steps=attempts,
-                          accept_growth_min=growth)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, _ = merson_solve(rhs, merson_init(y, 0.0, h0), 1e9, params)
-    torch.cuda.synchronize()
-    return state, 1e3 * (time.perf_counter() - t0) / state.steps_total
-
-
-def _mesh_plain_solves(dev) -> dict:
-    """The plain halo path against the single-device plain path, f32 with
-    the app's classic settings (growth 1.05, NaN backoff): MR GradP on
-    z2,y2 for PLAIN_MR_ATTEMPTS attempts, and LR GradP with a noise field
-    (u_noise_amp 0.01) at z2 for PLAIN_NOISE_ATTEMPTS; the same counts, t,
-    h and state bits."""
+def _mesh_plain_loops(dev) -> dict:
+    """The plain halo path (PlainAttempt over make_halo_rhs on the
+    shards) through both loops against the single-device PlainAttempt
+    (_loop_row), f32 with the app's classic settings (growth 1.05, NaN
+    backoff): MR GradP on z2,y2 for PLAIN_MR_ATTEMPTS attempts, and LR
+    GradP with a noise field (u_noise_amp 0.01) at z2 for
+    PLAIN_NOISE_ATTEMPTS; profiled over PLAIN_PROFILED attempts."""
+    from porousfreezethaw_tpu_torch.models.freezing.attempt import (
+        PlainAttempt)
     from porousfreezethaw_tpu_torch.models.freezing.equation import (
         make_noise_field, make_rhs)
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
     from porousfreezethaw_tpu_torch.parallel import (
         gather_freezing_state, make_mesh, shard_freezing_state)
     from porousfreezethaw_tpu_torch.parallel.halo import make_halo_rhs
+    from porousfreezethaw_tpu_torch.solvers.merson import (
+        MersonParams, merson_solve, merson_solve_device)
 
     out = {}
     for name, grid_nodes, spec, shards, amp, attempts in (
@@ -2817,46 +3119,44 @@ def _mesh_plain_solves(dev) -> dict:
         prm = dataclasses.replace(prm, u_noise_amp=amp)
         noise = make_noise_field(geom, prm, 0, dtype=np.float32)
         mesh = make_mesh(spec, [dev] * shards)
-        a, ms_a = _plain_solve(make_rhs(geom, prm, 0, dev, noise=noise),
-                               y0, v, h0, attempts, 1.05)
-        b, ms_b = _plain_solve(make_halo_rhs(geom, prm, 0, mesh, noise),
-                               shard_freezing_state(y0, mesh),
-                               v, h0, attempts, 1.05)
-        yb = gather_freezing_state(b.y, mesh)
-        same = ((a.steps, a.steps_total, a.t, a.h)
-                == (b.steps, b.steps_total, b.t, b.h)
-                and torch.equal(a.y, yb))
-        out[name] = dict(grid=list(geom.shape), mesh=spec,
-                         noise=noise is not None, steps=b.steps,
-                         attempts=b.steps_total, t=b.t, bitwise=same,
-                         ms_per_attempt=ms_b, single_ms_per_attempt=ms_a)
-        emit("mesh_plain_solve", path=name, **out[name])
-        if not same or b.steps_total != attempts:
-            raise AssertionError(f"plain mesh solve {name}: sharded "
-                                 f"{b.steps}/{b.steps_total} t={b.t}, "
-                                 f"single {a.steps}/{a.steps_total} "
-                                 f"t={a.t}, state equal "
-                                 f"{torch.equal(a.y, yb)}")
+        rhs = make_halo_rhs(geom, prm, 0, mesh, noise)
+        att = PlainAttempt(rhs, geom.shape, torch.float32, mesh=mesh)
+        single = PlainAttempt(make_rhs(geom, prm, 0, dev, noise=noise),
+                              geom.shape, torch.float32)
+        params = MersonParams(delta=v["delta"], h_min=v["tau_min"],
+                              handle_nan=True, max_steps=attempts,
+                              record_trace=attempts, accept_growth_min=1.05)
+        out[name] = _loop_row(
+            st, name, lambda s, p, rhs=rhs: merson_solve(rhs, s, 1e9, p),
+            lambda s, p, a=att: merson_solve_device(s, 1e9, p, a),
+            lambda s, p, a=single: merson_solve_device(s, 1e9, p, a),
+            att, shard_freezing_state(y0, mesh), y0, h0, params,
+            lambda ys, mesh=mesh: gather_freezing_state(ys, mesh),
+            profiled=PLAIN_PROFILED)
+        out[name]["noise"] = noise is not None
     return out
 
 
 def phase_mesh(dev, temp_f64=None):
     """The multi-device freezing paths on virtual shards of the card:
-    the shard kernels against their plain versions and their times, the
-    sharded paths against the single-device ones bit for bit, MR solves,
-    the plain halo path against the single-device plain path (the LR
-    Temp golden at z3 against ``temp_f64``, phase app's run), the LR
-    golden and the bench's mesh rows.  Returns the kernel summary rows of
-    K1s, K3, K2s and K2s-dy and their main-path launches."""
+    the shard kernels against their plain versions and their times, their
+    _dev entries against the by-value entries, the sharded paths against
+    the single-device ones bit for bit, each mesh path through the device
+    loop and the host loop at MR (the kernel paths) and MR and LR (the
+    plain halo path), the LR Temp golden at z3 on the halo device loop
+    against ``temp_f64`` (phase app's run), the LR golden at z4 and the
+    bench's mesh rows on the device loop.  Returns the kernel summary rows
+    of K1s, K3, K2s and K2s-dy and their main-path launches."""
     from porousfreezethaw_tpu_torch.core.grid import GridGeometry
     from porousfreezethaw_tpu_torch.parallel.fused import (
         halo_bytes_per_attempt)
 
     stats = _mesh_kernels(dev)
+    dev_entries = _mesh_dev_entries(dev)
     _mesh_bitwise(dev)
     times, split_ms = _mesh_times(dev)
-    _mesh_solves(dev)
-    _mesh_plain_solves(dev)
+    _mesh_loops(dev)
+    _mesh_plain_loops(dev)
     _temp_golden_z3(dev, temp_f64)
     launches = _mesh_goldens(dev)
     launches["fused_stage_shard"] = _mesh_bench(dev)
@@ -2887,6 +3187,7 @@ def phase_mesh(dev, temp_f64=None):
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, device_ms=device_ms,
             bound_share=bound_ms / device_ms,
+            dev_entry_bitwise_pairs=dev_entries["pairs"],
             timed=f"{timed} on one z4 shard of {MR_SHAPE} "
                   f"({MR_SHAPE[0] // 4} planes), {nbytes / 1e6:.1f} MB per "
                   f"launch{TIMED_BY}")
@@ -2923,8 +3224,10 @@ DEM_F32_TOL = 1e-5
 # timed windows of a dozen blocks, so that rounding the last one up to
 # BLOCK attempts stays a few percent of the row
 DEM_BENCH_ROWS = ((200, 400, 100), (2000, 400, 20))
-# the particle mesh of phase dem: virtual shards of the card
+# the particle meshes of phase dem, virtual shards of the card: the right-
+# hand side's check, the solve through both loops
 DEM_MESH = "p4"
+DEM_SOLVE_MESH = "p2"
 
 
 def _dem_state(cfg, seed):
@@ -3183,16 +3486,21 @@ def _dem_bench(dev):
 
 
 def _dem_mesh(dev, short) -> None:
-    """The particle-sharded dense term on DEM_MESH virtual shards of the
-    card at n = 200, f64: the right-hand side of the four variants bit for
-    bit against the single-device one; the short solve's counts (and state
-    bits) on the mesh equal the single-device ones of ``short``."""
+    """The particle-sharded dense term on virtual shards of the card at
+    n = 200, f64: on DEM_MESH, the right-hand side of the four variants
+    bit for bit against the single-device one; on DEM_SOLVE_MESH, the
+    short solve through the device loop (DEMAttempt on the shards' dicts:
+    CUDA graphs, the float64 control and commit kernels) and the host
+    loop, bit for bit (state, t, h, counts, status, trace), and both with
+    the single-device counts and state bits of ``short``; ms/attempt of
+    both (the device loop's second run, after its capturing first), the
+    capture time."""
     from porousfreezethaw_tpu_torch.models.dem import (
-        DEMConfig, icond_dense, make_dem_rhs)
+        DEMAttempt, DEMConfig, icond_dense, make_dem_rhs)
     from porousfreezethaw_tpu_torch.parallel import (
         gather_dem_state, make_mesh, shard_dem_state)
     from porousfreezethaw_tpu_torch.solvers.merson import (
-        MersonParams, merson_init, merson_solve)
+        MersonParams, merson_init, merson_solve, merson_solve_device)
 
     mesh = make_mesh(DEM_MESH, [dev] * int(DEM_MESH[1:]))
     bitwise = {}
@@ -3206,25 +3514,48 @@ def _dem_mesh(dev, short) -> None:
         bitwise[variant] = all(torch.equal(got[k], want[k]) for k in want)
     cfg = DEMConfig(variant="friction_angular", n=DEM_N)
     y0, _ = icond_dense(cfg, seed=0)
+    mesh = make_mesh(DEM_SOLVE_MESH, [dev] * int(DEM_SOLVE_MESH[1:]))
     y = shard_dem_state({k: torch.as_tensor(v, device=dev)
                          for k, v in y0.items()}, mesh)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st, status = merson_solve(make_dem_rhs(cfg, mesh=mesh),
-                              merson_init(y, 0.0, cfg.ht), DEM_SHORT_T,
-                              MersonParams(delta=cfg.delta,
-                                           h_min=cfg.ht_min))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    rhs = make_dem_rhs(cfg, mesh=mesh)
+    att = DEMAttempt(rhs)
+    params = MersonParams(delta=cfg.delta, h_min=cfg.ht_min,
+                          record_trace=short["steps"])
+
+    def run(loop):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st0 = merson_init(y, 0.0, cfg.ht)
+        res = (merson_solve_device(st0, DEM_SHORT_T, params, att)
+               if loop == "device" else
+               merson_solve(rhs, st0, DEM_SHORT_T, params))
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    first, first_wall = run("device")
+    dev_res, dev_wall = run("device")
+    host_res, host_wall = run("host")
+    st = host_res[0]
     full = gather_dem_state(st.y)
-    same = all(torch.equal(full[k], short["state"][k]) for k in full)
-    rec = dict(mesh=DEM_MESH, n=DEM_N, rhs_bitwise=bitwise,
-               steps=st.steps, attempts=st.steps_total,
+    same = dict(loops=_same_solve(host_res, dev_res),
+                first_run=_same_solve(first, dev_res),
+                single_device_state=all(torch.equal(full[k],
+                                                    short["state"][k])
+                                        for k in full))
+    rec = dict(rhs_mesh=DEM_MESH, rhs_bitwise=bitwise,
+               solve_mesh=DEM_SOLVE_MESH, n=DEM_N, steps=st.steps,
+               attempts=st.steps_total,
                single_device=[short["steps"], short["attempts"]],
-               state_bitwise=same,
-               ms_per_attempt=1e3 * wall / st.steps_total)
+               bitwise=same,
+               host_ms_per_attempt=1e3 * host_wall / st.steps_total,
+               device_ms_per_attempt=1e3 * dev_wall / st.steps_total,
+               speedup=host_wall / dev_wall,
+               single_device_ms_per_attempt=short["ms_per_attempt"],
+               graph_capture_s=att.device_loop(dev).capture_s,
+               first_device_run_s=first_wall)
     emit("dem_mesh", **rec)
-    if not (all(bitwise.values()) and status == 0 and same
+    if not (all(bitwise.values()) and host_res[1] == 0
+            and all(same.values())
             and [st.steps, st.steps_total] == rec["single_device"]):
         raise AssertionError(f"dem mesh: {rec}")
 

@@ -38,23 +38,26 @@ Snapshots are then written shard by shard.
 activities, and CUDA's on the card) into ``DIR/trace.json``, a Chrome
 trace, as the JAX app wraps its run in ``jax.profiler.trace``.
 
-Step control: on ``--device cuda`` every single-device path runs the
-device-resident loop (``merson_solve_device``: CUDA graphs of attempts
-whose step control and commit are kernels), the counterpart of the JAX
-app's accelerator branch: the f32 kernel paths (increment form,
-compensated or not, and the classic stage) and the plain right-hand side
-of f64 and of f32 with a noise field (``models/freezing/attempt.py``
-``PlainAttempt``, its stage times read from the control block).  The
+Step control: on ``--device cuda`` every path runs the device-resident
+loop (``merson_solve_device``: CUDA graphs of attempts whose step control
+and commit are kernels), the counterpart of the JAX app's accelerator
+branch: the f32 kernel paths (increment form, compensated or not, and the
+classic stage) and the plain right-hand side of f64 and of f32 with a
+noise field (``models/freezing/attempt.py`` ``PlainAttempt``, its stage
+times read from the control block), on one device or on a mesh whose
+shards share one device (the sharded attempts of ``parallel/fused.py``,
+and ``PlainAttempt`` over the halo right-hand side).  The
 solve goes in chunks of ``PFT_SERVICE_CHUNK`` attempts (a positive
 integer, 1024 by default), each recording the (t, h) of its accepted
 steps on the device and continuing the last one's control block, so that
 the chunks give one solve call's bits; between chunks the app writes the
 steps to the RK debug log and checks the trigger file, so a trigger takes
 effect at the next chunk boundary (a chunk's attempts later than the
-reference's per-step check at most).  ``--device cpu`` and every
-``--mesh`` run keep the host loop with the per-step service callback, as
-the JAX app does on the CPU (``uses_device_loop`` decides).  The log
-names the controller, and for the host loop why.
+reference's per-step check at most).  ``--device cpu`` and a mesh over
+several cards keep the host loop with the per-step service callback, as
+the JAX app does on the CPU (``solvers.merson.uses_device_loop``, the
+rule the spheres app and the bench share, decides).  The log names the
+controller and the mesh, and for the host loop why.
 """
 
 from __future__ import annotations
@@ -88,13 +91,14 @@ from ..ops.cuda.control import BLOCK
 from ..ops.cuda.stencil import (
     DeltaAttempt, DeltaAttemptComp, StageAttempt, make_fused_stage)
 from ..parallel.fused import (
-    ShardedDeltaAttempt, ShardedDeltaAttempt2D, make_sharded_fused_stage)
+    ShardedDeltaAttempt, ShardedDeltaAttempt2D, ShardedStageAttempt,
+    make_sharded_fused_stage)
 from ..parallel.halo import make_halo_rhs
 from ..parallel.sharding import (
     gather_freezing_state, make_mesh, shard_freezing_state)
 from ..solvers.merson import (
-    INTERRUPTED, MersonParams, merson_init, merson_solve,
-    merson_solve_device)
+    INTERRUPTED, MersonParams, host_loop_reason, merson_init, merson_solve,
+    merson_solve_device, uses_device_loop)
 
 DEFAULT_BALL_POSITIONS = "data/spheres_positions.txt"  # equation.c:35
 
@@ -108,13 +112,6 @@ def kernels_apply(dtype: torch.dtype, noise) -> bool:
 
 class IntertrackError(RuntimeError):
     pass
-
-
-def uses_device_loop(device: torch.device, dev_attempt) -> bool:
-    """Whether a solve runs the chunked device loop: on the card, for the
-    single-device paths, whose attempt object ``dev_attempt`` is on the
-    device protocol (None on a mesh)."""
-    return device.type == "cuda" and dev_attempt is not None
 
 
 def service_chunk() -> int:
@@ -293,7 +290,7 @@ def run_iteration(
 
     y0 = torch.as_tensor(np.ascontiguousarray(w0))
     rhs = stage_fn = attempt_fn = None
-    # the attempt object of the device loop (every single-device path)
+    # the attempt object of the device loop (every path has one)
     dev_attempt = None
     # The increment-form (delta) attempt is the f32 default for all
     # models: its exact f(w+d)-f(w) stages remove the f32 stage-state
@@ -320,20 +317,23 @@ def run_iteration(
             # each shard's block with its ghost planes, any windows
             rhs = make_halo_rhs(geom, solver_params, calc_mode, mesh,
                                 noise=noise)
+            dev_attempt = PlainAttempt(rhs, geom.shape, dtype, mesh=mesh)
             log("Plain right-hand side with halo copies (sharded over "
                 "z=%d, y=%d)\n", nz, ny)
         elif axes == {"z"} and use_delta:
-            attempt_fn = ShardedDeltaAttempt(geom, solver_params, calc_mode,
-                                             mesh, compensated=use_comp)
+            attempt_fn = dev_attempt = ShardedDeltaAttempt(
+                geom, solver_params, calc_mode, mesh, compensated=use_comp)
             log("Increment-form (delta) attempt kernels: ON%s (sharded over "
                 "z=%d)\n", " (compensated commit)" if use_comp else "", nz)
         elif axes == {"z"}:
             stage_fn = make_sharded_fused_stage(geom, solver_params,
                                                 calc_mode, mesh)
+            dev_attempt = ShardedStageAttempt(geom, solver_params, calc_mode,
+                                              mesh)
             log("Fused stage kernel: ON (sharded over z=%d)\n", nz)
         else:
-            attempt_fn = ShardedDeltaAttempt2D(geom, solver_params,
-                                               calc_mode, mesh)
+            attempt_fn = dev_attempt = ShardedDeltaAttempt2D(
+                geom, solver_params, calc_mode, mesh)
             log("Increment-form (delta) attempt kernels: ON (sharded over "
                 "z=%d, y=%d)\n", nz, ny)
     elif use_kernels:
@@ -383,7 +383,7 @@ def run_iteration(
                 return 1
             return 0
 
-    if uses_device_loop(device, dev_attempt):
+    if uses_device_loop(device, mesh):
         # the JAX app's accelerator branch: chunks of solve calls whose
         # (t, h) trace is drained into the RK debug log between them,
         # where the trigger file is checked too
@@ -391,7 +391,10 @@ def run_iteration(
         cparams = dataclasses.replace(mparams, max_steps=chunk,
                                       record_trace=chunk)
         log("Step control: device loop (CUDA graphs of %d attempts on the "
-            "card), chunks of %d attempts\n", BLOCK, chunk)
+            "card%s), chunks of %d attempts\n", BLOCK,
+            "" if mesh is None else
+            f"; the mesh {mesh.shape}, {mesh.size} shards on {device}",
+            chunk)
 
         def solve(st, ft):
             triggered = False
@@ -411,8 +414,7 @@ def run_iteration(
             return st, INTERRUPTED if triggered else status
     else:
         log("Step control: host loop (%s)\n",
-            "sharded over a mesh" if mesh is not None
-            else f"--device {device.type}")
+            host_loop_reason(device, mesh) or "by request")
 
         def solve(st, ft):
             return merson_solve(rhs, st, ft, mparams,

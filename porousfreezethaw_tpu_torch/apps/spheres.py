@@ -17,14 +17,17 @@ spheres_friction_angular.c:611-613).  The console lines are the JAX
 app's.  ``--device cuda`` is the default and raises without a GPU; nothing
 falls back to the CPU.
 
-The step control: on the card without a mesh the solves run the
-device-resident loop (``merson_solve_device`` through a ``DEMAttempt``,
+The step control: on the card the solves run the device-resident loop
+(``merson_solve_device`` through a ``DEMAttempt``,
 ``models/dem/attempt.py``; CUDA graphs of attempts, the counterpart of the
 JAX app's jitted ``lax.while_loop``), on the dense term and the cell
-strategies, in f64 and f32; a ``--mesh`` run and ``--device cpu`` keep
-the host loop (``merson_solve``), as the JAX app does on the CPU
-(``models.dem.dem_solver`` decides; no option picks the loop).  The two
-give the same snapshots byte for byte.
+strategies, in f64 and f32, and on a ``--mesh`` whose shards share the
+card (the sharded dense term); ``--device cpu`` and a mesh over several
+cards keep the host loop (``merson_solve``), as the JAX app does on the
+CPU (``models.dem.dem_solver`` decides by the rule of
+``solvers.merson.uses_device_loop``; no option picks the loop).  The two
+give the same snapshots byte for byte.  The console's ``Step control:``
+line names the loop, and for the host loop why.
 
 ``--neighbor cell_list|cell_lanes`` runs the pair term on the cell list
 (``models/dem/forces.py``) of ``--cell-capacity`` slots a cell: the solve
@@ -67,7 +70,7 @@ from ..models.dem import (
     CellOverflowError, DEMConfig, dem_solver, icond_2spheres, icond_dense,
     icond_sparse, make_dem_rhs, solve_guarded, write_final_positions)
 from ..parallel.sharding import gather_dem_state, make_mesh, shard_dem_state
-from ..solvers.merson import MersonParams, merson_init
+from ..solvers.merson import MersonParams, host_loop_reason, merson_init
 
 ICONDS = {"dense": icond_dense, "sparse": icond_sparse,
           "2spheres": icond_2spheres}
@@ -162,6 +165,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         ap.error(str(exc))
     state = merson_init(y_dev, 0.0, cfg.ht)
     solver = dem_solver(rhs, device)
+    print("Step control: " + (
+        f"host loop ({host_loop_reason(device, mesh) or 'by request'})"
+        if solver is rhs else "device loop"))
 
     def one(y):
         return gather_dem_state(y) if mesh is not None else y

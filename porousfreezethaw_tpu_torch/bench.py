@@ -25,16 +25,19 @@ kernel with its stage-5 tail, ``delta`` the increment-form attempt,
 right-hand side (the f64 path); ``auto`` is ``stage`` for f32 on the GPU
 and ``off`` otherwise.  ``--device cuda`` is the default and raises
 without a GPU; nothing falls back to the CPU.  On the card every row
-without a mesh solves through the device-resident loop
-(``merson_solve_device``, CUDA graphs of attempts; ``off`` through the
-plain right-hand side's ``PlainAttempt``), a mesh row and the CPU through
-the host loop (``merson_solve``), as the app does; the record names it
-under ``"controller"``, with the graph's capture time
-(``"graph_capture_s"``, null on the host loop).
+solves through the device-resident loop (``merson_solve_device``, CUDA
+graphs of attempts; ``off`` through the plain right-hand side's
+``PlainAttempt``; a mesh row through the sharded attempt objects when its
+shards share the card), the CPU and a mesh over several cards through
+the host loop (``merson_solve``), by the app's rule
+(``solvers.merson.uses_device_loop``; the log says why for the host
+loop); the record names it under ``"controller"``, with the graph's
+capture time (``"graph_capture_s"``, null on the host loop).
 
 ``--mesh`` benches the sharded paths over a mesh of the visible devices of
 ``--device``, as ``bench.py`` does: a z mesh the classic stage kernels
-(``make_sharded_fused_stage``, with the interior/edge overlap split unless
+(``make_sharded_fused_stage`` on the host loop, ``ShardedStageAttempt``
+on the device loop, with the interior/edge overlap split unless
 ``--no-overlap``), a mesh with a y axis the 2-D increment-form attempt
 (``ShardedDeltaAttempt2D``); the metric gets ``_sharded_<spec>``.
 
@@ -89,10 +92,12 @@ from .models.freezing import (
 from .models.freezing.attempt import PlainAttempt
 from .ops.cuda.stencil import (
     DeltaAttempt, FusedAttempt, StageAttempt, make_fused_stage)
-from .parallel.fused import ShardedDeltaAttempt2D, make_sharded_fused_stage
+from .parallel.fused import (
+    ShardedDeltaAttempt2D, ShardedStageAttempt, make_sharded_fused_stage)
 from .parallel.sharding import make_mesh, shard_freezing_state
 from .solvers.merson import (
-    MersonParams, merson_init, merson_solve, merson_solve_device)
+    MersonParams, host_loop_reason, merson_init, merson_solve,
+    merson_solve_device, uses_device_loop)
 
 # the C reference's sustained throughput per case, cells x attempted steps
 # x 5 stages / wall seconds from its shipped logs (BASELINE.md), as in
@@ -211,25 +216,30 @@ def bench_freezing(args, grid_nodes=None, calc_mode=None) -> dict:
     if args.mesh:
         mesh = make_mesh(args.mesh, device=device)
         if "y" in mesh.axis_names:
-            attempt_fn = ShardedDeltaAttempt2D(geom, prm, calc_mode, mesh)
+            attempt_fn = dev_attempt = ShardedDeltaAttempt2D(
+                geom, prm, calc_mode, mesh)
             path = "delta_2d"
         else:
             stage_fn = make_sharded_fused_stage(
+                geom, prm, calc_mode, mesh, overlap=not args.no_overlap)
+            dev_attempt = ShardedStageAttempt(
                 geom, prm, calc_mode, mesh, overlap=not args.no_overlap)
             path = "stage_sharded"
         log(f"mesh {mesh.shape}, overlap "
             f"{'off' if args.no_overlap else 'on'}")
     elif path == "stage":
         stage_fn = make_fused_stage(geom, prm, calc_mode)
+        dev_attempt = StageAttempt(geom, prm, calc_mode)
     elif path == "delta":
-        attempt_fn = DeltaAttempt(geom, prm, calc_mode)
+        attempt_fn = dev_attempt = DeltaAttempt(geom, prm, calc_mode)
     elif path == "attempt":
-        attempt_fn = FusedAttempt(geom, prm, calc_mode)
-    controller = ("device" if device.type == "cuda" and mesh is None
-                  else "host")
-    dev_attempt = (StageAttempt(geom, prm, calc_mode) if path == "stage"
-                   else PlainAttempt(rhs, geom.shape, dtype) if path == "off"
-                   else attempt_fn)
+        attempt_fn = dev_attempt = FusedAttempt(geom, prm, calc_mode)
+    else:
+        dev_attempt = PlainAttempt(rhs, geom.shape, dtype)
+    controller = "device" if uses_device_loop(device, mesh) else "host"
+    if controller == "host":
+        log(f"step control: host loop "
+            f"({host_loop_reason(device, mesh) or 'by request'})")
 
     steps = args.steps or max(20, int(4e8 / geom.num_cells))
     warm = args.warm_steps or min(4 * steps,

@@ -72,4 +72,13 @@ struct DevStage {
     int stage;
 };
 
+// The DevStage of a _dev entry's launch: its nk coefficients coefs (host
+// memory), 0 past them.
+inline DevStage dev_stage(const void* ctl, int stage, int nk,
+                          const float* coefs) {
+    return DevStage{static_cast<const Control*>(ctl),
+                    {nk > 0 ? coefs[0] : 0.0f, nk > 1 ? coefs[1] : 0.0f,
+                     nk > 2 ? coefs[2] : 0.0f}, stage};
+}
+
 }  // namespace pft

@@ -40,7 +40,8 @@
 // equals the single-device one bit for bit.  pft_delta_g_dev is the
 // single-device entry with (h, D1, dDi) read from the control block of
 // the device-resident controller (control.cuh, control.cu): the same
-// kernel template with DEV set.
+// kernel template with DEV set; pft_delta_g_shard_dev is the shard entry
+// with DEV set, the device-resident loop on a mesh (parallel/fused.py).
 //
 // What bounds it on Hopper.  Bytes: a launch reads w (3 planes) and nk
 // increments (2 planes each) once and writes 2 planes, 76 MB at MR for the
@@ -661,9 +662,7 @@ int pft_delta_g_dev(const float* consts, int mode, int nk, int tail,
                          out, eps, eps_n, Z, Y, X);
     if (bad) return bad;
     if (!ctl || stage < 1 || stage > 4) return 1013;
-    const DevStage d{static_cast<const Control*>(ctl),
-                     {coefs[0], nk > 1 ? coefs[1] : 0.0f,
-                      nk > 2 ? coefs[2] : 0.0f}, stage};
+    const DevStage d = dev_stage(ctl, stage, nk, coefs);
     return launch(*reinterpret_cast<const Consts*>(consts), a,
                   whole_grid(Y), mode, nk, tail,
                   static_cast<cudaStream_t>(stream), nullptr, &d);
@@ -688,6 +687,32 @@ int pft_delta_g_shard(const float* consts, int mode, int nk, int tail,
     a.vec = ghost_width(a.vec, glo, ghi);
     return launch(*reinterpret_cast<const Consts*>(consts), a, sa, mode,
                   nk, tail, static_cast<cudaStream_t>(stream));
+}
+
+// The _dev entry of pft_delta_g_shard: (ctl, stage) as pft_delta_g_dev
+// takes them (h, D1 and dDi from the control block), the shard options
+// and is_top as pft_delta_g_shard.  A tail's eps must have exactly the
+// launch's slots.  Returns as pft_delta_g_shard; 1013 for a bad ctl or
+// stage.
+int pft_delta_g_shard_dev(const float* consts, int mode, int nk, int tail,
+                          const void* ctl, int stage, const float* coefs,
+                          const float* w, const float* k0, const float* k1,
+                          const float* k2, float* out, float* eps, int Z,
+                          int Y, int X, void* stream, long long eps_n,
+                          const float* glo, const float* ghi, int is_top,
+                          int r0, int Yl, int y0, int Yg) {
+    DeltaArgs a;
+    int bad = delta_args(a, nk, tail, 0.0f, 0.0f, 0.0f, coefs, w, k0, k1, k2,
+                         out, eps, eps_n, Z, Y, X);
+    if (bad) return bad;
+    if (!ctl || stage < 1 || stage > 4) return 1013;
+    ShardArgs sa{glo, ghi, PART_ALL, r0, Yl, y0, Yg, is_top};
+    bad = shard_check(sa, Z, Y);
+    if (bad) return bad;
+    a.vec = ghost_width(a.vec, glo, ghi);
+    const DevStage d = dev_stage(ctl, stage, nk, coefs);
+    return launch(*reinterpret_cast<const Consts*>(consts), a, sa, mode,
+                  nk, tail, static_cast<cudaStream_t>(stream), nullptr, &d);
 }
 
 // eps partial slots of a stage-5 launch (tail 1 or 2) of either entry over

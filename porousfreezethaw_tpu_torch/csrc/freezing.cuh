@@ -89,8 +89,9 @@ struct ShardArgs {
     int r0, Yl;            // own rows [r0, r0 + Yl) of the Y input rows
     int y0, Yg;            // global row of own row 0, global Y
     int is_top;            // the Dirichlet overwrites of the plane above Z-1
-                           // (the stage's shard entry passes 0: its ghi
-                           // holds the Dirichlet top of the top shard)
+                           // (the stage's by-value shard entry passes 0:
+                           // its ghi holds the Dirichlet top of the top
+                           // shard; its _dev entry passes the shard's)
 };
 
 constexpr int PART_ALL = 0, PART_INTERIOR = 1, PART_EDGE = 2;

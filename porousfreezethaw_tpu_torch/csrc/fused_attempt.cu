@@ -170,9 +170,7 @@ int pft_fused_attempt_dev(const float* consts, int mode, int nk, int tail,
     if (!ctl || stage < 0 || stage > 4) return 1013;
     a.y2 = y2;
     a.cur = cur;
-    const DevStage d{static_cast<const Control*>(ctl),
-                     {nk > 0 ? coefs[0] : 0.0f, nk > 1 ? coefs[1] : 0.0f,
-                      nk > 2 ? coefs[2] : 0.0f}, stage};
+    const DevStage d = dev_stage(ctl, stage, nk, coefs);
     return launch(*reinterpret_cast<const Consts*>(consts), a, mode, nk, tail,
                   static_cast<cudaStream_t>(stream), nullptr, &d);
 }

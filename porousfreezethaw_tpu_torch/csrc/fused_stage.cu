@@ -21,6 +21,11 @@
 // of the device-resident controller (control.cuh, control.cu): the same
 // kernel template with DEV set, whose blocks return at once once the loop
 // has halted, so that a CUDA graph of attempts needs no host scalar.
+// pft_fused_stage_shard_dev joins the two: the shard entry of the
+// device-resident loop on a mesh (parallel/fused.py), whose top shard has
+// the Dirichlet top decided by the kernel on t_s (is_top, as a
+// single-device launch decides it) where the by-value shard entry takes it
+// in the content of its ghost stack.
 //
 // What bounds it on Hopper: the bytes, 3 + 2 nk planes read and 2 written
 // per launch (40 MB at MR for nk = 0, 0.012 ms at 3.35 TB/s; a shard's
@@ -162,9 +167,7 @@ int pft_fused_stage_dev(const float* consts, int mode, int nk, int stage5,
                          out, eps, eps_n, Z, Y, X);
     if (bad) return bad;
     if (!ctl || stage < 0 || stage > 4) return 1013;
-    const DevStage d{static_cast<const Control*>(ctl),
-                     {nk > 0 ? coefs[0] : 0.0f, nk > 1 ? coefs[1] : 0.0f,
-                      nk > 2 ? coefs[2] : 0.0f}, stage};
+    const DevStage d = dev_stage(ctl, stage, nk, coefs);
     return launch(*reinterpret_cast<const Consts*>(consts), a, whole_grid(Y),
                   mode, nk, stage5, static_cast<cudaStream_t>(stream),
                   nullptr, &d);
@@ -192,6 +195,35 @@ int pft_fused_stage_shard(const float* consts, int mode, int nk, int stage5,
     a.vec = ghost_width(a.vec, glo, ghi);
     return launch(*reinterpret_cast<const Consts*>(consts), a, sa, mode, nk,
                   stage5, static_cast<cudaStream_t>(stream));
+}
+
+// The _dev entry of pft_fused_stage_shard: (ctl, stage) as
+// pft_fused_stage_dev takes them, the shard options as
+// pft_fused_stage_shard, and is_top: on the global top shard the combined
+// u above plane Z-1 is the Dirichlet top decided on t_s, as in a
+// single-device launch, and ghi holds the own edge planes (the mirror of
+// p and gl).  A tail's eps must have exactly the launch's slots.  Returns
+// as pft_fused_stage_shard; 1013 for a bad ctl or stage.
+int pft_fused_stage_shard_dev(const float* consts, int mode, int nk,
+                              int stage5, const void* ctl, int stage,
+                              const float* coefs, const float* w,
+                              const float* k0, const float* k1,
+                              const float* k2, float* out, float* eps, int Z,
+                              int Y, int X, void* stream, long long eps_n,
+                              const float* glo, const float* ghi, int part,
+                              int is_top, int r0, int Yl, int y0, int Yg) {
+    StageArgs a;
+    int bad = stage_args(a, nk, stage5, 0.0f, 0.0f, coefs, w, k0, k1, k2,
+                         out, eps, eps_n, Z, Y, X);
+    if (bad) return bad;
+    if (!ctl || stage < 0 || stage > 4) return 1013;
+    ShardArgs sa{glo, ghi, part, r0, Yl, y0, Yg, is_top ? 1 : 0};
+    bad = shard_check(sa, Z, Y);
+    if (bad) return bad;
+    a.vec = ghost_width(a.vec, glo, ghi);
+    const DevStage d = dev_stage(ctl, stage, nk, coefs);
+    return launch(*reinterpret_cast<const Consts*>(consts), a, sa, mode, nk,
+                  stage5, static_cast<cudaStream_t>(stream), nullptr, &d);
 }
 
 // eps partial slots of a stage-5 launch of either entry over part (0 all,

@@ -14,47 +14,96 @@ one eps partial and a copy in the field's width (float64, or float32 on
 the noise path).  The attempt is ``ops/cuda/control.py`` ``RHSAttempt``,
 the body the DEM's attempt shares, so it gives the host loop's state, t,
 h, counts and trace bit for bit (tests/test_torch_freezing_device.py).
+
+On a mesh whose shards share one device the right-hand side is
+``parallel/halo.py``'s ``make_halo_rhs`` (the JAX app's GSPMD branch: the
+plain ``make_rhs`` on each shard's block with its ghost planes and rows)
+and the state the list of shards, views of one static buffer, so that one
+copy commits them all; each shard has its eps slot, and the control
+kernel's max over them is the host loop's max of the leaves' maxima.
+The halo copies and each shard's block are PyTorch operations whose
+memory the graph's pool holds (tests/test_torch_mesh_device.py).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
 
 from ...ops.cuda.control import RHSAttempt
+from ...parallel.sharding import shard_block
 
 
 class PlainAttempt(RHSAttempt):
-    """One Merson attempt of the single-device freezing right-hand side
-    ``rhs`` (``make_rhs``) on one static state of shape (3, n3, n2, n1)
-    (``shape`` is (n3, n2, n1)) and ``dtype``: the stage-5 update into
-    ``spec`` of the same shape, and one eps slot, the NaN-propagating max
-    of the error over the whole state."""
+    """One Merson attempt of the freezing right-hand side ``rhs`` on one
+    static state of ``dtype`` (``shape`` is the grid's (n3, n2, n1)): the
+    stage-5 update into ``spec`` of the same shape and one eps slot a
+    shard, the NaN-propagating max of the error over it.  Without
+    ``mesh`` ``rhs`` is the single-device ``make_rhs`` and the state one
+    (3, n3, n2, n1) tensor; with it, ``make_halo_rhs`` over ``mesh`` and
+    the state the list of the shards of ``shard_freezing_state``."""
 
     def __init__(self, rhs, shape: Tuple[int, int, int],
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, mesh=None):
         self.rhs = rhs
-        self.shape = (3,) + tuple(int(n) for n in shape)
+        grid = tuple(int(n) for n in shape)
+        self.mesh = mesh
+        self.shapes = [(3,) + grid] if mesh is None else [
+            (3, zs.stop - zs.start, ys.stop - ys.start, grid[2])
+            for zs, ys in (shard_block(mesh, i, grid)
+                           for i in range(mesh.size))]
         self.dtype = dtype
 
     def _dev_alloc(self, device: torch.device, kernel: bool) -> dict:
-        y = torch.empty(self.shape, dtype=self.dtype, device=device)
+        if self.mesh is not None and any(d != device for d in
+                                         self.mesh.device_list()):
+            raise ValueError(f"PlainAttempt: the device loop serves a mesh "
+                             f"whose shards share one device, not "
+                             f"{self.mesh.device_list()}")
+        sizes = [math.prod(x) for x in self.shapes]
+        y = torch.empty(sum(sizes), dtype=self.dtype, device=device)
         spec = torch.empty_like(y)
-        eps = torch.empty(1, dtype=self.dtype, device=device)
-        return {"y": y, "leaves": y, "spec": spec, "spec_leaves": spec,
-                "eps": eps, "eps_leaves": eps[0]}
+        eps = torch.empty(len(sizes), dtype=self.dtype, device=device)
 
-    def _dev_load(self, b: dict, y: torch.Tensor) -> None:
-        dst = b["y"]
-        if not (torch.is_tensor(y) and y.shape == dst.shape
-                and y.dtype == dst.dtype and y.device == dst.device):
-            what = (f"{y.dtype} {tuple(y.shape)} on {y.device}"
-                    if torch.is_tensor(y) else type(y).__name__)
+        def views(flat):
+            return [v.view(x) for v, x in
+                    zip(torch.split(flat, sizes), self.shapes)]
+
+        ys, specs = views(y), views(spec)
+        one = self.mesh is None
+        return {"y": y, "leaves": ys[0] if one else ys, "spec": spec,
+                "spec_leaves": specs[0] if one else specs, "eps": eps,
+                "eps_leaves": eps[0] if one else list(eps.unbind(0))}
+
+    def _dev_load(self, b: dict, y) -> None:
+        dst = b["leaves"]
+        one = self.mesh is None
+        got = [y] if one else y
+        want = [dst] if one else dst
+        if not (isinstance(got, list) and len(got) == len(want) and all(
+                torch.is_tensor(g) and g.shape == w.shape
+                and g.dtype == w.dtype and g.device == w.device
+                for g, w in zip(got, want))):
             raise ValueError(
-                f"PlainAttempt expects a {dst.dtype} state of shape "
-                f"{tuple(dst.shape)} on {dst.device}, got {what}")
-        dst.copy_(y)
+                f"PlainAttempt expects {'a state' if one else 'shards'} of "
+                f"{want[0].dtype}, shape "
+                f"{' '.join(str(tuple(w.shape)) for w in want)} on "
+                f"{want[0].device}, got {_describe(y)}")
+        for g, w in zip(got, want):
+            w.copy_(g)
 
-    def _dev_unpack(self, b: dict) -> torch.Tensor:
-        return b["y"].clone()
+    def _dev_unpack(self, b: dict):
+        leaves = b["leaves"]
+        if self.mesh is None:
+            return leaves.clone()
+        return [v.clone() for v in leaves]
+
+
+def _describe(y) -> str:
+    if torch.is_tensor(y):
+        return f"{y.dtype} {tuple(y.shape)} on {y.device}"
+    if isinstance(y, list):
+        return "[" + ", ".join(_describe(v) for v in y) + "]"
+    return type(y).__name__

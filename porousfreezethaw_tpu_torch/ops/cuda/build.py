@@ -158,6 +158,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pft_fused_stage_shard.restype = ci
     lib.pft_delta_g_shard.argtypes = lib.pft_delta_g.argtypes + shard
     lib.pft_delta_g_shard.restype = ci
+    # the shard entries' _dev entries: the _dev arguments, then the shard
+    # arguments (the stage's with both part and is_top)
+    lib.pft_fused_stage_shard_dev.argtypes = (
+        lib.pft_fused_stage_dev.argtypes + [vp, vp, ci, ci, ci, ci, ci, ci])
+    lib.pft_fused_stage_shard_dev.restype = ci
+    lib.pft_delta_g_shard_dev.argtypes = lib.pft_delta_g_dev.argtypes + shard
+    lib.pft_delta_g_shard_dev.restype = ci
     # the eps slots of a tail launch: (mode, part, Z, Yl, X),
     # (mode, Z, Y, X) and (mode, tail, Z, Yl, X)
     lib.pft_stage_eps_blocks.argtypes = [ci, ci, ci, ci, ci]

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import gc
 import math
 import time
 from typing import Optional, Tuple
@@ -353,6 +354,9 @@ def _counters():
     from . import stencil as st
     return [(st.fused_stage, "launches"), (st.fused_attempt, "launches"),
             (st.delta_g, "launches"), (st.delta_g, "launches_dy"),
+            (st.fused_stage_shard, "launches"),
+            (st.fused_stage_shard, "launches_split"),
+            (st.delta_g_shard, "launches"), (st.delta_g_shard, "launches_dy"),
             (merson_control, "launches"), (commit, "launches"),
             (merson_control, "launches_f64"), (commit, "launches_f64")]
 
@@ -539,9 +543,19 @@ class DeviceLoop:
         torch.cuda.synchronize(ctl.device)
         mid = [getattr(o, a) for o, a in counters]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(ctl.device), torch.cuda.graph(graph):
-            for _ in range(BLOCK):
-                self.attempt._dev_attempt(ctl, self.bufs)
+        # the graphs of attempt objects dropped earlier (an attempt and
+        # its loop hold each other) are freed here: a collection during
+        # the capture would destroy a graph there, which invalidates it
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(ctl.device), torch.cuda.graph(graph):
+                for _ in range(BLOCK):
+                    self.attempt._dev_attempt(ctl, self.bufs)
+        finally:
+            if collecting:
+                gc.enable()
         per_attempt = []
         for (o, a), b0, b1 in zip(counters, before, mid):
             n, rem = divmod(getattr(o, a) - b1, BLOCK)

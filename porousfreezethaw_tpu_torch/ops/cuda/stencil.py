@@ -34,14 +34,16 @@ own, ``delta_g.launches_dy``; ``fused_stage_shard.launches`` for whole
 shards, ``fused_stage_shard.launches_split`` for the interior and edge
 passes, ``delta_g_shard.launches`` and ``delta_g_shard.launches_dy``).
 
-Each single-device kernel also has a ``_dev`` entry (``fused_stage_dev``,
-``fused_attempt_dev``, ``delta_g_dev``), which reads the scalars of its
-stage from the control block of the device-resident loop (control.py)
-and writes into the caller's buffers; the attempt objects
+Each kernel entry also has a ``_dev`` entry (``fused_stage_dev``,
+``fused_attempt_dev``, ``delta_g_dev``, and on a shard
+``fused_stage_shard_dev`` and ``delta_g_shard_dev``), which reads the
+scalars of its stage from the control block of the device-resident loop
+(control.py) and writes into the caller's buffers; the attempt objects
 (``DeltaAttempt``, ``DeltaAttemptComp``, ``FusedAttempt`` and
-``StageAttempt``, the classic stage path) run their attempts through
-them on static buffers for ``merson_solve_device``.  The ``_dev``
-launches count under their kernel's counter.
+``StageAttempt``, the classic stage path, and on a mesh those of
+parallel/fused.py) run their attempts through them on static buffers for
+``merson_solve_device``.  The ``_dev`` launches count under their
+kernel's counter.
 
 Scalars follow the JAX package exactly: t_stage and h reach the stage
 kernel as float32 (the Dirichlet phase switch of the stage kernel is
@@ -748,6 +750,110 @@ delta_g_shard.launches = 0
 delta_g_shard.launches_dy = 0
 
 
+# The shard entries' _dev entries: the device-resident loop on a mesh
+# (parallel/fused.py), with the stage scalars of the single-device _dev
+# entries (t_s and h; h, D1 and dDi) and the shard options of the by-value
+# shard entries; each writes into the caller's ``out`` and, with a tail,
+# into ``eps``, exactly the launch's slots (one for the plain versions).
+# The classic stage takes ``is_top``: on the global top shard the kernel
+# sets the combined u above the last plane to the Dirichlet top decided on
+# t_s in float32, as the single-device stage does, where the by-value entry
+# finds it in the content of ``ghosts[1]`` (parallel/fused.py
+# ``fill_ghosts``); either way the bits are the single-device stage's.  The
+# launches count under the by-value shard entries' counters.
+
+def _dirichlet_ghost(spec: StencilSpec, t32: float, ghosts, nk: int):
+    """``ghosts`` with the top stack's combined u set to the Dirichlet top
+    at ``t32``, as the by-value entry receives it: w's u plane := D, each
+    K's u plane := 0 (a copy; ``fused_stage_shard_dev``'s plain version)."""
+    lo, hi = ghosts
+    hi = hi.clone()
+    hi[0] = physics.dirichlet_top_f32(t32, spec.params)
+    for q in range(nk):
+        hi[N_VARS + K_VARS * q] = 0.0
+    return lo, hi
+
+
+def fused_stage_shard_dev(spec: StencilSpec, ctl: ControlBlock, stage: int,
+                          w: torch.Tensor, ks: Ks, ghosts, out: torch.Tensor,
+                          *, is_top: bool, window=None, stage5: bool = False,
+                          part: str = "all", eps=None) -> None:
+    """The ``fused_stage_shard`` kernel's _dev entry: K (or with
+    ``stage5`` y_spec, and the eps partials into ``eps``) of the planes of
+    ``part`` into ``out``, (2, zl, Yl, X); ``part="edge"`` writes the edge
+    planes into an ``out`` whose interior the interior part wrote."""
+    zl = w.shape[1] if w.dim() == 4 else 0
+    _check_shard(spec, "fused_stage_shard_dev", w, ks, ghosts, window,
+                 stage5, 0, part, (out, eps)[:1 + int(stage5)])
+    r0, Yl, y0 = _window(w, window)
+    _check_dev("fused_stage_shard_dev", ctl, stage, w, out,
+               (K_VARS, zl, Yl, w.shape[3]), eps if stage5 else None)
+    if not ctl.on_device:
+        c = ctl.host
+        if is_top and ghosts is not None:
+            ghosts = _dirichlet_ghost(spec, c.ts[stage], ghosts, len(ks))
+        kw = dict(window=window, stage5=stage5, part=part)
+        if part == "edge":
+            slots = torch.zeros(2, dtype=w.dtype, device=w.device)
+            fused_stage_shard_plain(spec, c.ts[stage], c.h32, w, ks, ghosts,
+                                    prev=(out, slots)[:1 + int(stage5)],
+                                    **kw)
+            if stage5:
+                eps.copy_(slots[1:])
+            return
+        res = fused_stage_shard_plain(spec, c.ts[stage], c.h32, w, ks,
+                                      ghosts, **kw)
+        zs = _planes(part, zl)
+        if stage5:
+            res, e = res
+            eps.copy_(e[:1])
+        out[:, zs] = res[:, zs]
+        return
+    _kernel_call("pft_fused_stage_shard_dev", spec,
+                 (ctl.buf.data_ptr(), stage), (w.data_ptr(),), w.device, ks,
+                 int(stage5), out, dims=tuple(w.shape[1:]),
+                 eps=eps if stage5 else None,
+                 extra=_ghost_ptrs(ghosts) + (
+                     PARTS.index(part), int(is_top), r0, Yl, y0,
+                     spec.geom.n2))
+    if part == "all":
+        fused_stage_shard.launches += 1
+    else:
+        fused_stage_shard.launches_split += 1
+
+
+def delta_g_shard_dev(spec: StencilSpec, ctl: ControlBlock, stage: int,
+                      w: torch.Tensor, ks: Ks, ghosts, out: torch.Tensor, *,
+                      is_top: bool, window=None, stage5: bool = False,
+                      emit: str = "y", eps=None) -> None:
+    """The ``delta_g_shard`` kernel's _dev entry (stages 1-4): G (or with
+    ``stage5`` y_spec or dy, per ``emit``, and the eps partials into
+    ``eps``) into ``out``, (2, zl, Yl, X)."""
+    zl = w.shape[1] if w.dim() == 4 else 0
+    _check_shard(spec, "delta_g_shard_dev", w, ks, ghosts, window, stage5, 1)
+    r0, Yl, y0 = _window(w, window)
+    _check_dev("delta_g_shard_dev", ctl, stage, w, out,
+               (K_VARS, zl, Yl, w.shape[3]), eps if stage5 else None)
+    if emit not in EMITS or (emit == "dy" and not stage5):
+        raise ValueError(f"delta_g_shard_dev: emit must be one of {EMITS}, "
+                         f"and 'dy' needs stage5; got {emit!r}")
+    if not ctl.on_device:
+        c = ctl.host
+        return _store(delta_g_shard_plain(
+            spec, c.h32, c.D1, c.dD[stage], w, ks, ghosts, is_top=is_top,
+            window=window, stage5=stage5, emit=emit), out, eps)
+    tail = 2 if emit == "dy" else int(stage5)
+    _kernel_call("pft_delta_g_shard_dev", spec, (ctl.buf.data_ptr(), stage),
+                 (w.data_ptr(),), w.device, ks, tail, out,
+                 dims=tuple(w.shape[1:]), eps=eps if stage5 else None,
+                 extra=_ghost_ptrs(ghosts) + (
+                     int(is_top), r0, Yl, y0, spec.geom.n2))
+    if emit == "dy":
+        delta_g_shard.launches_dy += 1
+    else:
+        delta_g_shard.launches += 1
+
+
 # ---------------------------------------------------------------------------
 # merson_solve adapters
 # ---------------------------------------------------------------------------
@@ -794,15 +900,33 @@ def make_delta_g(geom: GridGeometry, params: FreezingParams, calc_mode: int,
     return g
 
 
+def delta_ghost_values(t: float, h: float, prm: FreezingParams):
+    """``(D1, (dD2, dD3, dD4, dD5))`` of the increment-form attempt at
+    ``(t, h)``: the Dirichlet top D1 = D(t) in float64 and, for stages 2-5
+    (t + h/3, t + h/3, t + h/2, t + h), D(t_s) - D1 rounded to float32, as
+    the control block forms them (control.py ``next_scalars_plain``); the
+    difference is exact, both values being parameter constants."""
+    D1 = physics.dirichlet_top(t, prm)
+    return D1, tuple(float(np.float32(physics.dirichlet_top(ts, prm) - D1))
+                     for ts in (t + h / 3, t + h / 3, t + h / 2, t + h))
+
+
 def _kbuf(spec: StencilSpec, device: torch.device) -> torch.Tensor:
     return torch.empty(spec.k_shape, dtype=torch.float32, device=device)
 
 
+def eps_slots(kernel: bool, device: torch.device, fn_name: str,
+              *args) -> int:
+    """The eps partial slots of a tail launch of the device loop: the
+    launch's (``_eps_blocks``) for the kernels, one for the plain
+    versions."""
+    return _eps_blocks(fn_name, device, *args) if kernel else 1
+
+
 def _eps_buf(kernel: bool, device: torch.device, fn_name: str, *args):
-    """A tail's eps partials: the launch's slots for the kernels, one for
-    the plain versions."""
-    n = _eps_blocks(fn_name, device, *args) if kernel else 1
-    return torch.empty((n,), dtype=torch.float32, device=device)
+    """A tail's eps partials, ``eps_slots`` of them."""
+    return torch.empty((eps_slots(kernel, device, fn_name, *args),),
+                       dtype=torch.float32, device=device)
 
 
 class _Attempt(DeviceAttempt):
@@ -858,19 +982,12 @@ class DeltaAttempt(_Attempt):
     def _stages(self, t: float, h: float, y: torch.Tensor, emit: str):
         """The five stages on ``y``: the stage-5 tail's output (y_spec or
         dy, per ``emit``) and the eps partials."""
-        prm = self._prm
-        D1 = physics.dirichlet_top(t, prm)
-
-        def dD(ts):
-            # exact: both values are parameter constants
-            return float(np.float32(physics.dirichlet_top(ts, prm) - D1))
-
+        D1, dD = delta_ghost_values(t, h, self._prm)
         K1 = self._stage1(t, h, y, [])
-        G2 = self._g(h, D1, dD(t + h / 3), y, [(1.0 / 3.0, K1)])
-        G3 = self._g(h, D1, dD(t + h / 3), y,
-                     [(1.0 / 3.0, K1), (1.0 / 6.0, G2)])
-        G4 = self._g(h, D1, dD(t + h / 2), y, [(0.5, K1), (0.375, G3)])
-        return self._g(h, D1, dD(t + h), y,
+        G2 = self._g(h, D1, dD[0], y, [(1.0 / 3.0, K1)])
+        G3 = self._g(h, D1, dD[1], y, [(1.0 / 3.0, K1), (1.0 / 6.0, G2)])
+        G4 = self._g(h, D1, dD[2], y, [(0.5, K1), (0.375, G3)])
+        return self._g(h, D1, dD[3], y,
                        [(1.0, K1), (-1.5, G3), (2.0, G4)], stage5=True,
                        emit=emit)
 

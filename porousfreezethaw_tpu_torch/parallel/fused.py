@@ -34,22 +34,43 @@ ghost plane with each z-neighbour inside the right-hand side
 * The stage-5 tail's eps partials of all shards are gathered onto the
   mesh's first device, where ``merson_solve`` takes their max: the
   reference's ``MPI_Allreduce(MAX)``.
+
+The attempt objects (``ShardedDeltaAttempt``, its compensated variant,
+``ShardedDeltaAttempt2D`` and, for the classic stage path,
+``ShardedStageAttempt``) are also on the device protocol of
+``merson_solve_device`` (ops/cuda/control.py ``DeviceAttempt``), for a
+mesh whose shards share one device (virtual shards of one card, or of the
+CPU): the state shards are views of one static buffer; the stage outputs,
+the ghost stacks of every stage and, on a 2-D mesh, the y-extended inputs
+(their chain-end rows NaN once) are allocated once; every shard's
+stage-5 launch writes its own slots of one eps buffer, which the control
+kernel reduces (the ``MPI_Allreduce(MAX)``, exact, so the host loop's
+bits); the stages are the shard kernels' ``_dev`` entries, which read
+their scalars from the control block (the classic stage's Dirichlet top
+included: the top shard's kernel decides it on t_s, ``is_top``); the
+commit is the commit kernel, one launch per shard.  The overlap split's
+side stream is made in the idle attempt before the capture and joined
+back within each stage, so a block of attempts is one CUDA graph.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import List, Optional
 
-import numpy as np
 import torch
 
 from ..core.grid import GridGeometry
 from ..models.freezing import physics
 from ..models.freezing.delta import two_sum
 from ..models.freezing.parameters import FreezingParams
+from ..ops.cuda.control import (
+    COMMIT_COPY, COMMIT_TWOSUM, ControlBlock, DeviceAttempt,
+    commit as commit_dev, merson_control)
 from ..ops.cuda.stencil import (
-    K_VARS, N_VARS, StencilSpec, commit, delta_g_shard, fused_stage_shard,
+    K_VARS, N_VARS, StencilSpec, commit, delta_g_shard, delta_g_shard_dev,
+    delta_ghost_values, eps_slots, fused_stage_shard, fused_stage_shard_dev,
     ghost_planes)
 from .sharding import Mesh, split_rows
 
@@ -144,19 +165,32 @@ class _Topology:
     def extend_y(self, arrs: Shards) -> Shards:
         """Each shard's (nv, zl, Yl, X) array with one raw edge row of each
         y-neighbour around its rows; NaN rows at the chain ends."""
+        out = self.ext_alloc(arrs)
+        self.extend_into(arrs, out)
+        return out
+
+    def ext_alloc(self, arrs: Shards) -> Shards:
+        """Buffers for ``extend_into`` of ``arrs``: one row more on each
+        side, NaN in the rows at the chain ends."""
         out = []
         for i, a in enumerate(arrs):
             e = torch.empty(a.shape[:2] + (a.shape[2] + 2, a.shape[3]),
                             dtype=a.dtype, device=a.device)
+            for row, dy in ((0, -1), (-1, 1)):
+                if self._nbr(i, 0, dy) is None:
+                    e[:, :, row].fill_(float("nan"))
+            out.append(e)
+        return out
+
+    def extend_into(self, arrs: Shards, exts: Shards) -> None:
+        """Copy each shard's rows and its y-neighbours' raw edge rows into
+        its ``ext_alloc`` buffer."""
+        for i, (a, e) in enumerate(zip(arrs, exts)):
             e[:, :, 1:-1].copy_(a)
             for row, dy, src_row in ((0, -1, -1), (-1, 1, 0)):
                 j = self._nbr(i, 0, dy)
-                if j is None:
-                    e[:, :, row].fill_(float("nan"))
-                else:
+                if j is not None:
                     e[:, :, row].copy_(arrs[j][:, :, src_row])
-            out.append(e)
-        return out
 
     def alloc_ghosts(self, arrs: List[Shards]):
         """Empty (lo, hi) ghost stacks of every shard; ``arrs[i]`` is
@@ -295,7 +329,144 @@ def make_sharded_fused_stage(geom: GridGeometry, params: FreezingParams,
     return stage
 
 
-class ShardedDeltaAttempt:
+class _ShardedAttempt(DeviceAttempt):
+    """What the sharded attempt objects share: the topology and the
+    kernels' spec, and on the device protocol (ops/cuda/control.py
+    ``DeviceAttempt``) the state shards, the stage outputs, the eps
+    buffer, the classic and the delta stage on every shard, and the
+    commit.  ``_planes`` is the state's planes in the device loop (5 with
+    the compensated commit's lo planes)."""
+
+    _planes = N_VARS
+    compensated = False
+
+    def _init(self, geom, params, calc_mode, topo, overlap):
+        self.geom = geom
+        self._prm = params
+        self._topo = topo
+        self._spec = StencilSpec.of(geom, params, calc_mode)
+        self._split = overlap and topo.zl >= 3
+        self.dirichlet = (params.top_temp1, params.top_temp2,
+                          params.phase_switch_time)
+
+    # --- the device protocol (control.py DeviceAttempt) ---
+
+    def _dev_state(self, device: torch.device) -> dict:
+        """The state shards ``ys``, views of one buffer on ``device``, and
+        their w planes ``ws``."""
+        topo = self._topo
+        if any(d != device for d in topo.devices):
+            raise ValueError(
+                f"{type(self).__name__}: the device loop serves a mesh whose "
+                f"shards share one device, not "
+                f"{sorted({str(d) for d in topo.devices})}")
+        shapes = [(self._planes, topo.zl, topo.window(i)[1], self.geom.n1)
+                  for i in range(topo.size)]
+        flat = torch.empty(sum(math.prod(x) for x in shapes),
+                           dtype=torch.float32, device=device)
+        ys, at = [], 0
+        for x in shapes:
+            ys.append(flat[at:at + math.prod(x)].view(x))
+            at += math.prod(x)
+        return {"ys": ys, "ws": [y[:N_VARS] for y in ys]}
+
+    def _k_shards(self, device: torch.device) -> Shards:
+        topo = self._topo
+        return [torch.empty((K_VARS, topo.zl, topo.window(i)[1],
+                             self.geom.n1), dtype=torch.float32,
+                            device=device) for i in range(topo.size)]
+
+    def _ghosts(self, ws: Shards, ks) -> list:
+        """Every stage's ghost stacks: ``ks[s]`` lists stage s's K inputs
+        (each a list of shards), ``ws`` its w shards."""
+        n = self._topo.size
+        return [self._topo.alloc_ghosts([[ws[i]] + [K[i] for K in kk]
+                                         for i in range(n)]) for kk in ks]
+
+    def _eps(self, device: torch.device, kernel: bool, fn_name: str,
+             parts) -> tuple:
+        """One eps buffer for the stage-5 launches of all shards and each
+        shard's list of views of its launches' slots; ``parts[i]`` lists
+        the arguments of ``fn_name`` (after the mode) of shard i's
+        launches."""
+        mode = int(self._spec.mode)
+        counts = [[eps_slots(kernel, device, fn_name, mode, *a) for a in pp]
+                  for pp in parts]
+        eps = torch.empty(sum(map(sum, counts)), dtype=torch.float32,
+                          device=device)
+        views, at = [], 0
+        for cc in counts:
+            views.append([])
+            for c in cc:
+                views[-1].append(eps[at:at + c])
+                at += c
+        return eps, views
+
+    def _dev_classic(self, ctl: ControlBlock, stage: int, ws: Shards, ks,
+                     outs: Shards, ghosts, eps=None) -> None:
+        """Classic stage ``stage`` on every shard into ``outs`` (``eps``:
+        each shard's slot views, for the tail), with the overlap split
+        where the shards allow it."""
+        topo, n = self._topo, self._topo.size
+        arrs = [[ws[i]] + [K[i] for _, K in ks] for i in range(n)]
+
+        def launch(i, part, g, slot):
+            fused_stage_shard_dev(
+                self._spec, ctl, stage, ws[i], [(c, K[i]) for c, K in ks], g,
+                outs[i], is_top=topo.is_top(i), window=topo.window(i),
+                stage5=eps is not None, part=part,
+                eps=None if eps is None else eps[i][slot])
+
+        if self._split:
+            done = topo.on_side(lambda: topo.fill_ghosts(ghosts, arrs))
+            for i in range(n):
+                launch(i, "interior", None, 0)
+            topo.wait(done)
+            for i in range(n):
+                launch(i, "edge", ghosts[i], 1)
+        else:
+            topo.fill_ghosts(ghosts, arrs)
+            for i in range(n):
+                launch(i, "all", ghosts[i], 0)
+
+    def _dev_delta(self, ctl: ControlBlock, stage: int, ws: Shards, ks,
+                   outs: Shards, ghosts, eps=None, emit: str = "y") -> None:
+        """Increment-form stage ``stage`` on every shard into ``outs``."""
+        topo, n = self._topo, self._topo.size
+        topo.fill_ghosts(ghosts, [[ws[i]] + [K[i] for _, K in ks]
+                                  for i in range(n)])
+        for i in range(n):
+            delta_g_shard_dev(
+                self._spec, ctl, stage, ws[i], [(c, K[i]) for c, K in ks],
+                ghosts[i], outs[i], is_top=topo.is_top(i),
+                window=topo.window(i), stage5=eps is not None, emit=emit,
+                eps=None if eps is None else eps[i][0])
+
+    def _dev_commit(self, ctl: ControlBlock, b: dict) -> None:
+        for y, o in zip(b["ys"], b["out"]):
+            if self.compensated:
+                commit_dev(ctl, COMMIT_TWOSUM, y[:K_VARS], y[N_VARS:],
+                           src=o)
+            else:
+                commit_dev(ctl, COMMIT_COPY, y[:K_VARS], src=o)
+
+    def _dev_load(self, b: dict, ys: Shards) -> None:
+        nv = ys[0].shape[0] if isinstance(ys, list) and ys else 0
+        if nv not in (N_VARS, self._planes) or ys[0].dtype != torch.float32:
+            raise ValueError(
+                f"{type(self).__name__} expects a list of float32 state "
+                f"shards of {N_VARS} or {self._planes} planes")
+        self._topo.check(ys, nv)
+        for dst, y in zip(b["ys"], ys):
+            dst[:nv].copy_(y)
+            if nv != self._planes:
+                dst[nv:].zero_()
+
+    def _dev_unpack(self, b: dict) -> Shards:
+        return [y.clone() for y in b["ys"]]
+
+
+class ShardedDeltaAttempt(_ShardedAttempt):
     """The increment-form (delta) Merson attempt over a z mesh: the
     counterpart of the JAX ``ShardedDeltaAttempt``.
 
@@ -308,7 +479,9 @@ class ShardedDeltaAttempt:
     Implements ``merson_solve``'s ``attempt_fn`` protocol on the list of
     ``(3, zl, n2, n1)`` float32 state shards (5 planes, [u, p, gl, u_lo,
     p_lo], with ``compensated``): ``pack`` copies the shards once per solve
-    call and ``commit`` writes into the copies in place."""
+    call and ``commit`` writes into the copies in place; and the device
+    protocol of ``merson_solve_device`` (see the module docstring), whose
+    commit is the commit kernel's copy (TwoSum, ``compensated``)."""
 
     def __init__(self, geom: GridGeometry, params: FreezingParams,
                  calc_mode: int, mesh: Mesh, axis_name: str = "z", *,
@@ -316,13 +489,7 @@ class ShardedDeltaAttempt:
         self._init(geom, params, calc_mode,
                    _Topology(geom, mesh, z_axis=axis_name), overlap)
         self.compensated = compensated
-
-    def _init(self, geom, params, calc_mode, topo, overlap):
-        self.geom = geom
-        self._prm = params
-        self._topo = topo
-        self._spec = StencilSpec.of(geom, params, calc_mode)
-        self._split = overlap and topo.zl >= 3
+        self._planes = N_VARS + K_VARS if compensated else N_VARS
 
     def _delta_stage(self, h, D1, dDi, ws, ks, stage5=False, emit="y"):
         topo = self._topo
@@ -342,24 +509,18 @@ class ShardedDeltaAttempt:
     def _stages(self, t: float, h: float, ws: Shards, emit: str):
         """The five stages on the shards ``ws``: the stage-5 tail's output
         shards (y_spec or dy) and the eps partials."""
-        prm, topo = self._prm, self._topo
+        topo = self._topo
         ext = topo.extend_y if topo.extended else (lambda a: a)
-        D1 = physics.dirichlet_top(t, prm)
-
-        def dD(ts):
-            # exact: both values are parameter constants
-            return float(np.float32(physics.dirichlet_top(ts, prm) - D1))
-
+        D1, dD = delta_ghost_values(t, h, self._prm)
         we = ext(ws)
         K1 = ext(_classic_stage(topo, self._spec, t, h, we, [], False,
                                 self._split))
-        G2 = ext(self._delta_stage(h, D1, dD(t + h / 3), we,
-                                   [(1.0 / 3.0, K1)]))
-        G3 = ext(self._delta_stage(h, D1, dD(t + h / 3), we,
+        G2 = ext(self._delta_stage(h, D1, dD[0], we, [(1.0 / 3.0, K1)]))
+        G3 = ext(self._delta_stage(h, D1, dD[1], we,
                                    [(1.0 / 3.0, K1), (1.0 / 6.0, G2)]))
-        G4 = ext(self._delta_stage(h, D1, dD(t + h / 2), we,
+        G4 = ext(self._delta_stage(h, D1, dD[2], we,
                                    [(0.5, K1), (0.375, G3)]))
-        return self._delta_stage(h, D1, dD(t + h), we,
+        return self._delta_stage(h, D1, dD[3], we,
                                  [(1.0, K1), (-1.5, G3), (2.0, G4)],
                                  stage5=True, emit=emit)
 
@@ -367,14 +528,13 @@ class ShardedDeltaAttempt:
 
     def pack(self, ys: Shards) -> Shards:
         nv = ys[0].shape[0] if ys else 0
-        full = N_VARS + K_VARS if self.compensated else N_VARS
         self._topo.check(ys, nv)
-        if nv not in (N_VARS, full) or ys[0].dtype != torch.float32:
+        if nv not in (N_VARS, self._planes) or ys[0].dtype != torch.float32:
             raise ValueError(f"{type(self).__name__} expects float32 state "
                              f"shards of {N_VARS} planes, got {nv} planes "
                              f"of {ys[0].dtype}")
         out = [y.clone(memory_format=torch.contiguous_format) for y in ys]
-        if nv != full:
+        if nv != self._planes:
             out = [torch.cat([y, torch.zeros_like(y[:K_VARS])]) for y in out]
         return out
 
@@ -397,6 +557,52 @@ class ShardedDeltaAttempt:
 
     def unpack(self, ys: Shards) -> Shards:
         return ys
+
+    # --- the device protocol ---
+
+    def _dev_alloc(self, device: torch.device, kernel: bool) -> dict:
+        topo = self._topo
+        b = self._dev_state(device)
+        names = ("K1", "G2", "G3", "G4")
+        for k in names + ("out",):
+            b[k] = self._k_shards(device)
+        # the stage inputs: on a 2-D mesh the y-extended copies
+        b["in"] = {k: topo.ext_alloc(b[k]) if topo.extended else b[k]
+                   for k in ("ws",) + names}
+        x = b["in"]
+        b["ghosts"] = self._ghosts(x["ws"], (
+            [], [x["K1"]], [x["K1"], x["G2"]], [x["K1"], x["G3"]],
+            [x["K1"], x["G3"], x["G4"]]))
+        tail = 2 if self.compensated else 1
+        b["eps"], b["eps_views"] = self._eps(
+            device, kernel, "pft_delta_eps_blocks",
+            [[(tail, topo.zl, topo.window(i)[1], self.geom.n1)]
+             for i in range(topo.size)])
+        return b
+
+    def _dev_attempt(self, ctl: ControlBlock, b: dict) -> None:
+        topo, x, g = self._topo, b["in"], b["ghosts"]
+
+        def ext(k):
+            if topo.extended:
+                topo.extend_into(b[k], x[k])
+            return x[k]
+
+        we = ext("ws")
+        self._dev_classic(ctl, 0, we, [], b["K1"], g[0])
+        K1 = ext("K1")
+        self._dev_delta(ctl, 1, we, [(1.0 / 3.0, K1)], b["G2"], g[1])
+        G2 = ext("G2")
+        self._dev_delta(ctl, 2, we, [(1.0 / 3.0, K1), (1.0 / 6.0, G2)],
+                        b["G3"], g[2])
+        G3 = ext("G3")
+        self._dev_delta(ctl, 3, we, [(0.5, K1), (0.375, G3)], b["G4"], g[3])
+        G4 = ext("G4")
+        self._dev_delta(ctl, 4, we, [(1.0, K1), (-1.5, G3), (2.0, G4)],
+                        b["out"], g[4], eps=b["eps_views"],
+                        emit="dy" if self.compensated else "y")
+        merson_control(ctl)
+        self._dev_commit(ctl, b)
 
 
 def make_sharded_delta_attempt(geom: GridGeometry, params: FreezingParams,
@@ -430,4 +636,51 @@ class ShardedDeltaAttempt2D(ShardedDeltaAttempt):
                              f"got {mesh.axis_names}")
         self._init(geom, params, calc_mode,
                    _Topology(geom, mesh, z_axis="z", y_axis="y"), False)
-        self.compensated = False
+
+
+class ShardedStageAttempt(_ShardedAttempt):
+    """The classic stage path over a z mesh (``merson_solve`` with
+    ``make_sharded_fused_stage``'s stage_fn, ``increment_form 0``) as an
+    attempt object on the device protocol only: the sharded counterpart of
+    ops/cuda/stencil.py ``StageAttempt``.  Its five stages are the shard
+    stage kernel's ``_dev`` entry (K3's interior and edge passes with the
+    overlap split, K1s without) with the coefficients of ``merson_solve``'s
+    stage path, and the stage-5 tail's y_spec is copied into (u, p) of each
+    state shard by the commit kernel.  The device loop through it equals
+    the host loop through the stage_fn bit for bit."""
+
+    def __init__(self, geom: GridGeometry, params: FreezingParams,
+                 calc_mode: int, mesh: Mesh, axis_name: str = "z", *,
+                 overlap: bool = True):
+        self._init(geom, params, calc_mode,
+                   _Topology(geom, mesh, z_axis=axis_name), overlap)
+
+    def _dev_alloc(self, device: torch.device, kernel: bool) -> dict:
+        topo = self._topo
+        b = self._dev_state(device)
+        for k in ("K1", "K2", "K3", "K4", "out"):
+            b[k] = self._k_shards(device)
+        b["ghosts"] = self._ghosts(b["ws"], (
+            [], [b["K1"]], [b["K1"], b["K2"]], [b["K1"], b["K3"]],
+            [b["K1"], b["K3"], b["K4"]]))
+        # the tail's launches: the interior and edge parts, or the whole
+        parts = (1, 2) if self._split else (0,)
+        b["eps"], b["eps_views"] = self._eps(
+            device, kernel, "pft_stage_eps_blocks",
+            [[(p, topo.zl, topo.window(i)[1], self.geom.n1) for p in parts]
+             for i in range(topo.size)])
+        return b
+
+    def _dev_attempt(self, ctl: ControlBlock, b: dict) -> None:
+        ws, g = b["ws"], b["ghosts"]
+        K1, K2, K3, K4 = b["K1"], b["K2"], b["K3"], b["K4"]
+        self._dev_classic(ctl, 0, ws, [], K1, g[0])
+        self._dev_classic(ctl, 1, ws, [(1.0 / 3.0, K1)], K2, g[1])
+        self._dev_classic(ctl, 2, ws, [(1.0 / 6.0, K1), (1.0 / 6.0, K2)], K3,
+                          g[2])
+        self._dev_classic(ctl, 3, ws, [(1.0 / 8.0, K1), (3.0 / 8.0, K3)], K4,
+                          g[3])
+        self._dev_classic(ctl, 4, ws, [(0.5, K1), (-1.5, K3), (2.0, K4)],
+                          b["out"], g[4], eps=b["eps_views"])
+        merson_control(ctl)
+        self._dev_commit(ctl, b)

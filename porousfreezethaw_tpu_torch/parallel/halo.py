@@ -22,6 +22,11 @@ Windows follow :func:`.sharding.split_rows` in z and in y, so any grid
 with at least one plane and one row a shard runs, whatever the mesh; the
 mesh has axes ``z`` and ``y`` only.  The noise field is windowed with the
 state.
+
+On the device-resident loop (``models/freezing/attempt.py``
+``PlainAttempt`` with ``mesh=``) this right-hand side is captured as it
+is: the halo copies, each shard's zero block and its slices are PyTorch
+operations whose memory the captured graph's pool holds.
 """
 
 from __future__ import annotations

@@ -400,6 +400,31 @@ def merson_solve(
     return new_state, status
 
 
+def host_loop_reason(device: torch.device, mesh=None) -> Optional[str]:
+    """Why a solve on ``device`` (sharded over ``mesh``, if given) runs
+    the host loop (``merson_solve``), or None where it runs the device
+    loop (``merson_solve_device``): the one rule of the freezing app, the
+    spheres app (``models.dem.dem_solver``) and the bench.  The device
+    loop serves the card, a mesh whose shards all share one CUDA device
+    included (virtual shards of one card); the CPU keeps the host loop, as
+    the JAX apps do there, and so does a mesh over several cards, whose
+    capture is unverified.  It is not a fallback: a failed capture or
+    launch raises."""
+    if device.type != "cuda":
+        return f"--device {device.type}"
+    if mesh is not None:
+        n = len(set(mesh.device_list()))
+        if n > 1:
+            return f"shards on {n} devices"
+    return None
+
+
+def uses_device_loop(device: torch.device, mesh=None) -> bool:
+    """Whether a solve on ``device`` over ``mesh`` runs the device loop
+    (``host_loop_reason`` is None)."""
+    return host_loop_reason(device, mesh) is None
+
+
 def merson_solve_device(state: MersonState, final_time: float,
                         params: MersonParams, attempt_fn, between=None):
     """``merson_solve(None, state, final_time, params,
@@ -411,9 +436,12 @@ def merson_solve_device(state: MersonState, final_time: float,
     ``attempt_fn`` is an attempt object on the device protocol
     (ops/cuda/control.py ``DeviceAttempt``: ``DeltaAttempt``,
     ``DeltaAttemptComp``, ``FusedAttempt``, ``StageAttempt`` on a float32
-    freezing state; models/freezing/attempt.py ``PlainAttempt`` on a
-    float64 or float32 one; models/dem/attempt.py ``DEMAttempt`` on the
-    DEM's dict state, float64 or float32).  The prologue forms h in float64 here and
+    freezing state, and parallel/fused.py's sharded attempts on the list
+    of its shards; models/freezing/attempt.py ``PlainAttempt`` on a
+    float64 or float32 one, or on the shards of a mesh;
+    models/dem/attempt.py ``DEMAttempt`` on the DEM's dict state, or the
+    list of its shards' dicts, float64 or float32).  A sharded state's
+    shards share one device.  The prologue forms h in float64 here and
     writes the control block; each attempt's step control is the
     ``merson_control`` kernel and its commit the ``commit`` kernel,
     reading the accept flag on the device.  On the card the loop replays a
@@ -442,8 +470,14 @@ def merson_solve_device(state: MersonState, final_time: float,
         raise ValueError("between= drains the trace: set record_trace")
     tf = float(final_time)
     t0, h, h_cont, prefinished = _prologue(state, tf)
-    y = _flat(state.y)[0]
-    loop = attempt_fn.device_loop(y.device)
+    # the loop lives on the device of the state's leaves: a sharded state's
+    # shards share it (host_loop_reason)
+    devices = {x.device for x in _flat(state.y)}
+    if len(devices) != 1:
+        raise ValueError(f"merson_solve_device: the state lies on "
+                         f"{len(devices)} devices; the device loop serves "
+                         f"one (host_loop_reason)")
+    loop = attempt_fn.device_loop(devices.pop())
     loop.begin(state.y, t=t0, h=h, h_cont=h_cont, steps=int(state.steps),
                steps_total=int(state.steps_total), finished=prefinished,
                tf=tf, params=params)

@@ -7,7 +7,9 @@ in f64 and in f32 with a noise field, and the DEM's, with the control
 and commit kernels in float64 and float32), and the shard kernels (K1s,
 K3, K2s):
 against their plain versions, and the mesh paths on virtual shards of the
-card against the single-device paths bit for bit.
+card against the single-device paths bit for bit; the shard kernels' _dev
+entries against their by-value entries bit for bit, and the device loop
+on a z4 mesh of virtual shards against its host loop at MR.
 
 These tests need an NVIDIA GPU and nvcc; without them they skip.  The
 machine with the card has no JAX, so run them without the suite's
@@ -690,3 +692,231 @@ def test_mesh_paths_bitwise_on_virtual_shards(dev, mode):
              st.fused_stage_shard.launches_split,
              st.delta_g_shard.launches, st.delta_g_shard.launches_dy]
     assert all(b > a for a, b in zip(counts, after))
+
+
+# --------------------------------------------------------------------------
+# the shard kernels' _dev entries and the device loop on a mesh
+# --------------------------------------------------------------------------
+
+# (stage, coefficients, stage5) of the classic stage's five stages and of
+# the delta kernel's stages 2-5
+CLASSIC_STAGES = ((0, (), False), (1, (1 / 3,), False),
+                  (2, (1 / 6, 1 / 6), False), (3, (1 / 8, 3 / 8), False),
+                  (4, (0.5, -1.5, 2.0), True))
+DELTA_STAGES = ((1, (1 / 3,), False), (2, (1 / 3, 1 / 6), False),
+                (3, (0.5, 0.375), False), (4, (1.0, -1.5, 2.0), True))
+
+
+def _control_block(dev, prm, **fields):
+    """A control block on dev at the given fields, with the next attempt's
+    scalars formed (the Dirichlet top of prm)."""
+    from porousfreezethaw_tpu_torch.ops.cuda import control
+    c = control.Control(tf=1e9, delta=1e-3, max_steps=2**62,
+                        top1=prm.top_temp1, top2=prm.top_temp2,
+                        t_switch=prm.phase_switch_time)
+    for k, v in fields.items():
+        setattr(c, k, v)
+    control.next_scalars_plain(c)
+    block = control.ControlBlock(dev, torch.zeros(1, device=dev))
+    block.write(c)
+    return c, block
+
+
+def _slots(dev, fn, *args):
+    return st._eps_blocks(fn, dev, *args)
+
+
+def _shard_dev_pairs(dev, spec, c, block, w, ks, lo, hi, rows, window):
+    """(by-value result, _dev result) of every stage of both kernels on
+    one shard, the _dev scalars from ``block`` and the by-value entries
+    given the same values; the classic stage on the top shard with the
+    Dirichlet top in its ghost stack (by value) or decided by the kernel
+    (is_top)."""
+    top = hi == w.shape[1]
+    mode = int(spec.mode)
+    zl, X = hi - lo, w.shape[3]
+    Yl = window[1]
+    pairs = []
+    for q, cs, s5 in CLASSIC_STAGES:
+        ws, kk, g = _shard_inputs(w, ks, len(cs), lo, hi, rows)
+        kk = list(zip(cs, kk))
+        gd = st._dirichlet_ghost(spec, c.ts[q], g, len(cs)) if top else g
+        args = (spec, c.ts[q], c.h32, ws, kk)
+        ref = st.fused_stage_shard(*args, gd, window=window, stage5=s5)
+        out = torch.empty((2, zl, Yl, X), device=dev)
+        eps = torch.empty(_slots(dev, "pft_stage_eps_blocks", mode, 0, zl,
+                                 Yl, X), device=dev)
+        st.fused_stage_shard_dev(spec, block, q, ws, kk, g, out, is_top=top,
+                                 window=window, stage5=s5,
+                                 eps=eps if s5 else None)
+        pairs.append((ref, (out, eps) if s5 else out))
+        if zl < 3:
+            continue                    # the split needs three planes
+        prev = st.fused_stage_shard(*args, None, window=window, stage5=s5,
+                                    part="interior")
+        ref = st.fused_stage_shard(*args, gd, window=window, stage5=s5,
+                                   part="edge", prev=prev if s5 else (prev,))
+        n_int = _slots(dev, "pft_stage_eps_blocks", mode, 1, zl, Yl, X)
+        eps = torch.empty(n_int + _slots(dev, "pft_stage_eps_blocks", mode,
+                                         2, zl, Yl, X), device=dev)
+        out = torch.empty((2, zl, Yl, X), device=dev)
+        for part, g_, e in (("interior", None, eps[:n_int]),
+                            ("edge", g, eps[n_int:])):
+            st.fused_stage_shard_dev(spec, block, q, ws, kk, g_, out,
+                                     is_top=top, window=window, stage5=s5,
+                                     part=part, eps=e if s5 else None)
+        pairs.append((ref, (out, eps) if s5 else out))
+    for q, cs, s5 in DELTA_STAGES:
+        ws, kk, g = _shard_inputs(w, ks, len(cs), lo, hi, rows)
+        kk = list(zip(cs, kk))
+        for emit in (("y", "dy") if s5 else ("y",)):
+            kw = dict(is_top=top, window=window, stage5=s5, emit=emit)
+            ref = st.delta_g_shard(spec, c.h32, c.D1, c.dD[q], ws, kk, g,
+                                   **kw)
+            out = torch.empty((2, zl, Yl, X), device=dev)
+            eps = torch.empty(_slots(dev, "pft_delta_eps_blocks", mode,
+                                     2 if emit == "dy" else 1, zl, Yl, X),
+                              device=dev)
+            st.delta_g_shard_dev(spec, block, q, ws, kk, g, out,
+                                 eps=eps if s5 else None, **kw)
+            pairs.append((ref, (out, eps) if s5 else out))
+    return pairs
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 10, 11])
+def test_shard_dev_entries_equal_by_value(dev, mode):
+    """fused_stage_shard_dev (K1s, K3's interior and edge parts) and
+    delta_g_shard_dev (K2s, both tails) against the by-value shard entries
+    bit for bit, outputs and eps slots: every stage, on the shards of
+    SHARDS (the tiles' edges, uneven y windows, the top shard with
+    is_top) of SHAPE and of the same grid 52 wide, with t on each side of
+    the phase switch; then a halted block, on which they write
+    nothing."""
+    prm = _params()
+    h = 0.05
+    for shape in (SHAPE, SHAPE[:2] + (52,)):
+        geom = GridGeometry(0.03, 0.03, 0.06, shape[2], shape[1], shape[0])
+        spec = st.StencilSpec.of(geom, prm, mode)
+        w, ks = _inputs(dev, shape)
+        for t in (prm.phase_switch_time - 0.5 * h,
+                  prm.phase_switch_time + 1.0):
+            c, block = _control_block(dev, prm, t=t, h=h)
+            pairs = []
+            for lo, hi, rows, window in SHARDS:
+                pairs += _shard_dev_pairs(dev, spec, c, block, w, ks, lo, hi,
+                                          rows, window)
+            torch.cuda.synchronize()
+            for i, (ref, got) in enumerate(pairs):
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                got = got if isinstance(got, tuple) else (got,)
+                assert all(torch.equal(a, b) for a, b in zip(ref, got)), (
+                    shape, t, i)
+    # a halted block: the launches return at once
+    c, block = _control_block(dev, prm, t=1.0, h=h, halt=1)
+    lo, hi, rows, window = SHARDS[1]
+    ws, kk, g = _shard_inputs(w, ks, 3, lo, hi, rows)
+    kk = list(zip((0.5, -1.5, 2.0), kk))
+    out = torch.full((2, hi - lo, window[1], w.shape[3]), 7.0, device=dev)
+    eps = torch.full((_slots(dev, "pft_stage_eps_blocks", mode, 0, hi - lo,
+                             window[1], w.shape[3]),), 7.0, device=dev)
+    st.fused_stage_shard_dev(spec, block, 4, ws, kk, g, out, is_top=True,
+                             window=window, stage5=True, eps=eps)
+    eps_d = torch.full((_slots(dev, "pft_delta_eps_blocks", mode, 1,
+                               hi - lo, window[1], w.shape[3]),), 7.0,
+                       device=dev)
+    st.delta_g_shard_dev(spec, block, 4, ws, kk, g, out, is_top=True,
+                         window=window, stage5=True, eps=eps_d)
+    torch.cuda.synchronize()
+    assert (out == 7.0).all() and (eps == 7.0).all() and (eps_d == 7.0).all()
+
+
+MR = (200, 100, 100)
+
+
+@pytest.mark.parametrize("path", ["delta", "delta_comp", "stage"])
+def test_mesh_device_loop_equals_host_loop_at_mr_z4(dev, path):
+    """The device loop on a z4 mesh of virtual shards of cuda:0 (CUDA
+    graphs of attempts on the shard kernels' _dev entries) against the
+    host loop on the same mesh at the MR grid: 3 chunks of 25 attempts
+    with a trace, state, t, h, counts and trace bit for bit; the commit
+    kernel runs once a shard and attempt, the control kernel once an
+    attempt (whole blocks of BLOCK, and the idle attempt before the
+    capture)."""
+    from porousfreezethaw_tpu_torch.ops.cuda import control
+    from porousfreezethaw_tpu_torch.parallel import (
+        make_mesh, shard_freezing_state)
+    from porousfreezethaw_tpu_torch.parallel.fused import (
+        ShardedDeltaAttempt, ShardedStageAttempt, make_sharded_fused_stage)
+    prm = _params()
+    geom = GridGeometry(0.03, 0.03, 0.06, MR[2], MR[1], MR[0])
+    w, _ = _inputs(dev, MR)
+    w[0] = torch.linspace(-5, 5, MR[2], device=dev)
+    mesh = make_mesh("z4", [dev] * 4)
+    params = MersonParams(delta=1e-3, max_steps=25, record_trace=25,
+                          handle_nan=True,
+                          accept_growth_min=1.05 if path == "stage" else 0.0)
+    if path == "stage":
+        stage_fn = make_sharded_fused_stage(geom, prm, 0, mesh)
+        att = ShardedStageAttempt(geom, prm, 0, mesh)
+
+        def host(s):
+            return merson_solve(None, s, 1e9, params, stage_fn=stage_fn)
+    else:
+        comp = path == "delta_comp"
+        host_att, att = (ShardedDeltaAttempt(geom, prm, 0, mesh,
+                                             compensated=comp)
+                         for _ in range(2))
+
+        def host(s):
+            return merson_solve(None, s, 1e9, params, attempt_fn=host_att)
+    sa = sb = merson_init(shard_freezing_state(w, mesh), 0.0, 1e-6)
+    for call in range(3):
+        a = host(sa)
+        control.merson_control.launches = control.commit.launches = 0
+        b = merson_solve_device(sb, 1e9, params, att)
+        n = b[0].steps_total - sb.steps_total
+        assert n == 25
+        blocks = -(-n // control.BLOCK)
+        assert control.merson_control.launches == (control.BLOCK * blocks
+                                                   + (call == 0))
+        assert control.commit.launches == 4 * control.merson_control.launches
+        assert a[1] == b[1]
+        assert (a[0].t, a[0].h, a[0].steps, a[0].steps_total) == (
+            b[0].t, b[0].h, b[0].steps, b[0].steps_total)
+        assert all(torch.equal(x, y) for x, y in zip(a[0].y, b[0].y))
+        assert all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
+        sa, sb = a[0], b[0]
+    assert all(torch.isfinite(y).all() for y in sb.y)
+
+
+def test_capture_survives_dropped_graphs(dev):
+    """An attempt object and its loop hold each other, so a dropped one
+    (with its captured graph) is freed by the cyclic collector; a
+    collection during another object's capture would destroy that graph
+    there and invalidate the capture.  With the collector run at every
+    allocation, three mesh attempt objects in turn capture and solve, each
+    dropped before the next."""
+    import gc
+
+    from porousfreezethaw_tpu_torch.parallel import (
+        make_mesh, shard_freezing_state)
+    from porousfreezethaw_tpu_torch.parallel.fused import ShardedDeltaAttempt
+    prm = _params()
+    shape = (20, 18, 37)
+    geom = GridGeometry(0.03, 0.03, 0.06, shape[2], shape[1], shape[0])
+    w, _ = _inputs(dev, shape)
+    mesh = make_mesh("z2", [dev] * 2)
+    params = MersonParams(delta=1e-3, max_steps=5, handle_nan=True)
+    old = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        for _ in range(3):
+            att = ShardedDeltaAttempt(geom, prm, 0, mesh)
+            st_, _ = merson_solve_device(
+                merson_init(shard_freezing_state(w, mesh), 0.0, 1e-6), 1e9,
+                params, att)
+            assert st_.steps_total == 5
+            del att
+    finally:
+        gc.set_threshold(*old)
+    torch.cuda.synchronize()

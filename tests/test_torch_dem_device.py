@@ -22,10 +22,12 @@ bit for bit and against the JAX package's jitted ``merson_solve``.
   its snapshots and final positions are the host loop's byte for byte;
   ``--device-buffer 4`` is ``--device-buffer 0`` byte for byte through
   both loops, with one fetch a batch.  ``dem_solver`` picks the device
-  loop on the card without a mesh and the host loop otherwise.
+  loop on the card, a mesh of one device's shards included, and the host
+  loop on the CPU and over several cards.
 """
 
 import math
+import types
 
 import jax
 import jax.numpy as jnp
@@ -44,8 +46,8 @@ from porousfreezethaw_tpu_torch.models.dem import attempt as dem_attempt
 from porousfreezethaw_tpu_torch.ops.cuda import control as ctl_mod
 from porousfreezethaw_tpu_torch.parallel.sharding import make_mesh
 from porousfreezethaw_tpu_torch.solvers.merson import (
-    MAX_STEPS, NAN_ABORT, MersonParams, merson_init, merson_solve,
-    merson_solve_device)
+    MAX_STEPS, NAN_ABORT, MersonParams, host_loop_reason, merson_init,
+    merson_solve, merson_solve_device)
 
 torch.set_num_threads(1)
 
@@ -215,10 +217,20 @@ def test_step_counts_equal_jax(variant):
 
 
 def test_refuses_a_mesh_rhs_and_a_foreign_state():
+    """A mesh right-hand side's attempt refuses a mesh whose shards lie on
+    several devices (the device loop serves one) and a state that is not
+    the list of its shards' dicts; the single-device one refuses a state
+    of other leaves or another dtype."""
     cfg, y = bed("friction_angular", torch.float64)
-    mesh = make_mesh("p2", device="cpu")
-    with pytest.raises(ValueError, match="mesh= right-hand side"):
-        DEMAttempt(make_dem_rhs(cfg, mesh=mesh))
+    two = make_mesh("p2", [torch.device("cpu"), torch.device("meta")])
+    with pytest.raises(ValueError, match="share one device"):
+        DEMAttempt(make_dem_rhs(cfg, mesh=two))._dev_alloc(
+            torch.device("cpu"), False)
+    sharded = DEMAttempt(make_dem_rhs(cfg, mesh=make_mesh("p2",
+                                                          device="cpu")))
+    with pytest.raises(ValueError, match="shards' dict states"):
+        merson_solve_device(merson_init(y, 0.0, 0.1), TF,
+                            params(torch.float64), sharded)
     att = DEMAttempt(make_dem_rhs(cfg, device="cpu"))
     p = params(torch.float64)
     with pytest.raises(ValueError, match="leaves"):
@@ -230,16 +242,25 @@ def test_refuses_a_mesh_rhs_and_a_foreign_state():
 
 
 def test_dem_solver_picks_the_loop():
-    """The device loop on the card without a mesh; the host loop on the
-    CPU and on a mesh (a DEMAttempt is made without touching the card)."""
+    """The one rule (solvers.merson.uses_device_loop): the device loop on
+    the card, without a mesh or on a mesh whose shards share one device;
+    the host loop on the CPU and on a mesh over several cards (a
+    DEMAttempt is made without touching the card)."""
     cfg, _ = bed("friction_angular", torch.float64)
     rhs = make_dem_rhs(cfg, device="cpu")
     sharded = make_dem_rhs(cfg, mesh=make_mesh("p2", device="cpu"))
     on_card = dem_solver(rhs, torch.device("cuda"))
     assert isinstance(on_card, DEMAttempt) and on_card.rhs is rhs
     assert dem_solver(rhs, torch.device("cpu")) is rhs
-    assert dem_solver(sharded, torch.device("cuda")) is sharded
+    one_device = dem_solver(sharded, torch.device("cuda"))
+    assert isinstance(one_device, DEMAttempt) and one_device.rhs is sharded
     assert dem_solver(sharded, torch.device("cpu")) is sharded
+    cards = make_mesh("p2", [torch.device("cuda", 0),
+                             torch.device("cuda", 1)])
+    across = types.SimpleNamespace(mesh=cards)
+    assert dem_solver(across, torch.device("cuda")) is across
+    assert host_loop_reason(torch.device("cuda"), cards) == (
+        "shards on 2 devices")
 
 
 # --------------------------------------------------------------------------

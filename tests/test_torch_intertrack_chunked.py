@@ -1,15 +1,17 @@
-"""The app's chunked device-loop branch (the one on the card for the
-single-device f32 kernel paths) on the CPU, through the plain versions of
-its kernels (``intertrack.uses_device_loop`` patched to take it there),
-against the host-loop branch on the 12-node case of
-tests/test_intertrack_app.py:
+"""The app's chunked device-loop branch (the one on the card for every
+path) on the CPU, through the plain versions of its kernels
+(``intertrack.uses_device_loop`` patched to take it there), against the
+host-loop branch on the 12-node case of tests/test_intertrack_app.py:
 the same snapshots byte for byte and the same RK debug log lines (step,
 t, tau, snapshot; not the wall-clock fields) for the increment form, its
 compensated commit and the classic stage, and for the plain right-hand
 side in f64 and in f32 with a noise field, across the Dirichlet top's
-switch; an f64 mesh run keeping the host loop; a trigger file taken at the
-next chunk boundary, after which the run goes on as if untriggered; and
-PFT_SERVICE_CHUNK's check."""
+switch; the same on a mesh of virtual CPU shards (the halo path at z2 in
+f64, the z2 delta attempt, its compensated commit, the z2 classic stage
+and the z2,y2 attempt); a mesh run on the CPU keeping the host loop by
+the rule, and the chunked branch naming the mesh; a trigger file taken at
+the next chunk boundary, after which the run goes on as if untriggered;
+and PFT_SERVICE_CHUNK's check."""
 
 import os
 import re
@@ -41,7 +43,7 @@ def run(out_dir, params_text, controller, precision="f32", extra_argv=()):
     pfile.write_text(params_text + f"\nset debug_logfile = {debug}\n")
     old = os.environ.get("OUTPUT")
     os.environ["OUTPUT"] = str(out_dir)
-    device_loop = ((lambda device, dev_attempt: dev_attempt is not None)
+    device_loop = ((lambda device, mesh: True)
                    if controller == "device" else intertrack.uses_device_loop)
     try:
         with mock.patch.object(intertrack, "uses_device_loop", device_loop):
@@ -64,20 +66,33 @@ def run(out_dir, params_text, controller, precision="f32", extra_argv=()):
 SWITCH = "phase_switch_time 3.7\n"
 
 
-@pytest.mark.parametrize("precision,extra", [
-    pytest.param("f32", "", id="delta"),
-    pytest.param("f32", "compensated_commit 1\n", id="compensated"),
-    pytest.param("f32", "increment_form 0\n", id="stage"),
-    pytest.param("f64", SWITCH, id="f64"),
-    pytest.param("f32", "u_noise_amp 0.5\n" + SWITCH, id="noise_f32")])
+@pytest.mark.parametrize("precision,extra,mesh", [
+    pytest.param("f32", "", None, id="delta"),
+    pytest.param("f32", "compensated_commit 1\n", None, id="compensated"),
+    pytest.param("f32", "increment_form 0\n", None, id="stage"),
+    pytest.param("f64", SWITCH, None, id="f64"),
+    pytest.param("f32", "u_noise_amp 0.5\n" + SWITCH, None, id="noise_f32"),
+    pytest.param("f64", SWITCH, "z2", id="f64_halo_z2"),
+    pytest.param("f32", "", "z2", id="delta_z2"),
+    pytest.param("f32", "compensated_commit 1\n", "z2",
+                 id="compensated_z2"),
+    pytest.param("f32", "increment_form 0\n", "z2", id="stage_z2"),
+    pytest.param("f32", "", "z2,y2", id="delta_z2,y2")])
 def test_chunked_branch_equals_host_loop(tmp_path, monkeypatch, precision,
-                                         extra):
+                                         extra, mesh):
     monkeypatch.setenv("PFT_SERVICE_CHUNK", str(CHUNK))
-    log_h, steps_h = run(tmp_path / "host", BASE + extra, "host", precision)
+    argv = ("--mesh", mesh) if mesh else ()
+    log_h, steps_h = run(tmp_path / "host", BASE + extra, "host", precision,
+                         argv)
     log_d, steps_d = run(tmp_path / "device", BASE + extra, "device",
-                         precision)
+                         precision, argv)
     assert "Step control: host loop (--device cpu)" in log_h
     assert f"chunks of {CHUNK} attempts" in log_d
+    if mesh:
+        # the mesh path the app chose, the same in both branches
+        path = ("Plain right-hand side with halo copies" if precision == "f64"
+                else "sharded over z=2")
+        assert path in log_h and path in log_d
     # more accepted steps than one chunk holds: several chunks drained
     assert len(steps_d) > 2 * CHUNK
     assert steps_d == steps_h
@@ -91,14 +106,22 @@ def test_chunked_branch_equals_host_loop(tmp_path, monkeypatch, precision,
 
 
 def test_mesh_keeps_the_host_loop(tmp_path, monkeypatch):
-    """With the device loop taken wherever an attempt object exists, an
-    f64 run on a z2 mesh (the plain right-hand side with halo copies)
-    still runs the host loop, and its log says why."""
+    """The loop of an f64 run on a z2 mesh (the plain right-hand side with
+    halo copies) follows the one rule: on the CPU the mesh keeps the host
+    loop and the log says why; where the rule takes the device loop (the
+    card; patched here), the mesh takes the chunked branch, whose log
+    names the mesh, and the RK debug log is the host loop's."""
     monkeypatch.setenv("PFT_SERVICE_CHUNK", str(CHUNK))
-    log, steps = run(tmp_path, BASE, "device", "f64", ("--mesh", "z2"))
-    assert "Plain right-hand side with halo copies" in log
-    assert "Step control: host loop (sharded over a mesh)" in log
-    assert steps
+    argv = ("--mesh", "z2")
+    log_h, steps_h = run(tmp_path / "host", BASE, "host", "f64", argv)
+    assert "Plain right-hand side with halo copies" in log_h
+    assert "Step control: host loop (--device cpu)" in log_h
+    log_d, steps_d = run(tmp_path / "device", BASE, "device", "f64", argv)
+    assert "Plain right-hand side with halo copies" in log_d
+    assert ("Step control: device loop (CUDA graphs of 32 attempts on the "
+            "card; the mesh {'z': 2}, 2 shards on cpu), chunks of "
+            f"{CHUNK} attempts") in log_d
+    assert steps_d == steps_h and len(steps_d) > CHUNK
 
 
 def test_trigger_file_taken_at_the_chunk_boundary(tmp_path, monkeypatch):
