@@ -9,6 +9,8 @@
     python3 chip_smoke.py --phases env,dem_settle   # the DEM settle
     python3 chip_smoke.py --phases env,dem_settle,dem_settle_host  # both loops
     python3 chip_smoke.py --phases env,build,temp_f64_full  # LR Temp f64, 10 h
+    python3 chip_smoke.py --phases env,build,hr             # HR, every path
+    python3 chip_smoke.py --phases env,build,lr_f32_full,mr_gradp_full,hr_full
 
 Run from the root of a checkout.  Phases, one JSON line each:
 
@@ -19,8 +21,9 @@ Run from the root of a checkout.  Phases, one JSON line each:
             (MR, LR, an odd shape and the tiles' edge shapes; calc modes
             0/1/2; t on each side of the phase switch; every stage
             variant): fused_stage (K1), delta_g (K2), its emit="dy" tail
-            (K2') and the double-buffered attempt (K4), which must also
-            equal the fused_stage chain bit for bit; then kernel and
+            (K2') and the double-buffered attempt (K4, each launch, and
+            a whole attempt, which must also equal the fused_stage chain
+            bit for bit); then kernel and
             plain times at the MR shape beside each kernel's bound, each
             row's ptxas report (registers, spills, shared memory), the
             time of one tensor copy moving the row's bytes (copy_ms), and
@@ -150,6 +153,21 @@ Run from the root of a checkout.  Phases, one JSON line each:
             device loop, with device ms and launches per attempt
             (torch.profiler over a block's replay), the capture time and
             peak memory
+10. hr       the HR grid (200x200x400, 16.0 M cells) on every
+            single-device path: K1, K2, K2' and K4 against their plain
+            versions at HR (every variant, calc modes 0/1/2, 1e-5 of
+            max|ref|) and their device ms beside the bound; the bench's
+            HR rows (bench_freezing, --grid-nodes 400) through the device
+            loop: the delta path in calc modes 0 and 2, the compensated
+            commit, the classic stage, the double-buffered attempt (96
+            attempts, the median of 3 runs) and the f64 plain path (32),
+            with ms/attempt, device ms (torch.profiler, bench
+            --profile-dir), busy share, capture time and
+            torch.cuda.max_memory_allocated; the delta
+            path's device loop and host loop bit for bit over 64
+            attempts; the app on the HR GradP Params (the LR golden at
+            grid_nodes 400, golden_text) to t = 0.5 s, its snapshot 1 read
+            back through load_checkpoint
 
 and, only when asked for, ``profile``: torch.profiler over 100 attempts
 at LR and at MR, through DeltaAttempt and FusedAttempt, and at MR through
@@ -168,7 +186,20 @@ byte against the device loop's; ``temp_f64_full``: the shipped LR Temp
 case (f64, 10 h, 100 snapshots) through the app's device loop, its
 cumulative steps at snapshots 25/50/75/99 and attempts at 99 within 5%
 of the reference's (VALIDATION.md) and its ice fraction's peak and end
-within 1e-3 of 0.5084 and 0.0506.
+within 1e-3 of 0.5084 and 0.0506; ``lr_f32_full``: the shipped LR GradP
+and LR Temp cases in f32 (the increment form) to snapshot 99 through the
+app's device loop, and GradP resumed by continue_series from snapshot
+50, each held to the band (below) at every snapshot VALIDATION.md
+records, the Temp run's ice fraction as in temp_f64_full;
+``mr_gradp_full``: MR GradP (cases.freezing_params_text(200, 0)) in f32
+to snapshot 99, in the band; ``hr_full``: HR Temp (the LR Temp golden at
+grid_nodes 400) in f32 to snapshot 2, in the band.  The band, at each
+recorded snapshot k, for steps and, where recorded, attempts: 0.95
+min(ref_k, jax_k) <= port_k <= 1.05 max(ref_k, jax_k), ref the C
+reference's cumulative count, jax the JAX package's f32 delta run on the
+TPU (band_misses).  Their logs go to chiprun_out/<phase>/, their
+snapshots to a temporary directory, removed after (the free disk is
+checked first).
 
 The launches in the kernel summary come from the run that is each
 kernel's main path, with the counters set to 0 just before it: the plain
@@ -193,6 +224,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import functools
 import gc
 import hashlib
 import itertools
@@ -210,9 +242,10 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernels", "solve", "controller", "bench", "app",
-          "mesh", "dem", "dem_cells")
+          "mesh", "dem", "dem_cells", "hr")
 OPTIONAL_PHASES = ("profile", "dem_settle", "dem_settle_host",
-                   "temp_f64_full")
+                   "temp_f64_full", "lr_f32_full", "mr_gradp_full",
+                   "hr_full")
 SEED = 20251016
 # the increment form's golden (reference log, LR GradP snapshot 1) and the
 # f64 golden (reference log, LR Temp snapshot 1; tests/test_golden_lr.py)
@@ -505,63 +538,107 @@ def _time(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def phase_kernels(dev) -> dict:
+def _check_attempt_launch(spec, t, h, w, kk, tail, stats):
+    """One launch of the fused_attempt kernel (K4) against its plain
+    version on the same inputs (the state in slot 0 of both slots, the K
+    inputs ``kk``): K, or with ``tail`` the y_spec it writes into slot 1
+    and its eps partials (_compare)."""
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
+    outs = []
+    for fn in (st.fused_attempt, st.fused_attempt_plain):
+        y2 = torch.stack([w, w])
+        cur = torch.zeros(1, dtype=torch.int32, device=w.device)
+        got = fn(spec, t, h, y2, cur, kk, tail)
+        outs.append((y2[1, :2], got) if tail else got)
+    _compare(outs[0], outs[1], stats)
+
+
+def _kernel_cases(dev, prm, shape, rng, ts, modes=(0, 1, 2), chain_h=0.05):
+    """Every stage variant of fused_stage, delta_g and fused_attempt (one
+    launch each on the same inputs) and delta_g's emit="dy" tail against
+    their plain versions at ``shape`` on random inputs, in each calc mode
+    of ``modes`` at each t of ``ts`` (fractions of a step h = 0.05 from
+    the phase switch); then one whole fused_attempt attempt
+    (_check_fused_attempt: against the plain attempt, and the fused_stage
+    chain bit for bit) at the step ``chain_h``, t at the same fractions of
+    it.  Per (kernel, case), the _compare statistics, which fail the phase
+    when a case disagrees.
+
+    The attempt's five stages feed each other, so the plain attempt and
+    the kernels' part by their rounding times the chain's growth, which
+    goes as h / dx^2: at MR's spacing h = 0.05 keeps it near 1; at HR's
+    (half of it) the same h grows a one-ulp change of u to 3e-4 of
+    max|y_spec| (tests/test_torch_hr_cases.py), so HR's chain runs at
+    chain_h = HR_CHAIN_H, MR's h / dx^2."""
     from porousfreezethaw_tpu_torch.core.grid import GridGeometry
     from porousfreezethaw_tpu_torch.models.freezing import physics
     from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
 
-    _, prm = _mr_params()
-    rng = np.random.default_rng(SEED)
     h = 0.05
-    cases = ([("fused_stage", c) for c in STAGE_CASES]
-             + [("delta_g", c) for c in DELTA_CASES]
-             + [("delta_g_dy", "stage5"), ("fused_attempt", "attempt")])
-    summary = {k: [] for k, _ in cases}
-    for shape in (MR_SHAPE, LR_SHAPE, ODD_SHAPE) + EDGE_SHAPES:
-        geom = GridGeometry(0.03, 0.03, 0.06, shape[2], shape[1], shape[0])
-        w, ks = _inputs(shape, dev, rng)
-        per = {key: dict(ok=True, finite=True, n=0, max_abs_err=0.0,
-                         max_rel_err=0.0, max_eps_rel_err=0.0)
-               for key in cases}
-        for mode in (0, 1, 2):
-            spec = st.StencilSpec.of(geom, prm, mode)
-            # one t below the switch whose step crosses it, one above
-            for t in (prm.phase_switch_time - 0.5 * h,
-                      prm.phase_switch_time + 1.0):
-                for name, (cs, s5) in STAGE_CASES.items():
-                    kk = list(zip(cs, ks))
-                    got = st.fused_stage(spec, t, h, w, kk, stage5=s5)
-                    ref = st.fused_stage_plain(spec, t, h, w, kk, stage5=s5)
-                    _compare(got, ref, per[("fused_stage", name)])
-                D1 = physics.dirichlet_top(t, prm)
-                dDi = float(np.float32(physics.dirichlet_top(t + h, prm) - D1))
-                for name, (cs, s5) in DELTA_CASES.items():
-                    kk = list(zip(cs, ks))
-                    got = st.delta_g(spec, h, D1, dDi, w, kk, stage5=s5)
-                    ref = st.delta_g_plain(spec, h, D1, dDi, w, kk, stage5=s5)
-                    _compare(got, ref, per[("delta_g", name)])
-                kk = list(zip(DELTA_CASES["stage5"][0], ks))
-                got = st.delta_g(spec, h, D1, dDi, w, kk, stage5=True,
-                                 emit="dy")
-                ref = st.delta_g_plain(spec, h, D1, dDi, w, kk, stage5=True,
-                                       emit="dy")
-                _compare(got, ref, per[("delta_g_dy", "stage5")])
-                _check_fused_attempt(geom, prm, mode, t, h, w,
-                                     per[("fused_attempt", "attempt")])
-        torch.cuda.synchronize()
-        for (kern, case), s in per.items():
-            emit("kernels", shape=list(shape), kernel=kern, case=case,
-                 modes=[0, 1, 2], **s)
-            summary[kern].append(s)
-            if not (s["ok"] and s["finite"]):
-                raise AssertionError(
-                    f"{kern} {case} at {shape} disagrees with its plain "
-                    f"version: {s}")
+    keys = ([("fused_stage", c) for c in STAGE_CASES]
+            + [("delta_g", c) for c in DELTA_CASES]
+            + [("delta_g_dy", "stage5")]
+            + [("fused_attempt", c) for c in STAGE_CASES]
+            + [("fused_attempt", "attempt")])
+    geom = GridGeometry(0.03, 0.03, 0.06, shape[2], shape[1], shape[0])
+    w, ks = _inputs(shape, dev, rng)
+    per = {key: dict(ok=True, finite=True, n=0, max_abs_err=0.0,
+                     max_rel_err=0.0, max_eps_rel_err=0.0)
+           for key in keys}
+    for mode in modes:
+        spec = st.StencilSpec.of(geom, prm, mode)
+        for t in (prm.phase_switch_time + f * h for f in ts):
+            for name, (cs, s5) in STAGE_CASES.items():
+                kk = list(zip(cs, ks))
+                got = st.fused_stage(spec, t, h, w, kk, stage5=s5)
+                ref = st.fused_stage_plain(spec, t, h, w, kk, stage5=s5)
+                _compare(got, ref, per[("fused_stage", name)])
+                _check_attempt_launch(spec, t, h, w, kk, s5,
+                                      per[("fused_attempt", name)])
+            D1 = physics.dirichlet_top(t, prm)
+            dDi = float(np.float32(physics.dirichlet_top(t + h, prm) - D1))
+            for name, (cs, s5) in DELTA_CASES.items():
+                kk = list(zip(cs, ks))
+                got = st.delta_g(spec, h, D1, dDi, w, kk, stage5=s5)
+                ref = st.delta_g_plain(spec, h, D1, dDi, w, kk, stage5=s5)
+                _compare(got, ref, per[("delta_g", name)])
+            kk = list(zip(DELTA_CASES["stage5"][0], ks))
+            got = st.delta_g(spec, h, D1, dDi, w, kk, stage5=True,
+                             emit="dy")
+            ref = st.delta_g_plain(spec, h, D1, dDi, w, kk, stage5=True,
+                                   emit="dy")
+            _compare(got, ref, per[("delta_g_dy", "stage5")])
+        for f in ts:
+            _check_fused_attempt(geom, prm, mode,
+                                 prm.phase_switch_time + f * chain_h,
+                                 chain_h, w,
+                                 per[("fused_attempt", "attempt")])
+    torch.cuda.synchronize()
+    for (kern, case), s in per.items():
+        emit("kernels", shape=list(shape), kernel=kern, case=case,
+             modes=list(modes), **s)
+        if not (s["ok"] and s["finite"]):
+            raise AssertionError(
+                f"{kern} {case} at {shape} disagrees with its plain "
+                f"version: {s}")
+    return per
 
-    # times at the MR shape, the main paths' variants, beside their bounds
-    geom = GridGeometry(0.03, 0.03, 0.06, MR_SHAPE[2], MR_SHAPE[1],
-                        MR_SHAPE[0])
-    w, ks = _inputs(MR_SHAPE, dev, rng)
+
+def _kernel_times(dev, prm, shape, rng, impls):
+    """Times of the main paths' variants at ``shape`` (calc mode 0, t =
+    1000, h = 0.05, random inputs) by ``impls`` ("kernel", "kernel2":
+    CUDA events over back-to-back wrapper calls; "kernel_device": the same
+    calls queued behind a device-side wait, _queued_ms, which leaves out
+    the host's share; "plain", "plain2": the plain versions), each over
+    10 calls after one warm-up, and each variant's (bytes, operations):
+    ({impl: {variant: ms}}, {variant: (bytes, ops)})."""
+    from porousfreezethaw_tpu_torch.core.grid import GridGeometry
+    from porousfreezethaw_tpu_torch.models.freezing import physics
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
+
+    h = 0.05
+    geom = GridGeometry(0.03, 0.03, 0.06, shape[2], shape[1], shape[0])
+    w, ks = _inputs(shape, dev, rng)
     spec = st.StencilSpec.of(geom, prm, 0)
     t = 1000.0
     D1 = physics.dirichlet_top(t, prm)
@@ -582,11 +659,8 @@ def phase_kernels(dev) -> dict:
                                False) for n in (0, 1, 2, 2)] + [
                         _call_cost(STAGE_OPS, w, s5, 2, True)]
     bounds["fused_attempt/attempt"] = tuple(map(sum, zip(*attempt_cost)))
-    # ms: CUDA events over back-to-back wrapper calls, two passes of 10
-    # after one warm-up; device_ms: the same calls queued behind a
-    # device-side wait (_queued_ms), which leaves out the host's share
     timing = {}
-    for impl in ("plain", "kernel", "kernel_device", "kernel2", "plain2"):
+    for impl in impls:
         plain = impl.startswith("plain")
         timer = _queued_ms if impl == "kernel_device" else _time
         f_stage = st.fused_stage_plain if plain else st.fused_stage
@@ -608,17 +682,38 @@ def phase_kernels(dev) -> dict:
         row["fused_attempt/attempt"] = timer(
             lambda: att.attempt(t, h, carry), 10)
         timing[impl] = row
-        emit("kernel_times", impl=impl, shape=list(MR_SHAPE), ms=row)
-    emit("kernel_bounds", shape=list(MR_SHAPE),
+        emit("kernel_times", impl=impl, shape=list(shape), ms=row)
+    emit("kernel_bounds", shape=list(shape),
          bytes={k: b for k, (b, _) in bounds.items()},
          ops={k: o for k, (_, o) in bounds.items()},
          bound_ms={k: _bound(*v)[0] for k, v in bounds.items()})
+    return timing, bounds
+
+
+# the variants of each kernel's summary row: (kernel, cases, pallas_call
+# line, source)
+KERNEL_ROWS = (("fused_stage", ["nk0"], ":737", "fused_stage.cu"),
+               ("delta_g", list(DELTA_CASES), ":1112", "delta_g.cu"),
+               ("delta_g_dy", ["stage5"], ":1059", "delta_g.cu"),
+               ("fused_attempt", ["attempt"], ":1504", "fused_attempt.cu"))
+
+
+def phase_kernels(dev) -> dict:
+    _, prm = _mr_params()
+    rng = np.random.default_rng(SEED)
+    summary = {}
+    for shape in (MR_SHAPE, LR_SHAPE, ODD_SHAPE) + EDGE_SHAPES:
+        # one t below the switch whose step crosses it, one above
+        per = _kernel_cases(dev, prm, shape, rng, (-0.5, 20.0))
+        for (kern, _), s in per.items():
+            summary.setdefault(kern, []).append(s)
+
+    # times at the MR shape, the main paths' variants, beside their bounds
+    timing, bounds = _kernel_times(
+        dev, prm, MR_SHAPE, rng,
+        ("plain", "kernel", "kernel_device", "kernel2", "plain2"))
     out = {}
-    for kern, cases, replaces, src in (
-            ("fused_stage", ["nk0"], ":737", "fused_stage.cu"),
-            ("delta_g", list(DELTA_CASES), ":1112", "delta_g.cu"),
-            ("delta_g_dy", ["stage5"], ":1059", "delta_g.cu"),
-            ("fused_attempt", ["attempt"], ":1504", "fused_attempt.cu")):
+    for kern, cases, replaces, src in KERNEL_ROWS:
         def avg(*impls):
             return float(np.mean([timing[i][f"{kern}/{c}"]
                                   for i in impls for c in cases]))
@@ -1577,6 +1672,7 @@ CONTROLLER_F64 = (("lr_temp", 100, 2), ("lr_gradp", 100, 0),
                   ("mr_gradp", 200, 0))
 CONTROLLER_F64_ATTEMPTS = 96     # three whole blocks: no idle attempts
 CONTROLLER_F64_WARM = 32
+CONTROLLER_F64_PROFILED = 32     # the profiled runs: one whole block
 
 
 def _kernel_classes(rows) -> dict:
@@ -1608,7 +1704,8 @@ def _controller_f64_rows(dev) -> list:
     CONTROLLER_REPEATS times each in turns, every run bit for bit the
     first's (state, t, h, counts, status, trace); ms/attempt (median and
     spread), device ms and launches per attempt, busy share and the
-    kernel classes' shares (torch.profiler over one more run of each), the
+    kernel classes' shares (torch.profiler over one more run of each, of
+    CONTROLLER_F64_PROFILED attempts, held to the device loop's), the
     right-hand side's launches (five profiled calls, t a 0-d tensor), the
     graph's capture time, the memory peak over the capturing run above
     what was allocated before it (the static buffers and the graph's
@@ -1672,12 +1769,14 @@ def _controller_f64_rows(dev) -> list:
             if launches != want:
                 raise AssertionError(f"controller f64 {name}: {loop} loop "
                                      f"launches {launches}, want {want}")
+        n_prof = CONTROLLER_F64_PROFILED
+        ref_prof = device(start, params(n_prof))
         prof, lost = {}, {}
         for loop in ("host", "device"):
             p, _, lost[loop] = _traced_run(
                 st, lambda: (host if loop == "host" else device)(
-                    start, params(n)),
-                lambda res: _same_state(res, ref),
+                    start, params(n_prof)),
+                lambda res: _same_state(res, ref_prof),
                 f"controller f64 {name}, {loop} loop")
             prof[loop] = _device_time(p)
         t_dev = torch.tensor(start.t, dtype=torch.float64, device=dev)
@@ -1691,7 +1790,7 @@ def _controller_f64_rows(dev) -> list:
         rhs_us, rhs_kernels, _ = _device_time(p)
         idle_ms = _idle_block_ms(att, dev) / BLOCK
         row = dict(grid=list(geom.shape), case=name, calc_mode=mode,
-                   dtype="f64", attempts=n,
+                   dtype="f64", attempts=n, profiled_attempts=n_prof,
                    steps=ref[0].steps - start.steps, t=ref[0].t,
                    h=ref[0].h, status=ref[1], bitwise=True, block=BLOCK,
                    graph_capture_s=att.device_loop(dev).capture_s,
@@ -1705,11 +1804,11 @@ def _controller_f64_rows(dev) -> list:
             w = sorted(walls[loop])
             us, kernels, krows = prof[loop]
             med = float(np.median(w))
-            dms = us / 1e3 / n if us else "not measured"
+            dms = us / 1e3 / n_prof if us else "not measured"
             row[loop] = dict(
                 ms_per_attempt=med, repeats=w, spread=w[-1] / w[0],
                 device_ms_per_attempt=dms,
-                launches_per_attempt=kernels / n if us else None,
+                launches_per_attempt=kernels / n_prof if us else None,
                 busy_share=dms / med if us else "not measured",
                 classes=_kernel_classes(krows) if us else None,
                 top=[dict(kernel=k[:60], count=c, us=u)
@@ -2048,11 +2147,7 @@ def _app_run(dev, golden: str, precision: str, extra: str = "",
             os.environ["OUTPUT"] = old
         shutil.rmtree(out, ignore_errors=True)
     m = re.search(r"Successful R-K steps: (\d+) of (\d+) total", log)
-    sw = re.search(r"Solver wall time: (\S+)", log)
-    solver_s = None
-    if sw:
-        hh, mm, ss = sw[1].split(":")
-        solver_s = 3600 * int(hh) + 60 * int(mm) + float(ss)
+    solver_s = _wall_s(log, "Solver")
     res = dict(golden=golden, precision=precision, extra=extra.strip(),
                controller=controller, rc=rc, files=files,
                launches=launches, wall_s=wall,
@@ -3589,53 +3684,20 @@ def phase_temp_f64_full(dev) -> dict:
     (analysis.series_statistics) peaking at TEMP_ICE_PEAK and reaching
     TEMP_ICE_END at t = 36000 s, each within 1e-3.  The app's log goes to
     chiprun_out/temp_f64_full/; the snapshots (600 MB) to a temporary
-    directory, removed after."""
-    from porousfreezethaw_tpu_torch.analysis import series_statistics
-    from porousfreezethaw_tpu_torch.apps.intertrack import main
-    from porousfreezethaw_tpu_torch.ops.cuda import build
-
-    build.load_library()
-    text = open(os.path.join(REPO, "tests", "golden",
-                             "Params-LR-Temp")).read()
-    text += ("\nset ball_positions_file = "
-             + os.path.join(REPO, "data", "spheres_positions.txt") + "\n")
-    keep = os.path.join(REPO, "chiprun_out", "temp_f64_full")
-    os.makedirs(keep, exist_ok=True)
-    out = tempfile.mkdtemp(prefix="pft_chip_smoke_temp_full_")
-    old = os.environ.get("OUTPUT")
-    try:
-        pfile = os.path.join(out, "Params")
-        with open(pfile, "w") as f:
-            f.write(text)
-        os.environ["OUTPUT"] = out
-        t0 = time.perf_counter()
-        rc = main([pfile, "--precision", "f64", "--device", str(dev)])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        log = open(os.path.join(out, "intertrack.log")).read()
-        shutil.copy(os.path.join(out, "intertrack.log"), keep)
-        stats = series_statistics(out, device=dev)
-    finally:
-        if old is None:
-            os.environ.pop("OUTPUT", None)
-        else:
-            os.environ["OUTPUT"] = old
-        shutil.rmtree(out, ignore_errors=True)
-    counts = {int(k): (int(a), int(b)) for k, a, b in re.findall(
-        r"Calculating snapshot (\d+) \.\.\. Done on .*?, (\d+) R-K steps "
-        r"\((\d+) total\)", log)}
-    sw = re.search(r"Solver wall time: (\d+):(\d+):(\S+)", log)
-    solver_s = (3600 * int(sw[1]) + 60 * int(sw[2]) + float(sw[3])
-                if sw else None)
+    directory, removed after (_app_series)."""
+    res = _app_series(dev, "temp_f64_full", "temp_f64_full",
+                      golden_text("Params-LR-Temp"), precision="f64",
+                      stats=True)
+    counts, stats = res["counts"], res["stats"]
     ice = stats["ice_fraction"]
     attempts = counts.get(99, (0, 0))[1]
-    rec = dict(rc=rc, wall_s=wall, solver_wall_s=solver_s,
-               device_loop="Step control: device loop" in log,
+    rec = dict(rc=res["rc"], wall_s=res["wall_s"],
+               solver_wall_s=res["solver_wall_s"],
+               device_loop=res["device_loop"],
                steps={k: counts.get(k, (None,))[0] for k in TEMP_FULL_STEPS},
                reference_steps=TEMP_FULL_STEPS, attempts=attempts,
                reference_attempts=TEMP_FULL_ATTEMPTS,
-               ms_per_attempt=(1e3 * solver_s / attempts
-                               if solver_s and attempts else None),
+               ms_per_attempt=res["ms_per_attempt"],
                snapshots=len(ice), ice_peak=max(ice) if ice else None,
                ice_peak_t=stats["t"][int(np.argmax(ice))] if ice else None,
                ice_end=ice[-1] if ice else None,
@@ -3645,13 +3707,567 @@ def phase_temp_f64_full(dev) -> dict:
     bad = [k for k, ref in TEMP_FULL_STEPS.items()
            if rec["steps"][k] is None
            or abs(rec["steps"][k] - ref) > 0.05 * ref]
-    if (rc != 0 or not rec["device_loop"] or bad or len(ice) != 100
+    if (bad or len(ice) != 100
             or abs(attempts - TEMP_FULL_ATTEMPTS) > 0.05 * TEMP_FULL_ATTEMPTS
             or abs(rec["ice_peak"] - TEMP_ICE_PEAK) > 1e-3
             or abs(rec["ice_end"] - TEMP_ICE_END) > 1e-3
             or abs(rec["t_end"] - 36000.0) > 1e-3):
         raise AssertionError(f"temp_f64_full: {rec}")
     return rec
+
+
+# --------------------------------------------------------------------------
+# the production runs: phase hr (HR on every single-device path) and the
+# optional full-length runs held to VALIDATION.md's records
+# --------------------------------------------------------------------------
+
+HR_GRID_NODES = 400
+HR_SHAPE = (400, 200, 200)          # (n3, n2, n1): 16.0 M cells
+# the bench rows at HR: (label, --fused, --dtype, --calc-mode, --steps,
+# runs); the warm-up is one solve call of --steps attempts (bench.py's
+# rule for --warm-steps 32), which captures the graph; 96 and 32 are
+# whole blocks.  An f32 row's timed call lasts 0.15-0.25 s, so one host
+# stall moves it (a 96-attempt run read 2.56 ms/attempt on 1.48 device
+# ms): those rows take the median of 3 runs; the f64 row's lasts 3.5 s
+HR_ROWS = (("delta", "delta", "f32", 0, 96, 3),
+           ("delta_temp", "delta", "f32", 2, 96, 3),
+           ("delta_comp", "delta", "f32", 0, 96, 3),
+           ("stage", "stage", "f32", 0, 96, 3),
+           ("fused_attempt", "attempt", "f32", 0, 96, 3),
+           ("f64_plain", "off", "f64", 0, 32, 1))
+HR_WARM = 32
+HR_LOOP_ATTEMPTS = 64               # the delta path in both loops
+# the step of HR's whole-attempt check: MR's h / dx^2 (_kernel_cases)
+HR_CHAIN_H = 0.05 * (MR_SHAPE[0] / HR_SHAPE[0]) ** 2
+# the app's run at HR: simulated seconds of the HR GradP case (about a
+# thousand attempts from tau = 1, most of them the start's NaN backoff
+# and small steps)
+HR_APP_FINAL_TIME = 0.5
+
+
+def golden_text(golden: str, grid_nodes=None, snapshots=None) -> str:
+    """The Params text of ``tests/golden/<golden>`` (the shipped LR cases)
+    with the repository's ball positions; at ``grid_nodes`` cells along
+    the long side when given (the golden's grid lines appended: later
+    definitions win); with ``snapshots`` = k, run to snapshot k of the case's
+    99 (final_time 10*hours*k/99 and saved_files k + 1, appended: the
+    snapshot times stay final_time * j / (saved_files - 1) = 36000 j /
+    99 s, as VALIDATION.md's HR runs truncated the shipped Params).
+
+    The HR Params: the shipped Cases-HR files are not in the repository;
+    cases.py authors LR, MR and HR from one Params text at grid_nodes
+    100/200/400 (BASELINE.md's grid convention), so the LR golden at
+    grid_nodes 400 is the closest HR Params the repository holds."""
+    text = open(os.path.join(REPO, "tests", "golden", golden)).read()
+    text += ("\nset ball_positions_file = "
+             + os.path.join(REPO, "data", "spheres_positions.txt") + "\n")
+    if grid_nodes:
+        text += (f"grid_nodes {grid_nodes}\n"
+                 "multiplier grid_nodes / (L1 max L2 max L3)\n"
+                 "n1 L1 * multiplier\nn2 L2 * multiplier\n"
+                 "n3 L3 * multiplier\n")
+    if snapshots:
+        text += (f"final_time 10*hours*{snapshots}/99\n"
+                 f"saved_files {snapshots + 1}\n")
+    return text
+
+
+def _trace_kernels(path: str):
+    """(summed device us, launches) of the CUDA kernels in a Chrome trace
+    of torch.profiler (bench --profile-dir)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return float(sum(e.get("dur", 0.0) for e in kernels)), len(kernels)
+
+
+def _release() -> None:
+    """Frees what earlier rows left on the card (attempts and their loops
+    hold each other, so the collector runs first)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _hr_bench_row(dev, label, fused, dtype, mode, steps, runs,
+                  trace_root):
+    """One HR row of the port's bench (bench.bench_freezing at --grid-nodes
+    400), run ``runs`` times: the record of the run with the median
+    ms/attempt under bench.py's metric names, with every run's
+    ms/attempt; each run's launch counters whole blocks of BLOCK attempts
+    of the path's kernels (as phase bench checks);
+    torch.cuda.max_memory_allocated over the first run (after the
+    earlier rows' memory was freed); the device ms per attempt from one
+    more bench run with --profile-dir (the CUDA kernels of its trace over
+    its timed attempts), and the busy share: that over the median
+    ms/attempt.  ``delta_comp`` runs the bench's delta row on
+    DeltaAttemptComp (the app's compensated_commit 1)."""
+    from porousfreezethaw_tpu_torch import bench
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
+
+    argv = ["--fused", fused, "--dtype", dtype, "--grid-nodes",
+            str(HR_GRID_NODES), "--calc-mode", str(mode), "--steps",
+            str(steps), "--warm-steps", str(HR_WARM), "--device", str(dev)]
+    own = bench.DeltaAttempt
+    if label == "delta_comp":
+        bench.DeltaAttempt = st.DeltaAttemptComp
+    trace_dir = os.path.join(trace_root, label)
+    calls = [steps] * (max(1, -(-HR_WARM // steps)) + 1)
+    path = {"delta": "delta", "delta_temp": "delta",
+            "delta_comp": "delta_comp", "stage": "stage",
+            "fused_attempt": "fused_attempt"}.get(label)
+    graph = _graph_attempts(calls, 1)
+    want = ({"merson_control_f64": graph, "commit_f64": graph}
+            if path is None else _want_launches(path, graph, True))
+    recs = []
+    try:
+        _release()
+        base_mb = torch.cuda.memory_allocated(dev) / 2**20
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(runs):
+            _reset_counters(st)
+            rec = bench.bench_freezing(bench.parse_args(argv))
+            torch.cuda.synchronize()
+            launches = _counters(st)
+            if not recs:
+                peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+            recs.append(rec)
+            _release()
+            if (rec["controller"] != "device"
+                    or not rec["graph_capture_s"] > 0):
+                raise AssertionError(f"hr {label}: controller "
+                                     f"{rec['controller']}, capture "
+                                     f"{rec['graph_capture_s']}")
+            if (rec["grid"] != [HR_SHAPE[2], HR_SHAPE[1], HR_SHAPE[0]]
+                    or rec["attempts"] + rec["warm_attempts"] != sum(calls)
+                    or not rec["value"] > 0):
+                raise AssertionError(f"hr {label}: {rec}")
+            if launches != {k: want.get(k, 0) for k in launches}:
+                raise AssertionError(f"hr {label}: launches {launches}, "
+                                     f"want {want}")
+        prof = bench.bench_freezing(bench.parse_args(
+            argv + ["--profile-dir", trace_dir]))
+    finally:
+        bench.DeltaAttempt = own
+    us, n_kernels = _trace_kernels(os.path.join(trace_dir, "trace.json"))
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    recs.sort(key=lambda r: r["ms_per_attempt"])
+    rec = recs[len(recs) // 2]
+    dms = us / 1e3 / prof["attempts"] if us else "not measured"
+    row = dict(label=label, **rec, launches=launches,
+               repeats=[r["ms_per_attempt"] for r in recs],
+               capture_s=rec["graph_capture_s"],
+               max_memory_allocated_mb=peak_mb,
+               allocated_before_mb=base_mb,
+               device_ms_per_attempt=dms,
+               kernels_per_attempt=(n_kernels / prof["attempts"]
+                                    if us else None),
+               busy_share=(dms / rec["ms_per_attempt"] if us
+                           else "not measured"),
+               profiled_ms_per_attempt=prof["ms_per_attempt"])
+    emit("hr_bench", **row)
+    return row
+
+
+def _hr_kernels(dev) -> dict:
+    """K1, K2, K2' and K4 at HR: every variant against its plain version
+    in calc modes 0/1/2 at a t half a step below the phase switch
+    (_kernel_cases, phase kernels' tolerance), then each main-path
+    variant's device ms (_queued_ms) and the plain version's ms beside
+    its bound, as phase kernels times them at MR."""
+    _, prm = _mr_params(HR_GRID_NODES)
+    rng = np.random.default_rng(SEED + 400)
+    per = _kernel_cases(dev, prm, HR_SHAPE, rng, (-0.5,),
+                        chain_h=HR_CHAIN_H)
+    _release()
+    timing, bounds = _kernel_times(dev, prm, HR_SHAPE, rng,
+                                   ("kernel", "kernel_device", "plain"))
+    rows = {}
+    for kern, cases, replaces, src in KERNEL_ROWS:
+        def avg(impl):
+            return float(np.mean([timing[impl][f"{kern}/{c}"]
+                                  for c in cases]))
+        costs = [bounds[f"{kern}/{c}"] for c in cases]
+        bound_ms, bound_by = _bound(float(np.mean([b for b, _ in costs])),
+                                    float(np.mean([o for _, o in costs])))
+        errs = [s for (k, _), s in per.items() if k == kern]
+        rows[kern] = dict(
+            name=kern, shape=list(HR_SHAPE),
+            replaces=f"porousfreezethaw_tpu/ops/pallas/stencil.py{replaces}",
+            max_abs_err=max(s["max_abs_err"] for s in errs),
+            max_rel_err=max(s["max_rel_err"] for s in errs),
+            ms=avg("kernel"), device_ms=avg("kernel_device"),
+            plain_ms=avg("plain"), bound_ms=bound_ms, bound_by=bound_by,
+            bound_share=bound_ms / avg("kernel_device"),
+            timed=f"{'+'.join(cases)} at {HR_SHAPE}" + TIMED_BY)
+        emit("hr_kernel", **rows[kern])
+    _release()
+    return rows
+
+
+def _hr_loops(dev) -> dict:
+    """The delta path (DeltaAttempt) at HR in both loops: HR_WARM host-loop
+    attempts from the bench's HR GradP case, then HR_LOOP_ATTEMPTS
+    attempts from there through the device loop (its capture) and the
+    host loop: status, t, h, counts, the (t, h) trace and the state bit
+    for bit, the device loop's launches whole blocks of its kernels."""
+    from porousfreezethaw_tpu_torch import bench
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
+    from porousfreezethaw_tpu_torch.solvers.merson import (
+        MersonParams, merson_init)
+
+    n = HR_LOOP_ATTEMPTS
+    v, geom, prm, w0 = bench.freezing_case(HR_GRID_NODES, 0, torch.float32)
+
+    def params(max_steps, trace=0):
+        return MersonParams(delta=v["delta"], h_min=v["tau_min"],
+                            handle_nan=True, max_steps=max_steps,
+                            record_trace=trace)
+
+    host, device, _ = _loop_solvers("delta", geom, prm)
+    y0 = torch.from_numpy(w0).to(dev)
+    start = host(merson_init(y0, 0.0, min(v["tau"], 1e-4)),
+                 params(HR_WARM))[0]
+    _reset_counters(st)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = device(start, params(n, n))
+    torch.cuda.synchronize()
+    device_s = time.perf_counter() - t0
+    launches = {k: c for k, c in _counters(st).items() if c}
+    t0 = time.perf_counter()
+    res = host(start, params(n, n))
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    want = _want_launches("delta", _graph_attempts([n], 1), True)
+    row = dict(grid=list(geom.shape), path="delta", attempts=n,
+               steps=ref[0].steps - start.steps, t=ref[0].t, h=ref[0].h,
+               status=ref[1], bitwise=_same_result(res, ref),
+               launches=launches, device_loop_s=device_s,
+               host_loop_s=host_s)
+    emit("hr_loops", **row)
+    if not row["bitwise"]:
+        raise AssertionError("hr: the delta path's device loop differs from "
+                             "its host loop")
+    if launches != want:
+        raise AssertionError(f"hr loops: launches {launches}, want {want}")
+    return row
+
+
+def _disk_room(path: str, nbytes: float, what: str) -> None:
+    """Fails unless the file system of ``path`` has 1.25 ``nbytes`` free."""
+    free = shutil.disk_usage(path).free
+    if free < 1.25 * nbytes:
+        raise AssertionError(f"{what}: {free / 2**30:.2f} GiB free under "
+                             f"{path}, {1.25 * nbytes / 2**30:.2f} GiB "
+                             f"needed for its snapshots")
+
+
+SNAPSHOT_DONE = re.compile(r"Calculating snapshot (\d+) \.\.\. Done on .*?, "
+                           r"(\d+) R-K steps \((\d+) total\)")
+
+
+def _wall_s(log: str, what: str):
+    m = re.search(what + r" wall time: (\d+):(\d+):(\S+)", log)
+    return 3600 * int(m[1]) + 60 * int(m[2]) + float(m[3]) if m else None
+
+
+def _app_series(dev, phase, label, text, precision="f32", stats=False,
+                keep=None):
+    """The intertrack app (``main`` on ``dev``, its device loop) on the
+    Params ``text``, OUTPUT a new temporary directory that is removed
+    after (its snapshots' size checked against the free disk first, from
+    the grid and saved_files): the log kept as chiprun_out/<phase>/
+    <label>.log; the cumulative (steps, attempts) at each snapshot,
+    ``counts``, the solver and overall walls and whether the device loop
+    ran; with ``stats`` the snapshots' series_statistics; ``keep`` = (file
+    name, directory) copies that snapshot out before the directory goes.
+    The launch counters are set to 0 before and read after."""
+    from porousfreezethaw_tpu_torch.analysis import series_statistics
+    from porousfreezethaw_tpu_torch.apps.intertrack import main
+    from porousfreezethaw_tpu_torch.config import parse_param_file
+    from porousfreezethaw_tpu_torch.ops.cuda import build
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
+
+    build.load_library()
+    keep_dir = os.path.join(REPO, "chiprun_out", phase)
+    os.makedirs(keep_dir, exist_ok=True)
+    out = tempfile.mkdtemp(prefix=f"pft_chip_smoke_{label}_")
+    v = parse_param_file(text, env={"OUTPUT": out}).vars
+    width = 4 if precision == "f32" else 8
+    _disk_room(out, 3 * width * v["n1"] * v["n2"] * v["n3"]
+               * v["saved_files"], label)
+    old = os.environ.get("OUTPUT")
+    try:
+        pfile = os.path.join(out, "Params")
+        with open(pfile, "w") as f:
+            f.write(text)
+        os.environ["OUTPUT"] = out
+        _reset_counters(st)
+        t0 = time.perf_counter()
+        rc = main([pfile, "--precision", precision, "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counters(st)
+        log = open(os.path.join(out, "intertrack.log")).read()
+        shutil.copy(os.path.join(out, "intertrack.log"),
+                    os.path.join(keep_dir, f"{label}.log"))
+        res = dict(label=label, rc=rc, wall_s=wall,
+                   solver_wall_s=_wall_s(log, "Solver"),
+                   overall_wall_s=_wall_s(log, "Overall"),
+                   device_loop="Step control: device loop" in log,
+                   files=sorted(f for f in os.listdir(out)
+                                if f.endswith(".ncd")),
+                   launches=launches)
+        if stats:
+            res["stats"] = series_statistics(out, device=dev)
+        if keep:
+            shutil.copy(os.path.join(out, keep[0]), keep[1])
+    finally:
+        if old is None:
+            os.environ.pop("OUTPUT", None)
+        else:
+            os.environ["OUTPUT"] = old
+        shutil.rmtree(out, ignore_errors=True)
+    res["counts"] = {int(k): (int(a), int(b))
+                     for k, a, b in SNAPSHOT_DONE.findall(log)}
+    last = res["counts"].get(max(res["counts"], default=0), (0, 0))
+    res["ms_per_attempt"] = (1e3 * res["solver_wall_s"] / last[1]
+                             if res["solver_wall_s"] and last[1] else None)
+    if rc != 0 or not res["device_loop"]:
+        raise AssertionError(f"{label}: rc {rc}, device loop "
+                             f"{res['device_loop']}:\n{log[-2000:]}")
+    return res
+
+
+def _hr_app(dev) -> dict:
+    """The app on the HR GradP case (f32) to t = HR_APP_FINAL_TIME:
+    snapshots 0 and 1 through the device loop, every attempt through the
+    delta path's kernels (whole blocks and the capture's idle attempt),
+    and snapshot 1 read back through load_checkpoint (the HR geometry,
+    finite fields at the run's t)."""
+    from porousfreezethaw_tpu_torch.io.snapshots import load_checkpoint
+    from porousfreezethaw_tpu_torch.ops.cuda.control import BLOCK
+
+    text = golden_text("Params-LR-GradP", HR_GRID_NODES) + (
+        f"final_time {HR_APP_FINAL_TIME}\nsaved_files 2\n")
+    back = tempfile.mkdtemp(prefix="pft_chip_smoke_hr_ck_")
+    try:
+        res = _app_series(dev, "hr", "hr_app", text,
+                          keep=("image.001.ncd", back))
+        t0 = time.perf_counter()
+        ck = load_checkpoint(os.path.join(back, "image.001.ncd"))
+        load_s = time.perf_counter() - t0
+        fields = np.asarray(ck.fields)
+        finite = bool(np.isfinite(fields).all())
+    finally:
+        shutil.rmtree(back, ignore_errors=True)
+    steps, attempts = res["counts"][1]
+    m = _path_attempts(res["launches"], "delta", True)
+    res.update(steps=steps, attempts=attempts, attempt_launches=m,
+               checkpoint=dict(dims=list(ck.geom_dims), t=ck.t,
+                               snapshot=ck.snapshot,
+                               shape=list(fields.shape), finite=finite,
+                               load_s=load_s))
+    emit("hr_app", **res)
+    if (res["files"] != ["image.000.ncd", "image.001.ncd"]
+            or list(ck.geom_dims) != [HR_SHAPE[2], HR_SHAPE[1], HR_SHAPE[0]]
+            or list(fields.shape) != [3, *HR_SHAPE] or not finite
+            or ck.snapshot != 1 or abs(ck.t - HR_APP_FINAL_TIME) > 1e-9
+            or m < attempts or (m - 1) % BLOCK):
+        raise AssertionError(f"hr app: {res}")
+    return res
+
+
+def phase_hr(dev) -> dict:
+    """HR (200 x 200 x 400, 16.0 M cells) on every single-device path:
+    K1, K2, K2' and K4 against their plain versions and their device ms
+    beside the bound (_hr_kernels); the bench's HR rows through the device
+    loop (_hr_bench_row: the delta path in calc modes 0 and 2, the
+    compensated commit, the classic stage, the double-buffered attempt and
+    the f64 plain path) with ms/attempt, device ms, busy share, capture
+    time and memory peak; the delta path's two loops bit for bit
+    (_hr_loops); the app on the HR GradP Params (_hr_app)."""
+    from porousfreezethaw_tpu_torch import bench
+
+    out = dict(kernels=_hr_kernels(dev))
+    trace_root = tempfile.mkdtemp(prefix="pft_chip_smoke_hr_trace_")
+    own = bench.freezing_case
+    # each case is built once (the rows' two bench runs share it)
+    bench.freezing_case = functools.lru_cache(maxsize=3)(own)
+    try:
+        out["bench"] = [_hr_bench_row(dev, *row, trace_root)
+                        for row in HR_ROWS]
+        _release()
+        out["loops"] = _hr_loops(dev)
+    finally:
+        bench.freezing_case = own
+        shutil.rmtree(trace_root, ignore_errors=True)
+    _release()
+    out["app"] = _hr_app(dev)
+    _release()
+    return out
+
+
+# The band of a full-length run (PERF.md section 2): at each recorded
+# snapshot k, 0.95 min(ref_k, jax_k) <= port_k <= 1.05 max(ref_k, jax_k),
+# ref the C reference's cumulative count and jax the JAX package's f32
+# delta run on the TPU (VALIDATION.md), for steps and, where recorded,
+# attempts.  {snapshot: (reference, JAX)}:
+# VALIDATION.md:113-127, LR GradP
+LR_GRADP_STEPS = {25: (152705, 162826), 50: (453391, 488292),
+                  75: (627626, 675220), 99: (706966, 757550)}
+LR_GRADP_ATTEMPTS = {99: (870988, 836257)}
+# VALIDATION.md:61-80 and 148-158, LR Temp: the JAX run's counts at 25, 50
+# and 75 are given only as the reference's times 1.030 +- 0.002; the low
+# end, 1.028, gives the narrower band
+LR_TEMP_STEPS = {k: (ref, round(1.028 * ref)) for k, ref in
+                 TEMP_FULL_STEPS.items() if k != 99}
+LR_TEMP_STEPS[99] = (288134, 296478)
+LR_TEMP_ATTEMPTS = {99: (355469, 355232)}
+# VALIDATION.md:166-192, MR GradP
+MR_GRADP_STEPS = {1: (14865, 15647), 10: (150494, 160611),
+                  25: (452166, 510735), 50: (1028833, 1199046),
+                  60: (1198380, 1381148), 75: (1423133, 1618449),
+                  99: (1683846, 1892442)}
+MR_GRADP_ATTEMPTS = {99: (2073396, 1985347)}
+# VALIDATION.md:250-261, HR Temp (the shipped Cases-HR Params)
+HR_TEMP_STEPS = {1: (33406, 33662), 2: (92284, 95976)}
+HR_TEMP_ATTEMPTS = {1: (41201, 37568), 2: (113831, 108371)}
+# the snapshot of the resumed LR GradP run's checkpoint
+RESUME_AT = 50
+
+
+def band_misses(counts, steps, attempts=None) -> list:
+    """The snapshots and counts of ``counts`` ({k: (steps, attempts)}, the
+    port's) outside the band of their records ({k: (reference, JAX)}): a
+    list of (k, what, port, low, high); a missing snapshot is a miss."""
+    misses = []
+    for what, recs, i in (("steps", steps, 0), ("attempts", attempts or {},
+                                                 1)):
+        for k, (ref, jax) in sorted(recs.items()):
+            lo, hi = 0.95 * min(ref, jax), 1.05 * max(ref, jax)
+            got = counts.get(k, (None, None))[i]
+            if got is None or not lo <= got <= hi:
+                misses.append((k, what, got, lo, hi))
+    return misses
+
+
+def _band_row(res, steps, attempts=None) -> dict:
+    """A run's counts beside their records and the band."""
+    keys = sorted(set(steps) | set(attempts or {}))
+    return {str(k): dict(port=res["counts"].get(k),
+                         reference_steps=steps.get(k, (None,))[0],
+                         jax_steps=steps.get(k, (None, None))[1],
+                         reference_attempts=(attempts or {}).get(
+                             k, (None,))[0],
+                         jax_attempts=(attempts or {}).get(
+                             k, (None, None))[1]) for k in keys}
+
+
+def phase_lr_f32_full(dev) -> dict:
+    """Optional: the shipped LR GradP and LR Temp cases (tests/golden, f32,
+    the increment form, 10 h, 100 snapshots) through the app's device
+    loop, each held to the band at every recorded snapshot (steps and
+    attempts: LR_GRADP_*, LR_TEMP_*); the Temp run's ice fraction peaking
+    at TEMP_ICE_PEAK and ending at TEMP_ICE_END (t = 36000 s), each within
+    1e-3 (VALIDATION.md:78-80); then GradP resumed by continue_series from
+    the uninterrupted run's snapshot RESUME_AT (the checkpoint a run
+    stopped there writes) to 99: its cumulative counts (RESUME_AT's plus
+    the continuation's) in the band, and their difference from the
+    uninterrupted run's (not bitwise: the f32 resume re-shifts u - u*)."""
+    ck_dir = tempfile.mkdtemp(prefix="pft_chip_smoke_lr_ck_")
+    ck = os.path.join(ck_dir, f"image.{RESUME_AT:03d}.ncd")
+    try:
+        gradp = _app_series(dev, "lr_f32_full", "lr_gradp",
+                            golden_text("Params-LR-GradP"),
+                            keep=(os.path.basename(ck), ck_dir))
+        temp = _app_series(dev, "lr_f32_full", "lr_temp",
+                           golden_text("Params-LR-Temp"), stats=True)
+        resumed = _app_series(
+            dev, "lr_f32_full", "lr_gradp_resumed",
+            golden_text("Params-LR-GradP")
+            + f"set icond_file = {ck}\nset continue_series\n")
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    base = gradp["counts"][RESUME_AT]
+    cumulative = {k: (base[0] + s, base[1] + a)
+                  for k, (s, a) in resumed["counts"].items()
+                  if k > RESUME_AT}
+    ice, t = temp["stats"]["ice_fraction"], temp["stats"]["t"]
+    rec = dict(
+        gradp=dict(band=_band_row(gradp, LR_GRADP_STEPS, LR_GRADP_ATTEMPTS),
+                   solver_wall_s=gradp["solver_wall_s"],
+                   ms_per_attempt=gradp["ms_per_attempt"],
+                   misses=band_misses(gradp["counts"], LR_GRADP_STEPS,
+                                      LR_GRADP_ATTEMPTS)),
+        temp=dict(band=_band_row(temp, LR_TEMP_STEPS, LR_TEMP_ATTEMPTS),
+                  solver_wall_s=temp["solver_wall_s"],
+                  ms_per_attempt=temp["ms_per_attempt"],
+                  misses=band_misses(temp["counts"], LR_TEMP_STEPS,
+                                     LR_TEMP_ATTEMPTS),
+                  snapshots=len(ice), ice_peak=max(ice) if ice else None,
+                  ice_peak_t=t[int(np.argmax(ice))] if ice else None,
+                  ice_end=ice[-1] if ice else None,
+                  t_end=t[-1] if ice else None,
+                  reference_ice=[TEMP_ICE_PEAK, TEMP_ICE_END]),
+        resumed=dict(
+            first_snapshot=min(resumed["counts"], default=None),
+            cumulative={str(k): c for k, c in cumulative.items()
+                        if k in LR_GRADP_STEPS},
+            minus_uninterrupted={
+                str(k): [c[0] - gradp["counts"][k][0],
+                         c[1] - gradp["counts"][k][1]]
+                for k, c in cumulative.items() if k in LR_GRADP_STEPS},
+            misses=band_misses(cumulative, {
+                k: r for k, r in LR_GRADP_STEPS.items() if k > RESUME_AT},
+                LR_GRADP_ATTEMPTS)))
+    emit("lr_f32_full", **rec)
+    bad = dict(gradp=rec["gradp"]["misses"], temp=rec["temp"]["misses"],
+               resumed=rec["resumed"]["misses"])
+    if (any(bad.values()) or len(ice) != 100
+            or abs(rec["temp"]["ice_peak"] - TEMP_ICE_PEAK) > 1e-3
+            or abs(rec["temp"]["ice_end"] - TEMP_ICE_END) > 1e-3
+            or abs(rec["temp"]["t_end"] - 36000.0) > 1e-3
+            or rec["resumed"]["first_snapshot"] != RESUME_AT):
+        raise AssertionError(f"lr_f32_full: {bad}, {rec}")
+    return rec
+
+
+def _band_phase(dev, phase, text, steps, attempts) -> dict:
+    """A full-length f32 run through the app's device loop held to the
+    band at every recorded snapshot."""
+    res = _app_series(dev, phase, phase, text)
+    rec = dict(band=_band_row(res, steps, attempts),
+               solver_wall_s=res["solver_wall_s"],
+               overall_wall_s=res["overall_wall_s"],
+               ms_per_attempt=res["ms_per_attempt"],
+               misses=band_misses(res["counts"], steps, attempts))
+    emit(phase, **rec)
+    if rec["misses"]:
+        raise AssertionError(f"{phase}: outside the band: {rec['misses']}")
+    return rec
+
+
+def phase_mr_gradp_full(dev) -> dict:
+    """Optional: MR GradP (cases.freezing_params_text(200, 0), the
+    published PhysRevE constants) in f32 to snapshot 99 through the app's
+    device loop, in the band of MR_GRADP_* at every recorded snapshot."""
+    from porousfreezethaw_tpu_torch.cases import freezing_params_text
+    text = freezing_params_text(200, 0) + (
+        "\nset ball_positions_file = "
+        + os.path.join(REPO, "data", "spheres_positions.txt") + "\n")
+    return _band_phase(dev, "mr_gradp_full", text, MR_GRADP_STEPS,
+                       MR_GRADP_ATTEMPTS)
+
+
+def phase_hr_full(dev) -> dict:
+    """Optional: HR Temp (the LR Temp golden at grid_nodes 400, f32) to
+    snapshot 2 through the app's device loop, in the band of HR_TEMP_* at
+    snapshots 1 and 2."""
+    return _band_phase(dev, "hr_full",
+                       golden_text("Params-LR-Temp", HR_GRID_NODES, 2),
+                       HR_TEMP_STEPS, HR_TEMP_ATTEMPTS)
 
 
 # an earlier record of the settle through the app's host loop on the card,
@@ -4072,6 +4688,8 @@ def main(argv=None) -> int:
         launches.update(short["launches"])
     if "dem_cells" in phases:
         phase_dem_cells(dev, short)
+    if "hr" in phases:
+        phase_hr(dev)
     if "profile" in phases:
         phase_profile(dev)
     settle = None
@@ -4079,8 +4697,12 @@ def main(argv=None) -> int:
         settle = phase_dem_settle(dev)
     if "dem_settle_host" in phases:
         phase_dem_settle_host(dev, settle)
-    if "temp_f64_full" in phases:
-        phase_temp_f64_full(dev)
+    for name, run in (("temp_f64_full", phase_temp_f64_full),
+                      ("lr_f32_full", phase_lr_f32_full),
+                      ("mr_gradp_full", phase_mr_gradp_full),
+                      ("hr_full", phase_hr_full)):
+        if name in phases:
+            run(dev)
 
     for name in set(kernels) & set(launches):
         kernels[name]["launches"] = launches[name]
