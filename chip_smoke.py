@@ -193,7 +193,8 @@ app's device loop, and GradP resumed by continue_series from snapshot
 records, the Temp run's ice fraction as in temp_f64_full;
 ``mr_gradp_full``: MR GradP (cases.freezing_params_text(200, 0)) in f32
 to snapshot 99, in the band; ``hr_full``: HR Temp (the LR Temp golden at
-grid_nodes 400) in f32 to snapshot 2, in the band.  The band, at each
+grid_nodes 400) in f32 to snapshot 2, in the band; ``tracing``: the
+port's spans (core/tracing.py) at MR f32 (phase_tracing).  The band, at each
 recorded snapshot k, for steps and, where recorded, attempts: 0.95
 min(ref_k, jax_k) <= port_k <= 1.05 max(ref_k, jax_k), ref the C
 reference's cumulative count, jax the JAX package's f32 delta run on the
@@ -226,6 +227,7 @@ import ctypes
 import dataclasses
 import functools
 import gc
+import gzip
 import hashlib
 import itertools
 import json
@@ -245,7 +247,7 @@ PHASES = ("env", "build", "kernels", "solve", "controller", "bench", "app",
           "mesh", "dem", "dem_cells", "hr")
 OPTIONAL_PHASES = ("profile", "dem_settle", "dem_settle_host",
                    "temp_f64_full", "lr_f32_full", "mr_gradp_full",
-                   "hr_full")
+                   "hr_full", "tracing")
 SEED = 20251016
 # the increment form's golden (reference log, LR GradP snapshot 1) and the
 # f64 golden (reference log, LR Temp snapshot 1; tests/test_golden_lr.py)
@@ -3343,7 +3345,10 @@ def _device_time(prof):
     run; (0, 0, []) when it recorded no device time."""
     rows = []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # the program's spans (core/tracing.py) carry the device time of
+        # the kernels inside them
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.key.startswith("pft.")):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -3351,6 +3356,232 @@ def _device_time(prof):
         rows.append((float(us), e.key, e.count))
     rows.sort(reverse=True)
     return sum(r[0] for r in rows), sum(r[2] for r in rows), rows
+
+
+# phase tracing: solves of the benchmark's chunk at MR f32, in turns with
+# tracing off and on, and the smallest device-idle gap the trace check
+# names (us)
+TRACING_ATTEMPTS = 1024
+TRACING_RUNS = 9
+TRACING_GAP_US = 10.0
+
+
+def _span_reader(name):
+    """The benchmark's reader ``metrics/<name>.py`` of the port's spans."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"reader_{name}", os.path.join(REPO, "benchmark", "metrics",
+                                       f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return lambda: mod.read({}, {})
+
+
+def _annotated_gaps(events, floor_us):
+    """The device-idle gaps longer than ``floor_us`` between two device
+    operations inside each ``pft.solve`` annotation of a Chrome trace, and
+    the share of each that the ``pft.loop.*`` annotations cover:
+    [(gap us, covered share, the innermost annotation at its middle)]."""
+    def spans_of(pred):
+        return sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                       e["name"]) for e in events
+                      if e.get("ph") == "X" and pred(e))
+
+    device = spans_of(lambda e: str(e.get("cat", "")).lower() in (
+        "kernel", "gpu_memcpy", "gpu_memset"))
+    notes = spans_of(lambda e: e.get("cat") == "user_annotation"
+                     and e["name"].startswith("pft."))
+    loop = [(a, b) for a, b, n in notes if n.startswith("pft.loop.")]
+    host = spans_of(lambda e: e.get("cat") in (
+        "cpu_op", "cuda_runtime", "user_annotation"))
+    out = []
+    for s0, s1, _ in (n for n in notes if n[2] == "pft.solve"):
+        busy = []
+        for a, b, _ in device:
+            if s0 <= a and b <= s1:
+                if busy and a <= busy[-1][1]:
+                    busy[-1][1] = max(busy[-1][1], b)
+                else:
+                    busy.append([a, b])
+        for (_, g0), (g1, _) in zip(busy, busy[1:]):
+            if g1 - g0 <= floor_us:
+                continue
+            covered, edge = 0.0, g0
+            for a, b in loop:
+                a, b = max(a, edge), min(b, g1)
+                if b > a:
+                    covered += b - a
+                    edge = b
+            mid = 0.5 * (g0 + g1)
+            inner = [n for a, b, n in notes if a <= mid <= b]
+            # what the host did over the gap, from its start (us)
+            during = [(n, round(a - g0, 1), round(b - g0, 1))
+                      for a, b, n in host if a < g1 and b > g0]
+            out.append((g1 - g0, covered / (g1 - g0),
+                        inner[-1] if inner else "none", during))
+    return out
+
+
+def phase_tracing(dev) -> None:
+    """Optional: the port's spans on the card at MR f32 (the benchmark's
+    mr-gradp.f32 attempt, DeltaAttempt on the GradP state, in solve calls
+    of the app's 1024 attempts, each continuing the last):
+
+    - tracing's cost: ms/attempt of TRACING_RUNS calls with tracing off
+      and as many inside ``tracing.recording()``, in turns (off, on, on,
+      off, ...), their medians; no profiler;
+    - block_gap_us and boundary_host_us (the benchmark's readers of the
+      spans) under ``tracing.recording()`` alone, and under torch.profiler;
+    - ``capture_s`` against the capture span, the kernel library's load;
+    - the app at MR f32 with --profile-dir: every device-idle gap of more
+      than TRACING_GAP_US between two device operations inside a
+      ``pft.solve`` annotation, and the share of it that ``pft.loop.*``
+      annotations cover (a gap passes at 90%).
+    """
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from porousfreezethaw_tpu_torch.apps import intertrack
+    from porousfreezethaw_tpu_torch.cases import freezing_params_text
+    from porousfreezethaw_tpu_torch.core import tracing
+    from porousfreezethaw_tpu_torch.ops.cuda.control import BLOCK
+    from porousfreezethaw_tpu_torch.ops.cuda.stencil import DeltaAttempt
+    from porousfreezethaw_tpu_torch.solvers.merson import (
+        MersonParams, merson_init, merson_solve_device)
+
+    geom, prm, v, y0, _ = _mr_state(dev, 200)
+    att = DeltaAttempt(geom, prm, 0)
+    n = TRACING_ATTEMPTS
+    mp = MersonParams(delta=v["delta"], h_min=v["tau_min"],
+                      handle_nan=True, max_steps=n, record_trace=n)
+    state = merson_init(y0, 0.0, v["tau"])
+    gap, host = _span_reader("block_gap_us"), _span_reader("boundary_host_us")
+
+    def one(mode):
+        nonlocal state
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if mode == "off":
+            state, _, _ = merson_solve_device(state, 1e9, mp, att)
+        else:
+            with tracing.recording():
+                state, _, _ = merson_solve_device(state, 1e9, mp, att)
+        torch.cuda.synchronize(dev)
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    one("off")                         # the capture and the first steps
+    loop = att.device_loop(dev)
+    capture = [s.seconds for s in tracing.spans()
+               if s.name == "pft.loop.capture"]
+
+    def block_means():
+        """The last solve call's mean block device_us and its mean
+        replay span (the host's launch of the graph), in us."""
+        root = [s for s in tracing.spans() if s.name == "pft.solve"][-1]
+        mine = [s for s in tracing.spans() if s.root == root.id]
+        return (statistics.mean(s.attrs["device_us"] for s in mine
+                                if s.name == "pft.loop.block"),
+                statistics.mean(1e6 * s.seconds for s in mine
+                                if s.name == "pft.loop.replay"))
+
+    ms = {"off": [], "on": []}
+    gaps, hosts, device_us, replay_us = [], [], [], []
+    for k in range(TRACING_RUNS):
+        for mode in (("off", "on") if k % 2 == 0 else ("on", "off")):
+            ms[mode].append(one(mode))
+            if mode == "on":
+                gaps.append(gap())
+                hosts.append(host())
+                d, r = block_means()
+                device_us.append(d)
+                replay_us.append(r)
+    prof_gaps, prof_hosts, busy_us = [], [], []
+    for _ in range(2):
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, _, _ = merson_solve_device(state, 1e9, mp, att)
+            torch.cuda.synchronize(dev)
+        prof_gaps.append(gap())
+        prof_hosts.append(host())
+        # the device time of a block's operations (the graph's kernels)
+        busy_us.append(_device_time(prof)[0] * BLOCK / n)
+    med = {m: statistics.median(x) for m, x in ms.items()}
+    emit("tracing", card=nvidia_smi(), attempts=n, runs=TRACING_RUNS,
+         ms_per_attempt_off=ms["off"], ms_per_attempt_on=ms["on"],
+         median_off=med["off"], median_on=med["on"],
+         on_cost_pct=100.0 * (med["on"] / med["off"] - 1.0),
+         paired_on_minus_off_us=statistics.median(
+             1e3 * (a - b) for a, b in zip(ms["on"], ms["off"])),
+         block_gap_us_recording=gaps, boundary_host_us_recording=hosts,
+         block_device_us_recording=device_us,
+         replay_host_us_recording=replay_us,
+         block_busy_us_profiled=busy_us,
+         block_gap_us_profiler=prof_gaps,
+         boundary_host_us_profiler=prof_hosts,
+         capture_s=loop.capture_s, capture_span_s=capture,
+         kernel_library_s=_span_reader("kernel_library_s")())
+    if capture != [loop.capture_s]:
+        raise AssertionError(f"capture_s {loop.capture_s}, capture spans "
+                             f"{capture}")
+
+    # the app with --profile-dir: about two chunks of the MR f32 case
+    out = tempfile.mkdtemp(prefix="pft-tracing-")
+    try:
+        pfile = os.path.join(out, "Params")
+        with open(pfile, "w") as f:
+            f.write(freezing_params_text(200, 0, final_time_hours=40.0
+                                         / 3600.0, saved_files=3)
+                    + "\nset ball_positions_file = "
+                    + os.path.join(REPO, "data", "spheres_positions.txt")
+                    + "\n")
+        old = os.environ.get("OUTPUT")
+        os.environ["OUTPUT"] = out
+        # the collector's passes, as annotations of the trace
+        collecting = []
+
+        def gc_note(phase, info):
+            if phase == "start":
+                collecting.append(torch.profiler.record_function("gc"))
+                collecting[-1].__enter__()
+            elif collecting:
+                collecting.pop().__exit__(None, None, None)
+
+        gc.callbacks.append(gc_note)
+        try:
+            rc = intertrack.main([pfile, "--precision", "f32", "--device",
+                                  "cuda", "--profile-dir", out])
+        finally:
+            gc.callbacks.remove(gc_note)
+            if old is None:
+                os.environ.pop("OUTPUT", None)
+            else:
+                os.environ["OUTPUT"] = old
+        if rc != 0:
+            raise AssertionError(f"the app exited {rc}")
+        with open(os.path.join(out, "trace.json")) as f:
+            text = f.read()
+        events = json.loads(text)["traceEvents"]
+        keep = os.path.join(REPO, "chiprun_out", "tracing")
+        os.makedirs(keep, exist_ok=True)
+        with gzip.open(os.path.join(keep, "app_trace.json.gz"), "wt") as f:
+            f.write(text)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    found = _annotated_gaps(events, TRACING_GAP_US)
+    passed = [g for g in found if g[1] >= 0.9]
+    worst = sorted(found, key=lambda g: g[1])[:8]
+    by_name = {}
+    for us, _, name, _ in found:
+        by_name[name] = by_name.get(name, 0.0) + us
+    emit("tracing_app", gaps=len(found), passed=len(passed),
+         share_passed=len(passed) / len(found) if found else None,
+         gap_us_total=sum(g[0] for g in found),
+         gap_us_by_annotation=by_name,
+         worst=[dict(us=g[0], covered=g[1], at=g[2],
+                     host=g[3][:12] if g[1] < 0.9 else None)
+                for g in worst])
 
 
 def _dem_rhs_checks(dev):
@@ -4697,6 +4928,8 @@ def main(argv=None) -> int:
         settle = phase_dem_settle(dev)
     if "dem_settle_host" in phases:
         phase_dem_settle_host(dev, settle)
+    if "tracing" in phases:
+        phase_tracing(dev)
     for name, run in (("temp_f64_full", phase_temp_f64_full),
                       ("lr_f32_full", phase_lr_f32_full),
                       ("mr_gradp_full", phase_mr_gradp_full),

@@ -75,6 +75,7 @@ import torch
 
 from ..config.params import (
     ParamError, ParamFile, batch_iterations, loop_suffix, parse_param_file)
+from ..core import tracing
 from ..core.device import (
     field_dtype, numpy_dtype, profile_trace, resolve_device)
 from ..core.grid import GridGeometry
@@ -399,6 +400,7 @@ def run_iteration(
         def solve(st, ft):
             triggered = False
 
+            @tracing.span("pft.app.service")
             def between(tt, hh, n_new, prev_steps):
                 nonlocal triggered
                 if debug_log is not None and n_new:
@@ -490,17 +492,19 @@ def run_iteration(
             final_time=final_time,
             snapshot=snapshot - 1 if is_on_demand else snapshot,
             total_snapshots=total_snapshots, comment=comment)
-        if mesh is not None and pf.grid_io_mode == "inner":
-            # gather-free: each shard writes its own block
-            write_snapshot_sharded(filename, geom, params, state.y, mesh,
-                                   u_shift=u_shift, **snap_kw)
-        else:
-            y_out = (gather_freezing_state(state.y, mesh)
-                     if mesh is not None else state.y)
-            # [:3] strips the compensated commit's lo planes when present
-            write_snapshot(filename, geom, params,
-                           _unshift(y_out[:3].cpu().numpy(), u_shift),
-                           grid_mode=pf.grid_io_mode, **snap_kw)
+        with tracing.span("pft.app.snapshot", snapshot=snap_kw["snapshot"]):
+            if mesh is not None and pf.grid_io_mode == "inner":
+                # gather-free: each shard writes its own block
+                write_snapshot_sharded(filename, geom, params, state.y, mesh,
+                                       u_shift=u_shift, **snap_kw)
+            else:
+                y_out = (gather_freezing_state(state.y, mesh)
+                         if mesh is not None else state.y)
+                # [:3] strips the compensated commit's lo planes when
+                # present
+                write_snapshot(filename, geom, params,
+                               _unshift(y_out[:3].cpu().numpy(), u_shift),
+                               grid_mode=pf.grid_io_mode, **snap_kw)
         log("OK]\n")
         log.commit()
 

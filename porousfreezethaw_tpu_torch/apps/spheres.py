@@ -63,6 +63,7 @@ from typing import List, Optional
 
 import torch
 
+from ..core import tracing
 from ..core.device import field_dtype, resolve_device
 from ..io.csv_snaps import snapshot_path, write_dem_snapshot
 from ..io.rklog import format_time
@@ -182,8 +183,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"Done. Elapsed wall time: {format_time(elapsed)}, "
               f"{steps} R-K steps ({total} total)")
         print(f"Saving snapshot {snap + 1} of {cfg.snapshots}.")
-        write_dem_snapshot(snapshot_path(args.output, snap + 1), y_host,
-                           color, angular=cfg.angular)
+        with tracing.span("pft.app.snapshot", snapshot=snap + 1):
+            write_dem_snapshot(snapshot_path(args.output, snap + 1), y_host,
+                               color, angular=cfg.angular)
 
     def fail(status, overflow):
         if overflow is not None:

@@ -27,6 +27,7 @@ import dataclasses
 import re
 from typing import Dict, List, Optional, Tuple
 
+from ..core import tracing
 from .expression import Evaluator, ExpressionError
 from .evsubst import ev_subst
 
@@ -172,6 +173,7 @@ def _parse_options(words: List[str]) -> List[Tuple[str, Optional[str]]]:
 _NAME_RE = re.compile(r"^[A-Za-z_][A-Za-z_0-9]*")
 
 
+@tracing.span("pft.setup.params")
 def parse_param_file(
     text: str,
     loop_vars: Optional[Dict[str, int]] = None,

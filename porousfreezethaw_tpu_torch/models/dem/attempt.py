@@ -42,6 +42,7 @@ from typing import Dict, List, Union
 
 import torch
 
+from ...core import tracing
 from ...ops.cuda.control import RHSAttempt
 from ...parallel.sharding import dem_sharding
 from ...solvers.merson import uses_device_loop
@@ -68,6 +69,7 @@ class DEMAttempt(RHSAttempt):
     # the DEM's right-hand side reads no time
     timed = False
 
+    @tracing.span("pft.setup.attempt", cls="DEMAttempt")
     def __init__(self, rhs):
         cfg = rhs.cfg
         self.rhs = rhs

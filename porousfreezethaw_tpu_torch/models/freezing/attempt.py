@@ -32,6 +32,7 @@ from typing import Tuple
 
 import torch
 
+from ...core import tracing
 from ...ops.cuda.control import RHSAttempt
 from ...parallel.sharding import shard_block
 
@@ -45,6 +46,7 @@ class PlainAttempt(RHSAttempt):
     (3, n3, n2, n1) tensor; with it, ``make_halo_rhs`` over ``mesh`` and
     the state the list of the shards of ``shard_freezing_state``."""
 
+    @tracing.span("pft.setup.attempt", cls="PlainAttempt")
     def __init__(self, rhs, shape: Tuple[int, int, int],
                  dtype: torch.dtype, mesh=None):
         self.rhs = rhs

@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ...core import tracing
 from ...core.grid import GridGeometry
 from . import physics
 from .parameters import FreezingParams
@@ -98,6 +99,7 @@ class DirichletTop:
         return torch.where(t.to(self.device, dtype) < switch, top1, top2)
 
 
+@tracing.span("pft.setup.attempt", cls="make_rhs")
 def make_rhs(geom: GridGeometry, params: FreezingParams, calc_mode: int,
              device: torch.device | str,
              noise: Optional[np.ndarray] = None,

@@ -15,12 +15,14 @@ from __future__ import annotations
 
 import numpy as np
 
+from ...core import tracing
 from ...core.grid import GridGeometry
 from .parameters import FreezingParams
 
 MAX_BALLS_COUNT = 1000  # equation.c:34
 
 
+@tracing.span("pft.setup.glass")
 def read_ball_positions(path: str, params: FreezingParams) -> np.ndarray:
     """Read raw ball centers and apply beads_scaling / beads_offset_*
     (equation.c:474-483).  Returns (n_balls, 3) array of (x, y, z)."""
@@ -35,12 +37,14 @@ def read_ball_positions(path: str, params: FreezingParams) -> np.ndarray:
                 break
     if not raw:
         raise ValueError(f"no ball positions found in {path}")
+    tracing.annotate(balls=len(raw))
     balls = np.asarray(raw, dtype=np.float64)
     balls = balls * params.beads_scaling + np.array(
         [params.beads_offset_x, params.beads_offset_y, params.beads_offset_z])
     return balls
 
 
+@tracing.span("pft.setup.glass")
 def build_glass_field(geom: GridGeometry, params: FreezingParams,
                       balls: np.ndarray, gl_init: np.ndarray,
                       cutoff_xi: float = 18.0) -> np.ndarray:
@@ -55,6 +59,7 @@ def build_glass_field(geom: GridGeometry, params: FreezingParams,
     interface value there); pass ``cutoff_xi=None`` for the reference's
     exact all-cells evaluation.
     """
+    tracing.annotate(balls=len(balls))
     z, y, x = geom.cell_centers()
     gl = np.array(gl_init, dtype=np.float64, copy=True)
     half_inv_xi = 0.5 / params.xi_gl

@@ -19,6 +19,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ...config.expression import Expression, ExpressionError
+from ...core import tracing
 from ...core.grid import GridGeometry
 from .parameters import FreezingParams, VARIABLES
 
@@ -27,6 +28,7 @@ class ICondError(ValueError):
     pass
 
 
+@tracing.span("pft.setup.icond")
 def build_initial_conditions(
     geom: GridGeometry,
     params: FreezingParams,
@@ -39,6 +41,7 @@ def build_initial_conditions(
     Missing formulas raise — the reference requires an icond for every
     variable (empty formula -> syntax error -> abort).
     """
+    tracing.annotate(cells=geom.num_cells)
     z, y, x = geom.cell_centers()
     env: Dict[str, np.ndarray] = {
         "x": x[None, None, :], "y": y[None, :, None], "z": z[:, None, None],

@@ -19,9 +19,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from dataclasses import dataclass
 from pathlib import Path
+
+from ...core import tracing
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
@@ -60,7 +61,7 @@ def source_hash() -> str:
 class BuildResult:
     path: Path
     rebuilt: bool
-    seconds: float
+    seconds: float    # nvcc's compiles and link: the pft.kernels.build span
     log: str          # nvcc's output (ptxas register and spill report)
 
 
@@ -78,21 +79,21 @@ def build(force: bool = False) -> BuildResult:
     tag = f"{os.getpid()}.tmp"
     objs = [BUILD_DIR / f"{Path(src).stem}.{tag}.o" for src in SOURCES]
     tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
-    t0 = time.perf_counter()
     compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
                 for src, obj in zip(SOURCES, objs)]
-    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True))
-             for cmd in compiles]
     steps = []                      # (command, exit code, output)
-    for cmd, proc in procs:
-        out, _ = proc.communicate()
-        steps.append((cmd, proc.returncode, out))
-    if all(rc == 0 for _, rc, _ in steps):
-        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
-        proc = subprocess.run(link, capture_output=True, text=True)
-        steps.append((link, proc.returncode, proc.stdout + proc.stderr))
-    seconds = time.perf_counter() - t0
+    with tracing.span("pft.kernels.build") as sp:
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True))
+                 for cmd in compiles]
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            steps.append((cmd, proc.returncode, out))
+        if all(rc == 0 for _, rc, _ in steps):
+            link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            steps.append((link, proc.returncode, proc.stdout + proc.stderr))
+    seconds = sp.seconds
     log = "".join(out for _, _, out in steps)
     for obj in objs:
         obj.unlink(missing_ok=True)
@@ -178,5 +179,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Build if needed, then load the kernel library once per process."""
-    return _declare(ctypes.CDLL(str(build().path)))
+    """Build if needed, then load the kernel library once per process
+    (the ``pft.kernels.load`` span: the sources' hash, the build where it
+    runs, the load)."""
+    with tracing.span("pft.kernels.load") as sp:
+        res = build()
+        sp.attrs["rebuilt"] = res.rebuilt
+        return _declare(ctypes.CDLL(str(res.path)))

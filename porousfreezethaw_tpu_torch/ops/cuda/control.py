@@ -43,13 +43,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import gc
+import itertools
 import math
-import time
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from ...core import tracing
 from ...models.freezing.delta import two_sum
 from ...solvers.merson import NAN_ABORT, _leaves, merson_stages, pow_02
 
@@ -442,12 +443,30 @@ class RHSAttempt(DeviceAttempt):
         commit(ctl, COMMIT_COPY, b["y"], src=b["spec"])
 
 
+def _block_times(blk, start, end, prev_end) -> None:
+    """A block span's device times (us) from its events, once its
+    read-back has synchronized them."""
+    blk.attrs["device_us"] = 1e3 * start.elapsed_time(end)
+    if prev_end is not None:
+        blk.attrs["gap_us"] = 1e3 * prev_end.elapsed_time(start)
+
+
 class DeviceLoop:
     """The device-resident loop of one attempt object on one device: its
     static buffers, its control block and its graph of ``BLOCK``
     attempts, captured at first use and kept.  ``capture_s`` is the wall
     time of the capture (the idle attempt before it, the capture and the
-    graph's instantiation), None before it."""
+    graph's instantiation: the ``pft.loop.capture`` span), None before
+    it.
+
+    While ``tracing.hot()``, each block is a ``pft.loop.block`` span with
+    its ``pft.loop.replay`` (the attempts) and ``pft.loop.readback`` (the
+    control block's copy) and, on the card, the attributes ``device_us``
+    (device time from a CUDA event recorded just before the graph's
+    launch to one just after it: the launch's latency and the attempts)
+    and, after a run's first block, ``gap_us`` (device time from the
+    previous block's end event to this block's start event: the
+    read-back's copy and the host's work up to the next launch)."""
 
     def __init__(self, attempt: DeviceAttempt, device: torch.device):
         self.attempt = attempt
@@ -457,11 +476,15 @@ class DeviceLoop:
                                 else torch.device("cpu"), self.bufs["eps"])
         self.capture_s: Optional[float] = None
         self._captured: Optional[Tuple[torch.cuda.CUDAGraph, list]] = None
+        # the block events of the hot instrumentation: three (start, end)
+        # pairs, made at first use and reused, so that no block allocates
+        self._events = None
 
     def begin(self, y, *, t: float, h: float, h_cont: float, steps: int,
               steps_total: int, finished: bool, tf: float, params) -> None:
         """Load the state ``y`` and write the control block of a solve
-        call from the prologue's values and ``params`` (MersonParams)."""
+        call from the prologue's values and ``params`` (MersonParams); on
+        the card, capture the graph at first use."""
         self.attempt._dev_load(self.bufs, y)
         ctl = self.ctl
         n = int(params.record_trace)
@@ -489,22 +512,79 @@ class DeviceLoop:
             local_mode=int(params.delta_mode == "local"))
         next_scalars_plain(c)
         ctl.write(c)
+        if self.kernel:
+            self._graph()
 
     def run(self) -> Control:
         """Attempts until the loop halts; returns the final block.  On the
         card: replays of the graph of ``BLOCK`` attempts, one read-back
         each; else one plain attempt after another."""
+        graph, per_attempt = (self._graph() if self.kernel
+                              else (None, None))
+        if tracing.hot():
+            return self._run_traced(graph, per_attempt)
         if not self.kernel:
             while not self.ctl.host.halt:
                 self.attempt._dev_attempt(self.ctl, self.bufs)
             return self.ctl.read()
-        graph, per_attempt = self._graph()
         while True:
             graph.replay()
-            for (obj, attr), n in per_attempt:
-                setattr(obj, attr, getattr(obj, attr) + n * BLOCK)
+            self._count(per_attempt)
             c = self.ctl.read()
             if c.halt:
+                return c
+
+    @staticmethod
+    def blocks(c: Control) -> int:
+        """The blocks of the run that returned ``c``: its attempts in
+        blocks of ``BLOCK``, the last one partly idle, and one block where
+        the call had no attempt to make (on the card, replays)."""
+        return max(1, -(-(c.steps_total - c.start_total) // BLOCK))
+
+    @staticmethod
+    def _count(per_attempt) -> None:
+        """The launches of one replay, added to their counters."""
+        for (obj, attr), n in per_attempt:
+            setattr(obj, attr, getattr(obj, attr) + n * BLOCK)
+
+    def _run_traced(self, graph, per_attempt) -> Control:
+        """``run``'s loop with the hot instrumentation: each block in its
+        spans and, on the card, between the CUDA events of pair ``k % 3``
+        (the plain loop's block: up to ``BLOCK`` attempts, until the
+        block halts).  A block's device times are read while the next
+        block runs, off the boundary's path; the third pair keeps the
+        events they read from being recorded again before that."""
+        if self.kernel:
+            if self._events is None:
+                self._events = [tuple(torch.cuda.Event(enable_timing=True)
+                                      for _ in range(2)) for _ in range(3)]
+            stream = torch.cuda.current_stream(self.ctl.device)
+        done = None           # (block span, start, end, previous end)
+        for k in itertools.count():
+            with tracing.span("pft.loop.block") as blk:
+                with tracing.span("pft.loop.replay"):
+                    if self.kernel:
+                        start, end = self._events[k % 3]
+                        start.record(stream)
+                        graph.replay()
+                        end.record(stream)
+                    else:
+                        for _ in range(BLOCK):
+                            if self.ctl.host.halt:
+                                break
+                            self.attempt._dev_attempt(self.ctl, self.bufs)
+                if self.kernel:
+                    if done is not None:
+                        _block_times(*done)
+                    self._count(per_attempt)
+                with tracing.span("pft.loop.readback"):
+                    c = self.ctl.read()
+                if self.kernel:
+                    prev_end = None if done is None else done[2]
+                    done = (blk, start, end, prev_end)
+            if c.halt:
+                if done is not None:
+                    _block_times(*done)
                 return c
 
     def resume(self, c: Control) -> None:
@@ -531,7 +611,12 @@ class DeviceLoop:
         nothing."""
         if self._captured is not None:
             return self._captured
-        t0 = time.perf_counter()
+        with tracing.span("pft.loop.capture") as sp:
+            self._captured = self._capture()
+        self.capture_s = sp.seconds
+        return self._captured
+
+    def _capture(self):
         ctl = self.ctl
         saved = ctl.read()
         idle = saved.copy()
@@ -567,6 +652,4 @@ class DeviceLoop:
             setattr(o, a, b1)
         ctl.write(saved)
         torch.cuda.synchronize(ctl.device)
-        self.capture_s = time.perf_counter() - t0
-        self._captured = (graph, per_attempt)
-        return self._captured
+        return graph, per_attempt

@@ -61,6 +61,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ...core import tracing
 from ...core.grid import GridGeometry
 from ...models.freezing import physics
 from ...models.freezing.delta import g_rhs, two_sum
@@ -160,7 +161,8 @@ def fused_stage_plain(spec: StencilSpec, t: float, h: float,
         hc = _hc(h32, c)
         aux_u = aux_u + hc * K[0]
         aux_p = aux_p + hc * K[1]
-    rhs = make_rhs(spec.geom, spec.params, spec.mode, w.device)
+    # the right-hand side without its set-up span: this runs per stage
+    rhs = make_rhs.__wrapped__(spec.geom, spec.params, spec.mode, w.device)
     k_out = rhs(t, torch.stack([aux_u, aux_p, w[2]]))[:K_VARS]
     if not stage5:
         return k_out
@@ -933,8 +935,10 @@ class _Attempt(DeviceAttempt):
     """What the freezing attempt objects share: the kernels' spec, the
     Dirichlet top for the control block and the state check."""
 
+    @tracing.span("pft.setup.attempt")
     def __init__(self, geom: GridGeometry, params: FreezingParams,
                  calc_mode: int, *, plain: bool = False):
+        tracing.annotate(cls=type(self).__name__)
         self.geom = geom
         self._prm = params
         self._spec = StencilSpec.of(geom, params, calc_mode)

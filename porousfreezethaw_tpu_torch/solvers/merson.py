@@ -50,6 +50,8 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from ..core import tracing
+
 # status codes (mirroring the reference return codes where they exist)
 OK = 0            # reached final_time
 INTERRUPTED = 1   # service callback requested a break (RKA_CMD_BREAK)
@@ -477,27 +479,44 @@ def merson_solve_device(state: MersonState, final_time: float,
         raise ValueError(f"merson_solve_device: the state lies on "
                          f"{len(devices)} devices; the device loop serves "
                          f"one (host_loop_reason)")
-    loop = attempt_fn.device_loop(devices.pop())
-    loop.begin(state.y, t=t0, h=h, h_cont=h_cont, steps=int(state.steps),
-               steps_total=int(state.steps_total), finished=prefinished,
-               tf=tf, params=params)
-    prev = int(state.steps)
-    while True:
-        c = loop.run()
-        if between is None:
-            break
-        t_tr, h_tr = loop.trace()
-        if between(t_tr, h_tr, int(c.steps) - prev, prev) or c.done:
-            break
-        prev = int(c.steps)
-        loop.resume(c)
-    done = bool(c.done)
-    # normal exits continue from the untrimmed estimate; a max_steps exit
-    # must resume from the current working step
-    new_state = MersonState(t=c.t, h=c.h_cont if done else c.h,
-                            y=loop.unpack(), steps=int(c.steps),
-                            steps_total=int(c.steps_total))
+    with tracing.span("pft.solve", root=True,
+                      path=type(attempt_fn).__name__) as sp:
+        with tracing.span("pft.loop.begin"):
+            loop = attempt_fn.device_loop(devices.pop())
+            loop.begin(state.y, t=t0, h=h, h_cont=h_cont,
+                       steps=int(state.steps),
+                       steps_total=int(state.steps_total),
+                       finished=prefinished, tf=tf, params=params)
+        prev = int(state.steps)
+        blocks = 0
+        stop = False
+        while not stop:
+            # one chunk of attempts and, with between=, its drain and the
+            # next chunk's start, so that the boundary lies in one span
+            with tracing.span("pft.loop.run"):
+                c = loop.run()
+                blocks += loop.blocks(c)
+                stop = between is None
+                if not stop:
+                    with tracing.span("pft.loop.chunk"):
+                        t_tr, h_tr = loop.trace()
+                        stop = bool(between(t_tr, h_tr, int(c.steps) - prev,
+                                            prev) or c.done)
+                        if not stop:
+                            prev = int(c.steps)
+                            loop.resume(c)
+        done = bool(c.done)
+        with tracing.span("pft.loop.unpack"):
+            # normal exits continue from the untrimmed estimate; a
+            # max_steps exit must resume from the current working step
+            new_state = MersonState(t=c.t, h=c.h_cont if done else c.h,
+                                    y=loop.unpack(), steps=int(c.steps),
+                                    steps_total=int(c.steps_total))
+            trace = loop.trace() if params.record_trace else None
+        sp.attrs.update(attempts=new_state.steps_total - state.steps_total,
+                        accepted=new_state.steps - state.steps,
+                        blocks=blocks)
     status = int(c.status) if done else MAX_STEPS
     if params.record_trace:
-        return new_state, status, loop.trace()
+        return new_state, status, trace
     return new_state, status
