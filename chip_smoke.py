@@ -65,9 +65,13 @@ Run from the root of a checkout.  Phases, one JSON line each:
             records is profiled again, _traced_run), the idle-block cost
             of BLOCK, and the growth power against Python's ** and the
             host's on the runs' eps values, with the host's cost of it;
-            then the f64 plain-RHS path (PlainAttempt, the f64 app's) at
-            LR Temp, LR GradP and MR GradP (the bench's cases): 96
-            attempts in both loops, 3 repeats each, bit for bit, with
+            then the f64 path (PlainAttempt, the f64 app's: on the device
+            loop its float64 stage kernel, on the host loop the plain
+            right-hand side) at LR Temp, LR GradP and MR GradP (the
+            bench's cases): 96 attempts in both loops, 3 repeats each,
+            every run bit for bit its loop's first, the two loops' counts
+            equal, the state within 1e-10 and t, h and the trace within
+            1e-6 (LOOP_GAP_STATE, LOOP_GAP_STEP), with
             ms/attempt, device ms, launches per attempt and per
             right-hand side, the kernel classes' shares (cat,
             reductions, elementwise), the busy share, the capture time,
@@ -75,7 +79,8 @@ Run from the root of a checkout.  Phases, one JSON line each:
 5. bench    the port's bench (porousfreezethaw_tpu_torch.bench) in this
             process: MR GradP f32 with --fused stage, delta and attempt
             (the device loop), and LR GradP f64 --fused off (the device
-            loop on PlainAttempt), with the launch counters of each
+            loop on PlainAttempt's float64 stage kernel), with the launch
+            counters of each
 6. app      the intertrack app on the LR GradP golden case to snapshot 1,
             plain and with compensated_commit 1, through the app's chunked
             device loop, each held to the reference's 3560/4322 steps (5%)
@@ -85,8 +90,9 @@ Run from the root of a checkout.  Phases, one JSON line each:
             attempt before the capture); the plain golden again through
             the host loop (the app's uses_device_loop patched): the same
             counts, RK debug log lines and snapshot 1; then the LR Temp
-            golden in f64 (the plain PyTorch right-hand side on the app's
-            device loop, PlainAttempt, and again on its host loop), held
+            golden in f64 (the float64 stage kernel on the app's device
+            loop, PlainAttempt, and the plain right-hand side on its host
+            loop), held
             to 1850/2256 (5%), the two loops' counts, RK debug log lines
             and snapshot 1 equal, its idle attempts priced by phase
             controller's LR Temp row; a short run with --profile-dir
@@ -206,7 +212,8 @@ The launches in the kernel summary come from the run that is each
 kernel's main path, with the counters set to 0 just before it: the plain
 golden (the app's device loop) for fused_stage, delta_g, merson_control
 and commit, the f64 LR Temp golden (the app's device loop) for
-merson_control_f64 and commit_f64, the compensated golden for
+merson_control_f64, commit_f64 and fused_stage_f64 (its fused_stage
+launches), the compensated golden for
 delta_g_dy, the bench's --fused attempt row for fused_attempt, the golden
 at z4 (the app's device loop) for fused_stage_split and delta_g_shard,
 the compensated golden at z4 for delta_g_shard_dy, the bench's z1,y1 row
@@ -331,8 +338,9 @@ def phase_build() -> None:
 
 
 # the kernel families of the library: their __global__ templates
-# <MODE, NK, TAIL, DEV> and the names of their tails (DEV: the _dev entry,
-# "/dev" in the keys of _ptxas)
+# <MODE, NK, TAIL, DEV[, T]> and the names of their tails (DEV: the _dev
+# entry, "/dev" in the keys of _ptxas; T = double, the stage kernel's
+# float64 instantiation, "/f64")
 PTXAS_KERNELS = {"delta_g": ("G", "y", "dy"), "fused_stage": ("K", "y"),
                  "fused_attempt": ("K", "y")}
 
@@ -349,10 +357,11 @@ def _ptxas(log: str) -> dict:
             cur = None
             for fam, tails in PTXAS_KERNELS.items():
                 t = re.search(fam + r"_kernelILi(\d+)ELi(\d)ELi(\d)E"
-                              r"(?:Lb([01])E)?", m.group(1))
+                              r"(?:Lb([01])E)?([fd])?", m.group(1))
                 if t:
                     cur = (f"{fam}/{t[1]}/nk{t[2]}/{tails[int(t[3])]}"
-                           + ("/dev" if t[4] == "1" else ""))
+                           + ("/dev" if t[4] == "1" else "")
+                           + ("/f64" if t[5] == "d" else ""))
                     out[cur] = {}
             if cur is None and re.search(r"(merson_control|commit)_kernel",
                                          m.group(1)):
@@ -742,6 +751,7 @@ def phase_kernels(dev) -> dict:
     for kern in out:
         out[kern]["ptxas"] = _row_ptxas(kern)
         out[kern]["copy_ms"] = _copy_ms(out[kern]["bound_ms"], dev)
+    out["fused_stage_f64"] = _stage64_row(dev)
     emit("delta_digest", sha256=_delta_digest(dev))
     # the controller's kernels and the _dev entries
     checks = dict(control=_check_control(dev, prm),
@@ -759,6 +769,111 @@ def phase_kernels(dev) -> dict:
         "commit_f64": checks["commit_f64"]["max_abs_err"],
         "commit_f64_dem": checks["commit_f64"]["max_abs_err"]}))
     return out
+
+
+# the five stages of the f64 attempt: (name, K inputs, tail)
+STAGE64_LAUNCHES = (("nk0", 0, False), ("nk1", 1, False), ("nk2", 2, False),
+                    ("nk2b", 2, False), ("stage5", 3, True))
+
+
+def _stage64_row(dev) -> dict:
+    """K1-f64: the stage kernel's float64 _dev entry (the f64 path's
+    attempt, PlainAttempt's stage-kernel route) at MR in calc mode 0, each
+    of an attempt's five launches (t = 1000, h = 0.05, random inputs):
+    ms and device ms beside the bound of its bytes and float64 operations
+    (the larger of bytes / 3.35 TB/s and operations / 34 TFLOP/s), the
+    plain version's ms, the largest error against it over max|ref|; the
+    row's figures per launch are the mean of the five, ``attempt`` their
+    sum; the ptxas report of the float64 instantiations."""
+    from porousfreezethaw_tpu_torch.core.grid import GridGeometry
+    from porousfreezethaw_tpu_torch.models.freezing.parameters import (
+        FreezingParams)
+    from porousfreezethaw_tpu_torch.ops.cuda import control
+    from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
+
+    pf, _ = _mr_params()
+    prm = FreezingParams.from_dict(pf.vars)       # f64 holds u absolute
+    shape = MR_SHAPE
+    geom = GridGeometry(0.03, 0.03, 0.06, shape[2], shape[1], shape[0])
+    spec = st.StencilSpec.of(geom, prm, 0, torch.float64)
+    rng = np.random.default_rng(SEED + 64)
+    w = torch.from_numpy(np.stack([
+        prm.u_star + rng.uniform(-10.0, 10.0, shape),
+        rng.uniform(0.0, 1.0, shape), rng.uniform(0.0, 0.6, shape)])).to(dev)
+    ks = [torch.from_numpy(rng.standard_normal((2,) + shape)).to(dev)
+          for _ in range(3)]
+    n_eps = st._eps_blocks("pft_stage_eps_blocks64", dev, 0, *shape)
+    eps = torch.empty(n_eps, dtype=torch.float64, device=dev)
+    block = control.ControlBlock(dev, eps)
+    c = control.Control(t=1000.0, h=0.05, h_cont=0.05, tf=1e12, delta=1e-3,
+                        max_steps=2**62, eps=eps.data_ptr(), eps_n=n_eps,
+                        eps_f64=1)
+    control.next_scalars_plain(c)
+    block.write(c)
+    out = torch.empty((2,) + shape, dtype=torch.float64, device=dev)
+    cells = int(np.prod(shape))
+    launches = {}
+    for stage, (name, nk, tail) in enumerate(STAGE64_LAUNCHES):
+        kk = list(zip(st.STAGE_COEFS[torch.float64][stage], ks))
+
+        def kernel():
+            st.fused_stage_dev(spec, block, stage, w, kk, out, stage5=tail,
+                               eps=eps if tail else None)
+
+        def plain():
+            return st.fused_stage_plain(
+                spec, c.ts64[st.STAGE64_TIME[stage]],
+                c.hs[st.STAGE64_SCALE[stage]], w, kk, stage5=tail)
+
+        kernel()
+        ref = plain()
+        ref = ref[0] if tail else ref
+        nbytes = 8 * cells * (3 + 2 * nk + 2)
+        ops = cells * (STAGE_OPS + OPS_PER_K * nk + (TAIL_OPS if tail
+                                                      else 0))
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F64_FLOP_PER_S
+        launches[name] = dict(
+            nk=nk, tail=tail, bytes=nbytes, ops=ops,
+            bound_ms=1e3 * max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            max_abs_err=float((out - ref).abs().max()),
+            max_rel_err=float((out - ref).abs().max() / ref.abs().max()),
+            ms=_time(kernel, 10), device_ms=_queued_ms(kernel, 10),
+            plain_ms=_time(plain, 3))
+        launches[name]["bound_share"] = (launches[name]["bound_ms"]
+                                         / launches[name]["device_ms"])
+    torch.cuda.synchronize()
+
+    def total(key):
+        return sum(v[key] for v in launches.values())
+
+    row = dict(
+        name="fused_stage_f64", route="cuda",
+        source="porousfreezethaw_tpu_torch/csrc/fused_stage.cu",
+        replaces="none: the f64 path's plain right-hand side "
+                 "(models/freezing/equation.py make_rhs over "
+                 "solvers/merson.py merson_stages)",
+        launches=0,
+        max_abs_err=max(v["max_abs_err"] for v in launches.values()),
+        max_rel_err=max(v["max_rel_err"] for v in launches.values()),
+        ms=total("ms") / 5, plain_ms=total("plain_ms") / 5,
+        bound_ms=total("bound_ms") / 5,
+        bound_by="bytes" if all(v["bound_by"] == "bytes"
+                                for v in launches.values()) else "mixed",
+        library_ms=None, device_ms=total("device_ms") / 5,
+        bound_share=total("bound_ms") / total("device_ms"),
+        attempt=dict(ms=total("ms"), device_ms=total("device_ms"),
+                     plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+                     bytes=total("bytes")),
+        per_launch=launches,
+        timed=(f"the five launches of an f64 attempt at {MR_SHAPE}, per "
+               "launch the mean" + TIMED_BY),
+        ptxas=_row_ptxas("fused_stage_f64"))
+    emit("kernel_stage64", **row)
+    if row["max_rel_err"] > 1e-13:
+        raise AssertionError(f"fused_stage_f64 disagrees with its plain "
+                             f"version: {row['max_rel_err']}")
+    return row
 
 
 def _delta_digest(dev) -> str:
@@ -826,8 +941,10 @@ def _row_ptxas(kern: str) -> dict:
            else "fused_attempt" if kern == "fused_attempt" else "fused_stage")
     tails = (("dy",) if kern.endswith("_dy") else ("G", "y")
              if fam == "delta_g" else ("K", "y"))
+    wide = kern.endswith("_f64")      # the stage kernel's float64 row
     mine = {k: v for k, v in _built_ptxas().items()
-            if k.split("/")[0] == fam and k.split("/")[3] in tails}
+            if k.split("/")[0] == fam and k.split("/")[3] in tails
+            and k.endswith("/f64") == wide}
     emit("ptxas", kernel=kern, instantiations=mine)
     return {k: v for k, v in mine.items() if k.split("/")[1] == "0"}
 
@@ -1550,6 +1667,48 @@ def _same_result(a, b) -> bool:
             and all(torch.equal(x, y) for x, y in zip(a[2], b[2])))
 
 
+# how far the f64 path's device loop (the float64 stage kernel) may part
+# from its host loop on the card (the plain right-hand side): the state
+# within LOOP_GAP_STATE of max|y|, the bound of the card test
+# tests/test_torch_cuda.py test_plain_device_loop_equals_host_loop; t, h
+# and the trace within LOOP_GAP_STEP, relative.  That test holds t, h and
+# the trace to 1e-10 against a host loop that rounds as the kernel does
+# (the CPU's, for the phase-field models).  The card's PyTorch kernels
+# divide by the scalar alpha as a product with its reciprocal, an ulp
+# apart, and the error estimate, a difference of nearly equal stages,
+# carries that into h: on an H100 over 96 attempts h parted by 1.6e-7 at
+# MR GradP, 4.1e-9 at LR GradP and 0 at LR Temp, the state by 6.0e-11,
+# 2.8e-12 and 0, with equal counts
+LOOP_GAP_STATE = 1e-10
+LOOP_GAP_STEP = 1e-6
+
+
+def _loop_gap(a, b) -> dict:
+    """How two solves of one start by two loops (the f64 path's stage
+    kernel and its plain right-hand side) part: counts, status, t and h
+    (relative), the record_trace arrays (the largest relative gap) and the
+    state (of max|y|); ``close``: the same counts and status, t, h and the
+    trace within LOOP_GAP_STEP and the state within LOOP_GAP_STATE."""
+    sa, sb = a[0], b[0]
+    trace = max(((float(torch.where(x == y, 0.0, (x - y).abs() / y.abs())
+                        .max()) if x.numel() and x.shape == y.shape
+                  else 0.0 if x.shape == y.shape else float("inf"))
+                 for x, y in zip(a[2], b[2])), default=0.0)
+    gap = dict(counts=[(sa.steps, sa.steps_total),
+                       (sb.steps, sb.steps_total)],
+               status=[a[1], b[1]],
+               t_rel=abs(sa.t - sb.t) / max(abs(sb.t), 1e-300),
+               h_rel=abs(sa.h - sb.h) / max(abs(sb.h), 1e-300),
+               trace_rel=trace,
+               state=float((sa.y - sb.y).abs().max() / sb.y.abs().max()))
+    gap["close"] = (gap["counts"][0] == gap["counts"][1]
+                    and a[1] == b[1] and len(a[2]) == len(b[2])
+                    and max(gap["t_rel"], gap["h_rel"],
+                            gap["trace_rel"]) <= LOOP_GAP_STEP
+                    and gap["state"] <= LOOP_GAP_STATE)
+    return gap
+
+
 # the launches of one attempt by counter, on each path; the device loop
 # adds one merson_control and one commit
 PER_ATTEMPT = {"delta": {"fused_stage": 1, "delta_g": 4},
@@ -1574,6 +1733,14 @@ def _want_launches(path, n, device_loop=False):
     """The launches of ``n`` attempt launches on ``path``, by counter."""
     per = dict(PER_ATTEMPT[path], **(DEVICE_LOOP if device_loop else {}))
     return {k: v * n for k, v in per.items()}
+
+
+def _want_f64(n) -> dict:
+    """The launches of ``n`` attempt launches of the f64 path's device
+    loop (PlainAttempt's float64 stage-kernel route), by counter: five
+    fused_stage launches, the float64 control and commit."""
+    return {"fused_stage": 5 * n, "merson_control_f64": n,
+            "commit_f64": n}
 
 
 def _graph_attempts(calls, captures=0) -> int:
@@ -1619,27 +1786,49 @@ def _profiled_launches(prof) -> dict:
 # profiled runs of one solve before a trace that lost kernel records fails
 PROFILE_TRIES = 3
 
+# the one-element fills that the profiler records and drops before a
+# profiled run (_profiled)
+PROFILE_WARM_KERNELS = 64
+
+
+def _profiled(run):
+    """``run()`` under torch.profiler (CPU and CUDA activity), after a
+    warm-up step in which the profiler records PROFILE_WARM_KERNELS
+    one-element fills and drops them.  A session's first kernel records
+    can be lost: on an H100, profiled device-loop runs of phase
+    controller's f64 rows without this step lost 1-6 records among the
+    run's first six kernels in every trace of a row but the process's
+    first, one fill before the run lowered the loss by one, and with the
+    fills no trace of the rows lost a record (9 of 9).  Returns (the
+    profiler, the run's result)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        x = torch.zeros(1, device=torch.cuda.current_device())
+        for _ in range(PROFILE_WARM_KERNELS):
+            x.fill_(0.0)
+        torch.cuda.synchronize()
+        prof.step()
+        res = run()
+        torch.cuda.synchronize()
+    return prof, res
+
 
 def _traced_run(st, run, same, what):
-    """``run()`` under torch.profiler (CPU and CUDA activity) with the
-    counters at 0: each of the port's kernels launched in the trace as
-    many times as its counter added (KERNEL_COUNTERS), and ``same(res)``
-    true of the run's result ``res``.  A trace may lose records of a run
-    that launched them: one that holds fewer launches than counted, of a
+    """``run()`` profiled (_profiled) with the counters at 0: each of the
+    port's kernels launched in the trace as many times as its counter
+    added (KERNEL_COUNTERS), and ``same(res)`` true of the run's result
+    ``res``.  A trace that still holds fewer launches than counted, of a
     run whose result is bit for bit right, is profiled again, up to
     PROFILE_TRIES runs in all.  A wrong result, a trace with more launches
     than counted, or no trace that agrees raises.  When the profiler
     records no device time, the launches are not checked.  Returns (the
     profiler, the traced launches, the traces that lost records)."""
-    from torch.profiler import ProfilerActivity, profile
     lost = []
     for _ in range(PROFILE_TRIES):
         _reset_all(st)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            res = run()
-            torch.cuda.synchronize()
+        prof, res = _profiled(run)
         counted = _all_counters(st)
         if not same(res):
             raise AssertionError(f"{what}: the profiled run's result "
@@ -1699,12 +1888,16 @@ def _kernel_classes(rows) -> dict:
 
 
 def _controller_f64_rows(dev) -> list:
-    """The f64 plain-RHS path (the f64 app's, PlainAttempt) at LR Temp, LR
-    GradP and MR GradP: CONTROLLER_F64_WARM host-loop attempts from the
-    benchmark case, then CONTROLLER_F64_ATTEMPTS attempts through the
-    device loop (its first run captures the graph) and the host loop,
-    CONTROLLER_REPEATS times each in turns, every run bit for bit the
-    first's (state, t, h, counts, status, trace); ms/attempt (median and
+    """The f64 path (the f64 app's, PlainAttempt: on the device loop its
+    float64 stage kernel, on the host loop the plain right-hand side) at
+    LR Temp, LR GradP and MR GradP: CONTROLLER_F64_WARM host-loop attempts
+    from the benchmark case, then CONTROLLER_F64_ATTEMPTS attempts through
+    the device loop (its first run captures the graph) and the host loop,
+    CONTROLLER_REPEATS times each in turns, every run bit for bit its
+    loop's first (state, t, h, counts, status, trace); the two loops held
+    together (``loop_gap``: the same counts and status, and t, h, the
+    trace and the state within LOOP_GAP_STEP and LOOP_GAP_STATE);
+    ms/attempt (median and
     spread), device ms and launches per attempt, busy share and the
     kernel classes' shares (torch.profiler over one more run of each, of
     CONTROLLER_F64_PROFILED attempts, held to the device loop's), the
@@ -1748,9 +1941,12 @@ def _controller_f64_rows(dev) -> list:
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        ref = device(start, params(n, n))         # captures the graph
+        refs = {"device": device(start, params(n, n))}   # captures
         torch.cuda.synchronize()
         peak_mb = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+        refs["host"] = host(start, params(n, n))
+        ref = refs["device"]
+        gap = _loop_gap(ref, refs["host"])
         walls = {"host": [], "device": []}
         for loop in ("host", "device", "device", "host") * 2:
             if len(walls[loop]) == CONTROLLER_REPEATS:
@@ -1762,23 +1958,21 @@ def _controller_f64_rows(dev) -> list:
             torch.cuda.synchronize()
             walls[loop].append(1e3 * (time.perf_counter() - t0) / n)
             launches = {k: c for k, c in _counters(st).items() if c}
-            want = ({} if loop == "host" else
-                    {"merson_control_f64": n, "commit_f64": n})
-            if not _same_result(res, ref):
+            want = {} if loop == "host" else _want_f64(n)
+            if not _same_result(res, refs[loop]):
                 raise AssertionError(f"controller f64 {name}: the {loop} "
-                                     f"loop differs from the device loop's "
-                                     f"first run")
+                                     f"loop differs from its first run")
             if launches != want:
                 raise AssertionError(f"controller f64 {name}: {loop} loop "
                                      f"launches {launches}, want {want}")
         n_prof = CONTROLLER_F64_PROFILED
-        ref_prof = device(start, params(n_prof))
         prof, lost = {}, {}
         for loop in ("host", "device"):
+            fn = host if loop == "host" else device
+            ref_prof = fn(start, params(n_prof))
             p, _, lost[loop] = _traced_run(
-                st, lambda: (host if loop == "host" else device)(
-                    start, params(n_prof)),
-                lambda res: _same_state(res, ref_prof),
+                st, lambda fn=fn: fn(start, params(n_prof)),
+                lambda res, r=ref_prof: _same_state(res, r),
                 f"controller f64 {name}, {loop} loop")
             prof[loop] = _device_time(p)
         t_dev = torch.tensor(start.t, dtype=torch.float64, device=dev)
@@ -1794,7 +1988,7 @@ def _controller_f64_rows(dev) -> list:
         row = dict(grid=list(geom.shape), case=name, calc_mode=mode,
                    dtype="f64", attempts=n, profiled_attempts=n_prof,
                    steps=ref[0].steps - start.steps, t=ref[0].t,
-                   h=ref[0].h, status=ref[1], bitwise=True, block=BLOCK,
+                   h=ref[0].h, status=ref[1], loop_gap=gap, block=BLOCK,
                    graph_capture_s=att.device_loop(dev).capture_s,
                    capture_run_peak_mb=peak_mb,
                    rhs_launches=(rhs_kernels / 5 if rhs_us
@@ -1818,6 +2012,9 @@ def _controller_f64_rows(dev) -> list:
         row["speedup"] = (row["host"]["ms_per_attempt"]
                           / row["device"]["ms_per_attempt"])
         emit("controller_f64", **row)
+        if not gap["close"]:
+            raise AssertionError(f"controller f64 {name}: the device loop "
+                                 f"parts from the host loop: {gap}")
         rows.append(row)
     return rows
 
@@ -1980,8 +2177,8 @@ def _reset_counters(st) -> None:
 def phase_bench(dev) -> dict:
     """The port's bench rows in this process, each record under bench.py's
     metric names with the launch counters of its run, every row through
-    the device loop (the f64 --fused off row through PlainAttempt, on the
-    float64 control and commit kernels); returns the counters of the
+    the device loop (the f64 --fused off row through PlainAttempt, on its
+    float64 stage-kernel route: _want_f64); returns the counters of the
     --fused attempt row, the main path of K4."""
     from porousfreezethaw_tpu_torch import bench
     from porousfreezethaw_tpu_torch.ops.cuda import stencil as st
@@ -2006,8 +2203,8 @@ def phase_bench(dev) -> dict:
         path = {"stage": "stage", "delta": "delta",
                 "attempt": "fused_attempt"}.get(fused)
         graph = _graph_attempts(calls, 1)
-        want = ({"merson_control_f64": graph, "commit_f64": graph}
-                if path is None else _want_launches(path, graph, True))
+        want = (_want_f64(graph) if path is None
+                else _want_launches(path, graph, True))
         want = {k: want.get(k, 0) for k in launches}
         if rec["controller"] != "device" or not rec["graph_capture_s"] > 0:
             raise AssertionError(f"bench row {fused}/{dtype}: controller "
@@ -2226,13 +2423,16 @@ def phase_app(dev, idle_attempt_ms=None):
     main-path runs of fused_stage, delta_g, merson_control and commit (the
     plain golden, through the app's chunked device loop), delta_g_dy
     (the compensated one) and merson_control_f64 and commit_f64 (the f64
-    LR Temp golden, through the app's device loop on PlainAttempt), and
-    the LR Temp golden's record.  The plain golden and the f64 golden
+    LR Temp golden, through the app's device loop on PlainAttempt, whose
+    route is the float64 stage kernel), and the host loop's LR Temp golden
+    record (the plain right-hand side's), and fused_stage_f64 (the f64
+    golden's fused_stage launches).  The plain golden and the f64 golden
     also run through the host loop (the app's uses_device_loop patched):
-    the same counts, RK debug log lines and snapshot 1.
+    the same counts, RK debug log lines and snapshot 1, byte for byte.
 
     Launches: the host loop's are the attempts times the path's launches
-    per attempt (none on the f64 path); the device loop's are one number
+    per attempt (none on the f64 path); the device loop's (on the f64
+    path 5 fused_stage launches for each control launch) are one number
     of attempt launches for every kernel of the path, no fewer than the
     attempts: whole blocks of BLOCK attempts and the idle attempt before
     the capture.  ``idle_attempt_ms`` (phase controller's LR Temp f64
@@ -2259,10 +2459,18 @@ def phase_app(dev, idle_attempt_ms=None):
                 "compensated": "delta_comp"}.get(key)
         device_loop = key in ("plain", "compensated", "f64")
         if key == "f64":
+            # the float64 stage kernel's route: five fused_stage launches
+            # an attempt, then the float64 control and commit kernels
             got = res["launches"]
             m = got["commit_f64"]
             others = {k: c for k, c in got.items()
-                      if c and k not in ("merson_control_f64", "commit_f64")}
+                      if c and k not in ("merson_control_f64", "commit_f64",
+                                         "fused_stage")}
+            if got["fused_stage"] != 5 * m:
+                others["fused_stage"] = got["fused_stage"]
+            if "Float64 stage kernel: ON" not in res["log"]:
+                raise AssertionError("f64 golden: the float64 stage kernel "
+                                     "is not logged")
             idle = m - n
             emit("app_launches", golden=key, attempts=n,
                  attempt_launches=m, idle_attempts=idle,
@@ -2303,6 +2511,9 @@ def phase_app(dev, idle_attempt_ms=None):
         runs[key] = res
     for key in ("plain", "f64"):
         a, b = runs[key], runs[key + "_host"]
+        # on the f64 golden the device loop runs the float64 stage kernel
+        # and the host loop the plain right-hand side: at LR Temp the
+        # kernel's correctly rounded operations give PyTorch's bits
         same = dict(counts=(a["steps"], a["attempts"]) == (b["steps"],
                                                            b["attempts"]),
                     rk_log_lines=a["rk"] == b["rk"],
@@ -2320,7 +2531,10 @@ def phase_app(dev, idle_attempt_ms=None):
     launches["delta_g_dy"] = runs["compensated"]["launches"]["delta_g_dy"]
     for k in ("merson_control_f64", "commit_f64"):
         launches[k] = runs["f64"]["launches"][k]
-    return launches, runs["f64"]
+    launches["fused_stage_f64"] = runs["f64"]["launches"]["fused_stage"]
+    # the plain right-hand side's f64 golden (the host loop's), which the
+    # halo path at z3 equals bit for bit
+    return launches, runs["f64_host"]
 
 
 # --------------------------------------------------------------------------
@@ -3125,8 +3339,9 @@ def _temp_golden_z3(dev, single=None) -> dict:
     plain right-hand side with halo copies, through the app's chunked
     device loop (PlainAttempt on the shards; the float64 control and
     commit kernels in whole blocks, one commit for all shards); the counts
-    and snapshot bytes of the single-device run ``single`` (phase app's
-    record), or without it the counts TEMP_DEVICE_COUNTS."""
+    and snapshot bytes of the single-device plain right-hand side's run
+    ``single`` (phase app's host-loop record), or without it the counts
+    TEMP_DEVICE_COUNTS."""
     from porousfreezethaw_tpu_torch.apps.intertrack import run_iteration
     from porousfreezethaw_tpu_torch.config import parse_param_file
     from porousfreezethaw_tpu_torch.io.rklog import RunLog
@@ -3241,7 +3456,8 @@ def phase_mesh(dev, temp_f64=None):
     the single-device ones bit for bit, each mesh path through the device
     loop and the host loop at MR (the kernel paths) and MR and LR (the
     plain halo path), the LR Temp golden at z3 on the halo device loop
-    against ``temp_f64`` (phase app's run), the LR golden at z4 and the
+    against ``temp_f64`` (phase app's host-loop run of the plain
+    right-hand side), the LR golden at z4 and the
     bench's mesh rows on the device loop.  Returns the kernel summary rows
     of K1s, K3, K2s and K2s-dy and their main-path launches."""
     from porousfreezethaw_tpu_torch.core.grid import GridGeometry
@@ -3345,10 +3561,10 @@ def _device_time(prof):
     run; (0, 0, []) when it recorded no device time."""
     rows = []
     for e in prof.key_averages():
-        # the program's spans (core/tracing.py) carry the device time of
-        # the kernels inside them
+        # the program's spans (core/tracing.py) and the profiler's steps
+        # (_profiled) carry the device time of the kernels inside them
         if (e.device_type != torch.autograd.DeviceType.CUDA
-                or e.key.startswith("pft.")):
+                or e.key.startswith(("pft.", "ProfilerStep"))):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -4048,8 +4264,8 @@ def _hr_bench_row(dev, label, fused, dtype, mode, steps, runs,
             "delta_comp": "delta_comp", "stage": "stage",
             "fused_attempt": "fused_attempt"}.get(label)
     graph = _graph_attempts(calls, 1)
-    want = ({"merson_control_f64": graph, "commit_f64": graph}
-            if path is None else _want_launches(path, graph, True))
+    want = (_want_f64(graph) if path is None
+            else _want_launches(path, graph, True))
     recs = []
     try:
         _release()

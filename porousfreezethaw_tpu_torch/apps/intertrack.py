@@ -44,7 +44,9 @@ and commit are kernels), the counterpart of the JAX app's accelerator
 branch: the f32 kernel paths (increment form, compensated or not, and the
 classic stage) and the plain right-hand side of f64 and of f32 with a
 noise field (``models/freezing/attempt.py`` ``PlainAttempt``, its stage
-times read from the control block), on one device or on a mesh whose
+times read from the control block; the single-device f64 path without
+noise runs the float64 stage kernel there, logged "Float64 stage kernel:
+ON"), on one device or on a mesh whose
 shards share one device (the sharded attempts of ``parallel/fused.py``,
 and ``PlainAttempt`` over the halo right-hand side).  The
 solve goes in chunks of ``PFT_SERVICE_CHUNK`` attempts (a positive
@@ -82,7 +84,7 @@ from ..core.grid import GridGeometry
 from ..io.rklog import RKDebugLog, RunLog, format_date, format_time
 from ..io.snapshots import (
     load_checkpoint, write_snapshot, write_snapshot_sharded)
-from ..models.freezing.attempt import PlainAttempt
+from ..models.freezing.attempt import STAGE_KERNEL, PlainAttempt
 from ..models.freezing.equation import make_noise_field, make_rhs
 from ..models.freezing.glass import build_glass_field, read_ball_positions
 from ..models.freezing.icond import build_initial_conditions
@@ -352,6 +354,8 @@ def run_iteration(
         # the device loop's attempt only: attempt_fn stays None, which
         # keys the f32 noise path's growth rule below
         dev_attempt = PlainAttempt(rhs, geom.shape, dtype)
+        if dev_attempt.route == STAGE_KERNEL:
+            log("Float64 stage kernel: ON (%s)\n", device.type)
     y0 = (shard_freezing_state(y0, mesh) if mesh is not None
           else y0.to(device))
 

@@ -11,8 +11,9 @@
 //                    accept flag on the device;
 //   fused_stage.cu, fused_attempt.cu, delta_g.cu
 //                    the _dev entries of the stage kernels, which read
-//                    (t_s, h) or (h, D1, dDi) of their stage from here and
-//                    return at once once the loop has halted;
+//                    (t_s, h) or (h, D1, dDi) of their stage from here
+//                    (the float64 stage entry: ts64 and hs) and return at
+//                    once once the loop has halted;
 //   ops/cuda/control.py RHSAttempt
 //                    the plain PyTorch stages of the DEM and of the
 //                    freezing f64 and noise paths, which read the float64
@@ -63,22 +64,26 @@ struct Control {
     float dD[5];
 };
 
-// The stage a _dev entry computes (0-4) and its coefficients c_a, from
-// which it forms h*c_a in float32 as the host forms them for the by-value
-// entries.
-struct DevStage {
+// The stage a _dev entry computes (0-4) and its coefficients c_a in the
+// field's width T: in float32 the c_a from which it forms h*c_a as the host
+// forms them for the by-value entries; in float64 the c_a of the sums of
+// merson_stages (stage.cuh stage_scalars).
+template <class T>
+struct DevStageT {
     const Control* ctl;
-    float coef[3];
+    T coef[3];
     int stage;
 };
+using DevStage = DevStageT<float>;
 
 // The DevStage of a _dev entry's launch: its nk coefficients coefs (host
 // memory), 0 past them.
-inline DevStage dev_stage(const void* ctl, int stage, int nk,
-                          const float* coefs) {
-    return DevStage{static_cast<const Control*>(ctl),
-                    {nk > 0 ? coefs[0] : 0.0f, nk > 1 ? coefs[1] : 0.0f,
-                     nk > 2 ? coefs[2] : 0.0f}, stage};
+template <class T>
+inline DevStageT<T> dev_stage(const void* ctl, int stage, int nk,
+                              const T* coefs) {
+    return DevStageT<T>{static_cast<const Control*>(ctl),
+                        {nk > 0 ? coefs[0] : T(0), nk > 1 ? coefs[1] : T(0),
+                         nk > 2 ? coefs[2] : T(0)}, stage};
 }
 
 }  // namespace pft

@@ -4,8 +4,9 @@
 // NaN-propagating block max.  How a block's planes reach shared memory and
 // how a launch's grid is sized is the tile engine of tile.cuh.
 //
-// Layout: every field is a contiguous float32 array (nv, Z, Y, X) with x
-// fastest; plane = Y*X, variable stride = Z*Y*X.  Mirror boundaries are
+// Layout: every field is a contiguous array (nv, Z, Y, X) of the field's
+// width T (float32; float64 for the stage kernel's float64 _dev entry) with
+// x fastest; plane = Y*X, variable stride = Z*Y*X.  Mirror boundaries are
 // clamped indices; the temperature's z-top neighbour is a Dirichlet ghost.
 #pragma once
 
@@ -15,26 +16,30 @@
 namespace pft {
 
 // Constants computed in float64 on the host (ops/cuda/stencil.py,
-// StencilSpec.packed) and rounded once to float32.  The order of the fields
-// is the order of CONST_NAMES in stencil.py; pft_num_consts() lets the host
-// check the count.
-struct Consts {
-    float h1_2, h2_2, h3_2;        // (1/h_i)^2
-    float h1d2, h2d2, h3d2;        // 0.5/h_i
-    float u_star, L, alpha, zeta;
-    float glass_rho, ice_rho, water_rho;
-    float glass_cp, ice_cp, water_cp;
-    float glass_lambda, ice_lambda, water_lambda;
-    float lam_p_slope, rho_p_slope, cp_p_slope;   // ice - water
-    float A;                       // a / xi^2
-    float B;                       // b * alpha * mu          (GradP)
-    float C;                       // b sqrt(a/2)/xi * alpha * mu (SigmaP1-P)
-    float p_eps0, p_eps1, eps2_3, eps3_2;
-    float gamma, neg_half_gamma;   // gamma, -0.5*gamma
-    float eps_reg;                 // |grad p| regularisation (1e-10)
-    float top_temp1, top_temp2, phase_switch_time;
+// StencilSpec.packed) in the field's width T: rounded once to float32, or
+// kept in float64.  The order of the fields is the order of CONST_NAMES in
+// stencil.py; pft_num_consts() lets the host check the count.
+template <class T>
+struct ConstsT {
+    T h1_2, h2_2, h3_2;            // (1/h_i)^2
+    T h1d2, h2d2, h3d2;            // 0.5/h_i
+    T u_star, L, alpha, zeta;
+    T glass_rho, ice_rho, water_rho;
+    T glass_cp, ice_cp, water_cp;
+    T glass_lambda, ice_lambda, water_lambda;
+    T lam_p_slope, rho_p_slope, cp_p_slope;       // ice - water
+    T A;                           // a / xi^2
+    T B;                           // b * alpha * mu          (GradP)
+    T C;                           // b sqrt(a/2)/xi * alpha * mu (SigmaP1-P)
+    T p_eps0, p_eps1, eps2_3, eps3_2;
+    T gamma, neg_half_gamma;       // gamma, -0.5*gamma
+    T eps_reg;                     // |grad p| regularisation (1e-10)
+    T top_temp1, top_temp2, phase_switch_time;
 };
+using Consts = ConstsT<float>;
 constexpr int NUM_CONSTS = sizeof(Consts) / sizeof(float);
+static_assert(sizeof(ConstsT<double>) == NUM_CONSTS * sizeof(double),
+              "bad constants");
 
 // calc_mode values (models/freezing/equation.py CalcMode)
 constexpr int GRADP = 0, SIGMAP = 1, TEMP = 2;
@@ -42,33 +47,69 @@ constexpr int GRADP_FROZEN_U = 10, SIGMAP_FROZEN_U = 11;
 
 // max that propagates NaN from either side, as jnp.maximum / torch.maximum
 // do (fmaxf drops a NaN operand)
-__device__ __forceinline__ float nan_max(float a, float b) {
+template <class T>
+__device__ __forceinline__ T nan_max(T a, T b) {
     return (a > b || a != a) ? a : b;
 }
 
-__device__ __forceinline__ float blend(float p, float gl, float glass,
-                                       float ice, float water) {
-    return gl * glass + (1.0f - gl) * (p * ice + (1.0f - p) * water);
+// exp, sqrt and abs in the width of their argument: the float32 functions
+// for float, the float64 ones (IEEE sqrt; exp within an ulp) for double
+__device__ __forceinline__ float exp_t(float x) { return expf(x); }
+__device__ __forceinline__ double exp_t(double x) { return exp(x); }
+__device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
+__device__ __forceinline__ float abs_t(float x) { return fabsf(x); }
+__device__ __forceinline__ double abs_t(double x) { return fabs(x); }
+
+// +, - and * in the field's width.  float32: the plain operators, which
+// nvcc may contract into multiply-adds (the float32 kernels' rounding);
+// float64: each operation rounded on its own (__dadd_rn, __dsub_rn and
+// __dmul_rn are never contracted), as make_rhs's are, so that every
+// operation of the float64 stage is correctly rounded in make_rhs's
+// association.  Division and sqrt are IEEE in both.
+template <class T>
+__device__ __forceinline__ T add_t(T a, T b) {
+    if constexpr (sizeof(T) == 4) return a + b; else return __dadd_rn(a, b);
+}
+template <class T>
+__device__ __forceinline__ T sub_t(T a, T b) {
+    if constexpr (sizeof(T) == 4) return a - b; else return __dsub_rn(a, b);
+}
+template <class T>
+__device__ __forceinline__ T mul_t(T a, T b) {
+    if constexpr (sizeof(T) == 4) return a * b; else return __dmul_rn(a, b);
 }
 
-__device__ __forceinline__ float rho(const Consts& c, float p, float gl) {
+template <class T>
+__device__ __forceinline__ T blend(T p, T gl, T glass, T ice, T water) {
+    return add_t(mul_t(gl, glass),
+                 mul_t(sub_t(T(1), gl),
+                       add_t(mul_t(p, ice), mul_t(sub_t(T(1), p), water))));
+}
+
+template <class T>
+__device__ __forceinline__ T rho(const ConstsT<T>& c, T p, T gl) {
     return blend(p, gl, c.glass_rho, c.ice_rho, c.water_rho);
 }
-__device__ __forceinline__ float cp(const Consts& c, float p, float gl) {
+template <class T>
+__device__ __forceinline__ T cp(const ConstsT<T>& c, T p, T gl) {
     return blend(p, gl, c.glass_cp, c.ice_cp, c.water_cp);
 }
-__device__ __forceinline__ float lam(const Consts& c, float p, float gl) {
+template <class T>
+__device__ __forceinline__ T lam(const ConstsT<T>& c, T p, T gl) {
     return blend(p, gl, c.glass_lambda, c.ice_lambda, c.water_lambda);
 }
 
-__device__ __forceinline__ float water_indicator(const Consts& c, float gl) {
-    return nan_max(1.0f - c.zeta * gl, 0.0f);
+template <class T>
+__device__ __forceinline__ T water_indicator(const ConstsT<T>& c, T gl) {
+    return nan_max(sub_t(T(1), mul_t(c.zeta, gl)), T(0));
 }
 
-__device__ __forceinline__ float sshape(const Consts& c, float x) {
-    float xs = x - c.p_eps0;
-    float mid = xs * xs * (c.eps2_3 - c.eps3_2 * xs);
-    return x <= c.p_eps0 ? 0.0f : (x >= c.p_eps1 ? 1.0f : mid);
+template <class T>
+__device__ __forceinline__ T sshape(const ConstsT<T>& c, T x) {
+    T xs = sub_t(x, c.p_eps0);
+    T mid = mul_t(mul_t(xs, xs), sub_t(c.eps2_3, mul_t(c.eps3_2, xs)));
+    return x <= c.p_eps0 ? T(0) : (x >= c.p_eps1 ? T(1) : mid);
 }
 
 // The shape of a launch's input planes.
@@ -117,16 +158,16 @@ inline int shard_check(const ShardArgs& s, int Z, int Y) {
 
 // NaN-propagating max over the block of THREADS threads (a multiple of 32);
 // thread 0 writes it to out[block].
-template <int THREADS>
-__device__ __forceinline__ void block_max_store(float m, float* out) {
-    __shared__ float warp_max[THREADS / 32];
+template <int THREADS, class T>
+__device__ __forceinline__ void block_max_store(T m, T* out) {
+    __shared__ T warp_max[THREADS / 32];
     for (int off = 16; off > 0; off >>= 1)
         m = nan_max(m, __shfl_down_sync(0xffffffffu, m, off));
     int tid = threadIdx.y * blockDim.x + threadIdx.x;
     if ((tid & 31) == 0) warp_max[tid >> 5] = m;
     __syncthreads();
     if (tid == 0) {
-        float r = warp_max[0];
+        T r = warp_max[0];
         for (int i = 1; i < THREADS / 32; ++i) r = nan_max(r, warp_max[i]);
         int64_t b = ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x
                     + blockIdx.x;

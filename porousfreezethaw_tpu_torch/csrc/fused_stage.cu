@@ -37,6 +37,37 @@
 // point that does not scale with the bytes dominates: about 2.1x a tensor
 // copy of its bytes on the H100 (stage.cuh, PERF.md).  K3's edge pass, two
 // planes, takes about twice one launch's floor.
+//
+// The float64 instantiation (T = double: pft_fused_stage_dev64, the _dev
+// entry alone) replaces no Pallas kernel: it is the f64 path's attempt,
+// which the JAX package and, before it, the port computed with the plain
+// right-hand side (models/freezing/equation.py make_rhs over
+// solvers/merson.py merson_stages: about 190 PyTorch kernels a stage, each
+// a pass over the fields in device memory).  It runs that right-hand side's
+// arithmetic in float64 throughout (stage.cuh): constants kept in float64
+// on the host, the float64 stage time and scale of the control block, the
+// top decided on the float64 t_s, float64 eps partials (the control
+// kernel's eps_f64).  What bounds it: the bytes, 5, 7, 9, 9 and 11 double
+// planes for the five stages, 656 MB an attempt at MR, 0.196 ms at 3.35
+// TB/s; and near them the FP64 pipe: about 160 operations a point with 3
+// IEEE divisions and a square root, each a sequence of some 10 FP64
+// instructions, about 0.1-0.15 ms an attempt at MR at 34 TFLOP/s.  The
+// design targets the bytes; the FP64 work per point is make_rhs's own,
+// each +, - and * rounded on its own (no multiply-adds, a few more FP64
+// instructions), so that each operation of the f64 path is correctly
+// rounded in make_rhs's association; its step sequence is sensitive to
+// the last bits:
+//
+// * the tile engine in double: a raw row of 54 doubles, copies of 16 bytes
+//   (2 doubles; 1 where a row is not 16-byte aligned), the ring of 4 planes
+//   and the two assembled planes sized from sizeof(T): 216.6 KB of shared
+//   memory at nk = 3, within the 227 KB of one block;
+// * one block of 512 threads an SM (BLOCKS_PER_SM_T), so that a thread has
+//   128 registers for values held in register pairs; each block keeps two
+//   planes of copies in flight (93 KB at nk = 3), more than the bytes in
+//   flight that an SM needs to draw its share of the card's bandwidth;
+// * the grid in whole waves of the card's 132 resident blocks, as in
+//   float32, and the blocks of an idle attempt return at once on halt.
 #include "stage.cuh"
 
 namespace pft {
@@ -44,13 +75,14 @@ namespace pft {
 // TAIL: 0 = K, 1 = the stage-5 tail (y_spec and eps); the tail takes
 // NK = 3 (K1, K3, K4).  DEV: the _dev entry, whose scalars come from the
 // control block d.ctl and which returns at once once the loop has halted.
-template <int MODE, int NK, int TAIL, bool DEV>
-__global__ void __launch_bounds__(TILE_THREADS, BLOCKS_PER_SM)
-fused_stage_kernel(const Consts c, const StageArgs a, const ShardArgs s,
-                   const DevStage d) {
+// T: the field's width, float, or double for the _dev entry alone.
+template <int MODE, int NK, int TAIL, bool DEV, class T>
+__global__ void __launch_bounds__(TILE_THREADS, BLOCKS_PER_SM_T<T>)
+fused_stage_kernel(const ConstsT<T> c, const StageArgsT<T> a,
+                   const ShardArgs s, const DevStageT<T> d) {
     if constexpr (DEV) {
         if (d.ctl->halt) return;
-        StageArgs b = a;
+        StageArgsT<T> b = a;
         stage_scalars(b, d);
         stage_body<MODE, NK, TAIL == 1>(c, b, s);
     } else {
@@ -61,13 +93,14 @@ fused_stage_kernel(const Consts c, const StageArgs a, const ShardArgs s,
 // Computes the grid of a launch; with out, only stores it there, else
 // launches, when a tail's grid has no more blocks than eps has slots (as
 // many, for a _dev tail: the control kernel reduces every slot).
-template <int MODE, int NK, int TAIL, bool DEV>
-static int launch_as(const Consts& c, StageArgs a, const ShardArgs& sa,
-                     const DevStage& d, cudaStream_t s, TileGrid* out) {
+template <int MODE, int NK, int TAIL, bool DEV, class T>
+static int launch_as(const ConstsT<T>& c, StageArgsT<T> a,
+                     const ShardArgs& sa, const DevStageT<T>& d,
+                     cudaStream_t s, TileGrid* out) {
     static int resident[MAX_DEVICES] = {};      // blocks on the card
     int cap = 0;
-    const int rc = resident_blocks(fused_stage_kernel<MODE, NK, TAIL, DEV>,
-                                   stage_smem_bytes(NK), resident, cap);
+    const int rc = resident_blocks(fused_stage_kernel<MODE, NK, TAIL, DEV, T>,
+                                   stage_smem_bytes<T>(NK), resident, cap);
     if (rc) return rc;
     const TileGrid sg = stage_grid(cap, sa.part, a.g.Z, sa.Yl, a.g.X);
     if (out) {
@@ -78,23 +111,30 @@ static int launch_as(const Consts& c, StageArgs a, const ShardArgs& sa,
     if (TAIL && (blocks > a.eps_n || (DEV && blocks != a.eps_n)))
         return 1012;
     a.tz = sg.tz;
-    fused_stage_kernel<MODE, NK, TAIL, DEV><<<sg.grid, TILE_THREADS,
-                                              stage_smem_bytes(NK), s>>>(
-        c, a, sa, d);
+    fused_stage_kernel<MODE, NK, TAIL, DEV, T><<<sg.grid, TILE_THREADS,
+                                                 stage_smem_bytes<T>(NK),
+                                                 s>>>(c, a, sa, d);
     return (int)cudaGetLastError();
 }
 
-template <int MODE, int NK, int TAIL>
-static int launch_kernel(const Consts& c, const StageArgs& a,
-                         const ShardArgs& sa, const DevStage* d,
+// The float32 kernel has both entries; the float64 one the _dev entry
+// alone (1014 without a DevStage)
+template <int MODE, int NK, int TAIL, class T>
+static int launch_kernel(const ConstsT<T>& c, const StageArgsT<T>& a,
+                         const ShardArgs& sa, const DevStageT<T>* d,
                          cudaStream_t s, TileGrid* out) {
-    return d ? launch_as<MODE, NK, TAIL, true>(c, a, sa, *d, s, out)
-             : launch_as<MODE, NK, TAIL, false>(c, a, sa, DevStage{}, s, out);
+    if constexpr (sizeof(T) == 8)
+        return d ? launch_as<MODE, NK, TAIL, true>(c, a, sa, *d, s, out)
+                 : 1014;
+    else
+        return d ? launch_as<MODE, NK, TAIL, true>(c, a, sa, *d, s, out)
+                 : launch_as<MODE, NK, TAIL, false>(c, a, sa, DevStageT<T>{},
+                                                    s, out);
 }
 
-template <int MODE>
-static int launch_mode(const Consts& c, const StageArgs& a,
-                       const ShardArgs& sa, const DevStage* d, int nk,
+template <int MODE, class T>
+static int launch_mode(const ConstsT<T>& c, const StageArgsT<T>& a,
+                       const ShardArgs& sa, const DevStageT<T>* d, int nk,
                        int tail, cudaStream_t s, TileGrid* out) {
     if (tail) return launch_kernel<MODE, 3, 1>(c, a, sa, d, s, out);
     if (nk == 0) return launch_kernel<MODE, 0, 0>(c, a, sa, d, s, out);
@@ -103,9 +143,11 @@ static int launch_mode(const Consts& c, const StageArgs& a,
     return launch_kernel<MODE, 3, 0>(c, a, sa, d, s, out);
 }
 
-static int launch(const Consts& c, const StageArgs& a, const ShardArgs& sa,
-                  int mode, int nk, int tail, cudaStream_t s,
-                  TileGrid* out = nullptr, const DevStage* d = nullptr) {
+template <class T>
+static int launch(const ConstsT<T>& c, const StageArgsT<T>& a,
+                  const ShardArgs& sa, int mode, int nk, int tail,
+                  cudaStream_t s, TileGrid* out = nullptr,
+                  const DevStageT<T>* d = nullptr) {
     switch (mode) {
         case GRADP:
             return launch_mode<GRADP>(c, a, sa, d, nk, tail, s, out);
@@ -226,6 +268,28 @@ int pft_fused_stage_shard_dev(const float* consts, int mode, int nk,
                   stage5, static_cast<cudaStream_t>(stream), nullptr, &d);
 }
 
+// The float64 _dev entry: pft_fused_stage_dev on float64 planes, its
+// constants (consts) and the c_a (coefs) float64 host arrays.  Stage
+// `stage` reads the float64 stage time and scale of the control block
+// (stage.cuh stage_scalars) and forms aux = w + (sum_a c_a K_a) s, so the
+// c_a are those of merson_stages' sums: (1), (1, 1), (1, 3), (0.5, -1.5,
+// 2) for stages 1-4.  Returns as pft_fused_stage_dev.
+int pft_fused_stage_dev64(const double* consts, int mode, int nk, int stage5,
+                          const void* ctl, int stage, const double* coefs,
+                          const double* w, const double* k0, const double* k1,
+                          const double* k2, double* out, double* eps, int Z,
+                          int Y, int X, void* stream, long long eps_n) {
+    StageArgsT<double> a;
+    int bad = stage_args(a, nk, stage5, 0.0, 0.0, coefs, w, k0, k1, k2, out,
+                         eps, eps_n, Z, Y, X);
+    if (bad) return bad;
+    if (!ctl || stage < 0 || stage > 4) return 1013;
+    const DevStageT<double> d = dev_stage(ctl, stage, nk, coefs);
+    return launch(*reinterpret_cast<const ConstsT<double>*>(consts), a,
+                  whole_grid(Y), mode, nk, stage5,
+                  static_cast<cudaStream_t>(stream), nullptr, &d);
+}
+
 // eps partial slots of a stage-5 launch of either entry over part (0 all,
 // 1 interior, 2 edge) of Z planes and Yl own rows on the current device:
 // the blocks of its grid; -1 for bad arguments or a failed query.
@@ -239,6 +303,19 @@ long long pft_stage_eps_blocks(int mode, int part, int Z, int Yl, int X) {
     sa.part = part;
     TileGrid sg;
     if (launch(Consts{}, a, sa, mode, 3, 1, nullptr, &sg)) return -1;
+    return (long long)sg.grid.x * sg.grid.y * sg.grid.z;
+}
+
+// ... of pft_fused_stage_dev64's stage-5 launch over Z, Y, X
+long long pft_stage_eps_blocks64(int mode, int Z, int Y, int X) {
+    if (Z < 1 || Y < 1 || X < 1) return -1;
+    StageArgsT<double> a{};
+    a.g = Grid{Z, Y, X};
+    const DevStageT<double> d{};
+    TileGrid sg;
+    if (launch(ConstsT<double>{}, a, whole_grid(Y), mode, 3, 1, nullptr, &sg,
+               &d))
+        return -1;
     return (long long)sg.grid.x * sg.grid.y * sg.grid.z;
 }
 

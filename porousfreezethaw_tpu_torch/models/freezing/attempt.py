@@ -1,6 +1,18 @@
 """The plain-RHS freezing attempt on the device protocol of the
 device-resident loop (``solvers/merson.py merson_solve_device``).
 
+On the card, the f64 path's attempt runs the float64 stage kernel: where
+the right-hand side is the single-device float64 ``make_rhs`` with no
+noise field and its grid's own spacing, and the loop runs kernels
+(``stage_route``), ``PlainAttempt`` hands its loop to a float64
+``StageAttempt`` (``ops/cuda/stencil.py``), whose five ``fused_stage``
+launches compute ``merson_stages``' stages over that right-hand side,
+each operation correctly rounded (csrc/stage.cuh); the control and
+commit kernels follow
+in float64, 7 launches an attempt.  ``route`` says which: "stage_kernel"
+or "plain_rhs".  Every other ``PlainAttempt`` (the f32 noise path, a
+mesh, a loop on the CPU) runs the plain right-hand side as below.
+
 The counterpart of the JAX app's jitted, chunked ``merson_solve(rhs, ...)``
 over ``make_rhs`` (``porousfreezethaw_tpu/apps/intertrack.py:352-409``,
 the loop body ``porousfreezethaw_tpu/solvers/merson.py:258-266``): the
@@ -34,7 +46,23 @@ import torch
 
 from ...core import tracing
 from ...ops.cuda.control import RHSAttempt
+from ...ops.cuda.stencil import StageAttempt
 from ...parallel.sharding import shard_block
+
+STAGE_KERNEL, PLAIN_RHS = "stage_kernel", "plain_rhs"
+
+
+def stage_route(rhs, shape, dtype: torch.dtype, mesh, kernel: bool) -> bool:
+    """Whether ``PlainAttempt(rhs, shape, dtype, mesh)`` runs the float64
+    stage kernel on a loop that runs kernels (``kernel``): a float64 state
+    without a mesh, and ``rhs`` the single-device ``make_rhs`` of the grid
+    of ``shape`` (its ``built`` record) with no noise field and the grid's
+    own spacing."""
+    built = getattr(rhs, "built", None)
+    return (kernel and dtype == torch.float64 and mesh is None
+            and built is not None and built.noise is None
+            and built.own_spacing
+            and tuple(int(n) for n in shape) == built.geom.shape)
 
 
 class PlainAttempt(RHSAttempt):
@@ -44,7 +72,10 @@ class PlainAttempt(RHSAttempt):
     shard, the NaN-propagating max of the error over it.  Without
     ``mesh`` ``rhs`` is the single-device ``make_rhs`` and the state one
     (3, n3, n2, n1) tensor; with it, ``make_halo_rhs`` over ``mesh`` and
-    the state the list of the shards of ``shard_freezing_state``."""
+    the state the list of the shards of ``shard_freezing_state``.  On the
+    stage-kernel route (``route``; the module docstring) its device loop
+    is that of a float64 ``StageAttempt`` of ``rhs``'s grid, parameters
+    and calc mode."""
 
     @tracing.span("pft.setup.attempt", cls="PlainAttempt")
     def __init__(self, rhs, shape: Tuple[int, int, int],
@@ -57,6 +88,24 @@ class PlainAttempt(RHSAttempt):
             for zs, ys in (shard_block(mesh, i, grid)
                            for i in range(mesh.size))]
         self.dtype = dtype
+        # the loop of this object runs kernels on the device of its
+        # right-hand side (control.py DeviceLoop)
+        built = getattr(rhs, "built", None)
+        kernel = (built is not None and built.device.type == "cuda"
+                  and not self.plain)
+        self._stage = None
+        if stage_route(rhs, grid, dtype, mesh, kernel):
+            self._stage = StageAttempt(built.geom, built.params,
+                                       built.calc_mode, dtype=dtype)
+        self.route = PLAIN_RHS if self._stage is None else STAGE_KERNEL
+        tracing.annotate(route=self.route)
+
+    def device_loop(self, device: torch.device):
+        """The loop of this object on ``device``: on the stage-kernel
+        route, its ``StageAttempt``'s."""
+        if self._stage is not None:
+            return self._stage.device_loop(device)
+        return super().device_loop(device)
 
     def _dev_alloc(self, device: torch.device, kernel: bool) -> dict:
         if self.mesh is not None and any(d != device for d in

@@ -24,7 +24,7 @@ Models (selected by ``calc_mode``, equation.c:536-555, Params:115-122):
 from __future__ import annotations
 
 import enum
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -99,6 +99,24 @@ class DirichletTop:
         return torch.where(t.to(self.device, dtype) < switch, top1, top2)
 
 
+class RHSBuild(NamedTuple):
+    """What a ``make_rhs`` right-hand side was built from (its ``built``
+    attribute): ``inv_h`` the spacing it uses, ``geom.inv_h`` unless
+    overridden."""
+
+    geom: GridGeometry
+    params: FreezingParams
+    calc_mode: CalcMode
+    device: torch.device
+    noise: Optional[np.ndarray]
+    inv_h: Tuple[float, float, float]
+
+    @property
+    def own_spacing(self) -> bool:
+        """Whether the spacing is the grid's own."""
+        return tuple(self.inv_h) == tuple(self.geom.inv_h)
+
+
 @tracing.span("pft.setup.attempt", cls="make_rhs")
 def make_rhs(geom: GridGeometry, params: FreezingParams, calc_mode: int,
              device: torch.device | str,
@@ -114,7 +132,8 @@ def make_rhs(geom: GridGeometry, params: FreezingParams, calc_mode: int,
     ``device`` here; None means no noise (the shipped Params uses
     u_noise_amp = 0).  ``inv_h`` overrides ``geom.inv_h``: a block of a
     larger grid (``parallel/halo.py``) keeps that grid's spacing bit for
-    bit."""
+    bit.  The returned function records its inputs in ``rhs.built``
+    (``RHSBuild``)."""
     mode = CalcMode(calc_mode)
     p_ = params
     device = torch.device(device)
@@ -123,7 +142,8 @@ def make_rhs(geom: GridGeometry, params: FreezingParams, calc_mode: int,
                else torch.as_tensor(np.asarray(noise), device=device))
     top_of = DirichletTop(p_, device)
 
-    inv_h1, inv_h2, inv_h3 = geom.inv_h if inv_h is None else inv_h
+    inv_h = tuple(geom.inv_h if inv_h is None else inv_h)
+    inv_h1, inv_h2, inv_h3 = inv_h
     h1_2, h2_2, h3_2 = inv_h1**2, inv_h2**2, inv_h3**2
     h1d2, h2d2, h3d2 = 0.5 * inv_h1, 0.5 * inv_h2, 0.5 * inv_h3
 
@@ -194,6 +214,7 @@ def make_rhs(geom: GridGeometry, params: FreezingParams, calc_mode: int,
         dgl_dt = torch.zeros_like(gl)  # glass balls are static (equation.c:727-731)
         return torch.stack([du_dt, dp_dt, dgl_dt])
 
+    rhs.built = RHSBuild(geom, params, mode, device, noise, inv_h)
     return rhs
 
 

@@ -32,7 +32,8 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 LIB_NAME = "libpft_kernels.so"
 
 # sm_90a (Hopper with its architecture-specific features); IEEE division
-# and square root and no --use_fast_math: the kernels call expf/sqrtf.
+# and square root and no --use_fast_math: the kernels call expf/sqrtf (and
+# exp/sqrt in the stage kernel's float64 instantiation).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -142,6 +143,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pft_fused_attempt_dev.restype = ci
     lib.pft_delta_g_dev.argtypes = lib.pft_fused_stage_dev.argtypes
     lib.pft_delta_g_dev.restype = ci
+    # the float64 _dev entry of the stage kernel: the same arguments, its
+    # arrays float64
+    lib.pft_fused_stage_dev64.argtypes = lib.pft_fused_stage_dev.argtypes
+    lib.pft_fused_stage_dev64.restype = ci
     # the controller (control.cu): ctl, stream; ctl, mode, hi, lo, src,
     # cur, n, elem_bytes, stream; q, out, n, stream
     lib.pft_control_size.argtypes = []
@@ -170,6 +175,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     # (mode, Z, Y, X) and (mode, tail, Z, Yl, X)
     lib.pft_stage_eps_blocks.argtypes = [ci, ci, ci, ci, ci]
     lib.pft_stage_eps_blocks.restype = cll
+    # ... of the float64 stage tail: (mode, Z, Y, X)
+    lib.pft_stage_eps_blocks64.argtypes = [ci, ci, ci, ci]
+    lib.pft_stage_eps_blocks64.restype = cll
     lib.pft_attempt_eps_blocks.argtypes = [ci, ci, ci, ci]
     lib.pft_attempt_eps_blocks.restype = cll
     lib.pft_delta_eps_blocks.argtypes = [ci, ci, ci, ci, ci]

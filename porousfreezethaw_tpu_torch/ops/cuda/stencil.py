@@ -23,8 +23,9 @@ the f32 attempts, two of them with shard entries:
   planes from the z-neighbours and a y window; the stage's ``part``
   option splits a shard into the interior pass and the edge pass.
 
-Each wrapper checks device, dtype (float32), shapes and contiguity.  For a
-tensor on the CPU it computes with the kernel's plain PyTorch version
+Each wrapper checks device, dtype (float32; float64 for the float64
+``fused_stage`` spec), shapes and contiguity.  For a tensor on the CPU it
+computes with the kernel's plain PyTorch version
 (``*_plain``, the same arithmetic in the same association); for a CUDA
 tensor it launches the kernel or raises — it never falls back.  Each
 wrapper counts its kernel launches in a plain int attribute
@@ -50,6 +51,19 @@ kernel as float32 (the Dirichlet phase switch of the stage kernel is
 decided in float32), while the delta kernel's ghost values D1 and dDi come
 from the float64 t and are rounded once.  Material and grid constants are
 formed in float64 on the host and rounded once to float32.
+
+The ``fused_stage`` kernel also has a float64 instantiation, for its
+``_dev`` entry alone (``pft_fused_stage_dev64``): the f64 path's attempt
+(``StageAttempt`` with ``dtype=torch.float64``, which the freezing
+``PlainAttempt`` runs on the card).  Its spec
+(``StencilSpec.of(..., dtype=torch.float64)``) keeps the constants in
+float64, and its stages are those of ``merson_stages`` over ``make_rhs``,
+each operation correctly rounded: stage ``s`` reads the float64 stage
+time and scale of the control block (``STAGE64_TIME``,
+``STAGE64_SCALE``) and forms
+``aux = w + (sum_a c_a K_a) * scale`` from the c_a of ``merson_stages``'
+sums (``STAGE_COEFS[torch.float64]``); the tail ``y_spec = w + (0.5 (K1 +
+K5) + 2 K4) (h/3)``.  Its launches count under ``fused_stage.launches``.
 """
 
 from __future__ import annotations
@@ -74,7 +88,7 @@ from .control import (
 N_VARS = 3   # u, p, gl
 K_VARS = 2   # the dynamic variables: K and G arrays omit the static gl
 
-# float32 constants handed to the kernels, in the order of struct Consts
+# the constants handed to the kernels, in the order of struct ConstsT
 # (csrc/freezing.cuh)
 CONST_NAMES = (
     "h1_2", "h2_2", "h3_2", "h1d2", "h2d2", "h3d2",
@@ -93,7 +107,8 @@ CONST_NAMES = (
 @dataclasses.dataclass(frozen=True, eq=False)
 class StencilSpec:
     """Grid, parameters and model of one kernel configuration, with the
-    kernels' constants formed in float64 and rounded once to float32."""
+    kernels' constants formed in float64 and rounded once to the field's
+    width ``dtype`` (float32; float64 keeps them as formed)."""
 
     geom: GridGeometry
     params: FreezingParams
@@ -102,8 +117,10 @@ class StencilSpec:
     packed: np.ndarray
 
     @staticmethod
-    def of(geom: GridGeometry, params: FreezingParams,
-           calc_mode: int) -> "StencilSpec":
+    def of(geom: GridGeometry, params: FreezingParams, calc_mode: int,
+           dtype: torch.dtype = torch.float32) -> "StencilSpec":
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"StencilSpec: float32 or float64, got {dtype}")
         p, c = params, physics.Coeffs.of(params)
         inv_h1, inv_h2, inv_h3 = geom.inv_h
         vals = dict(
@@ -126,8 +143,14 @@ class StencilSpec:
             phase_switch_time=p.phase_switch_time,
         )
         packed = np.ascontiguousarray(
-            [vals[n] for n in CONST_NAMES], dtype=np.float32)
+            [vals[n] for n in CONST_NAMES],
+            dtype=np.float64 if dtype == torch.float64 else np.float32)
         return StencilSpec(geom, params, CalcMode(calc_mode), c, packed)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return (torch.float64 if self.packed.dtype == np.float64
+                else torch.float32)
 
     @property
     def state_shape(self) -> Tuple[int, int, int, int]:
@@ -139,6 +162,22 @@ class StencilSpec:
 
 
 Ks = Sequence[Tuple[float, torch.Tensor]]
+
+# The float64 stage s (0-4) of the control block: its stage time ts64[i]
+# (t, t + h/3, t + h/3, t + h/2, t + h) and its scale hs[j] (stages 1-4:
+# h/3, h/6, h/8, h; stage 0 takes no K input), as merson_stages reads them
+# (csrc/stage.cuh stage_scalars)
+STAGE64_TIME = (0, 1, 1, 2, 3)
+STAGE64_SCALE = (3, 0, 1, 2, 3)
+
+# The K inputs' coefficients of the five stages of a classic attempt:
+# float32, merson_solve's stage path (the kernel forms h*c_a); float64, the
+# c_a of merson_stages' sums, which the stage scales by hs[STAGE64_SCALE]
+STAGE_COEFS = {
+    torch.float32: ((), (1.0 / 3.0,), (1.0 / 6.0, 1.0 / 6.0),
+                    (1.0 / 8.0, 3.0 / 8.0), (0.5, -1.5, 2.0)),
+    torch.float64: ((), (1.0,), (1.0, 1.0), (1.0, 3.0), (0.5, -1.5, 2.0)),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -153,14 +192,28 @@ def _hc(h32: np.float32, c: float) -> float:
 def fused_stage_plain(spec: StencilSpec, t: float, h: float,
                       w: torch.Tensor, ks: Ks, stage5: bool = False):
     """Plain version of the ``fused_stage`` kernel (any device): the stage
-    combination, then ``make_rhs`` (whose association the kernel keeps),
-    with the Dirichlet top decided on ``t`` rounded to float32."""
-    h32 = np.float32(h)
-    aux_u, aux_p = w[0], w[1]
-    for c, K in ks:
-        hc = _hc(h32, c)
-        aux_u = aux_u + hc * K[0]
-        aux_p = aux_p + hc * K[1]
+    combination, then ``make_rhs`` (whose association the kernel keeps).
+    float32: ``aux = w + sum_a (h c_a) K_a`` with h*c_a formed in float32,
+    the Dirichlet top decided on ``t`` rounded to float32.  float64:
+    ``aux = w + (sum_a c_a K_a) h``, ``h`` the stage's scale
+    (``STAGE64_SCALE``: h/3, h/6, h/8 or h of the attempt), the top decided
+    on the float64 ``t``: ``merson_stages``' stage bit for bit."""
+    if spec.dtype == torch.float64:
+        aux = w[:K_VARS]
+        if ks:
+            c0, K0 = ks[0]
+            acc = c0 * K0
+            for c, K in ks[1:]:
+                acc = acc + c * K
+            aux = aux + acc * h
+        aux_u, aux_p = aux[0], aux[1]
+    else:
+        h32 = np.float32(h)
+        aux_u, aux_p = w[0], w[1]
+        for c, K in ks:
+            hc = _hc(h32, c)
+            aux_u = aux_u + hc * K[0]
+            aux_p = aux_p + hc * K[1]
     # the right-hand side without its set-up span: this runs per stage
     rhs = make_rhs.__wrapped__(spec.geom, spec.params, spec.mode, w.device)
     k_out = rhs(t, torch.stack([aux_u, aux_p, w[2]]))[:K_VARS]
@@ -171,12 +224,15 @@ def fused_stage_plain(spec: StencilSpec, t: float, h: float,
 
 def _stage5_tail(h: float, w: torch.Tensor, ks, k_out: torch.Tensor):
     """The classic Merson tail on K1, K3, K4 (``ks``) and K5 (``k_out``):
-    ``(y_spec, eps)``."""
-    h32 = np.float32(h)
+    ``(y_spec, eps)``, with h/3 formed in the field's width."""
     k1c, k3c, k4c = ks
     err = 0.2 * k1c - 0.9 * k3c + 0.8 * k4c - 0.1 * k_out
-    h3 = float(h32 / np.float32(3.0))
-    y_out = w[:K_VARS] + h3 * (0.5 * (k1c + k_out) + 2.0 * k4c)
+    if w.dtype == torch.float64:
+        h3 = h / 3
+        y_out = w[:K_VARS] + (0.5 * (k1c + k_out) + 2.0 * k4c) * h3
+    else:
+        h3 = float(np.float32(h) / np.float32(3.0))
+        y_out = w[:K_VARS] + h3 * (0.5 * (k1c + k_out) + 2.0 * k4c)
     return y_out, torch.amax(torch.abs(err)).reshape(1)
 
 
@@ -248,15 +304,16 @@ def _check(spec: StencilSpec, name: str, w: torch.Tensor, ks: Ks,
         raise ValueError(f"{name}: stage5 takes the 3-term combination")
     for t_, want in [(w, w_shape or spec.state_shape)] + [
             (K, k_shape or spec.k_shape) for _, K in ks]:
-        _check_tensor(name, t_, want, w.device)
+        _check_tensor(name, t_, want, w.device, spec.dtype)
 
 
-def _check_tensor(name: str, t_: torch.Tensor, shape, device) -> None:
+def _check_tensor(name: str, t_: torch.Tensor, shape, device,
+                  dtype: torch.dtype = torch.float32) -> None:
     if tuple(t_.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                          f"{tuple(t_.shape)}")
-    if t_.dtype != torch.float32:
-        raise TypeError(f"{name}: float32 only, got {t_.dtype}")
+    if t_.dtype != dtype:
+        raise TypeError(f"{name}: {dtype} only, got {t_.dtype}")
     if t_.device != device:
         raise ValueError(f"{name}: inputs on {t_.device} and {device}")
     if not t_.is_contiguous():
@@ -288,7 +345,7 @@ def _kernel_call(fn_name: str, spec: StencilSpec, scalars, state_ptrs,
     lib = _library()
     Z, Y, X = dims or spec.geom.shape
     nk = len(ks)
-    coefs = np.zeros(3, dtype=np.float32)
+    coefs = np.zeros(3, dtype=spec.packed.dtype)
     coefs[:nk] = [c for c, _ in ks]
     kptrs = [K.data_ptr() for _, K in ks] + [None] * (3 - nk)
     with torch.cuda.device(device):
@@ -324,7 +381,7 @@ def _eps(fn_name: str, device: torch.device, *args) -> torch.Tensor:
 
 
 def _k_out(spec: StencilSpec, device: torch.device) -> torch.Tensor:
-    return torch.empty(spec.k_shape, dtype=torch.float32, device=device)
+    return torch.empty(spec.k_shape, dtype=spec.dtype, device=device)
 
 
 def fused_stage(spec: StencilSpec, t: float, h: float, w: torch.Tensor,
@@ -334,6 +391,9 @@ def fused_stage(spec: StencilSpec, t: float, h: float, w: torch.Tensor,
     _check(spec, "fused_stage", w, ks, stage5, nk_min=0)
     if w.device.type == "cpu":
         return fused_stage_plain(spec, t, h, w, ks, stage5)
+    if spec.dtype != torch.float32:
+        raise ValueError("fused_stage: the float64 kernel has the _dev entry "
+                         "alone (fused_stage_dev)")
     scalars = (float(np.float32(t)), float(np.float32(h)))
     out = _k_out(spec, w.device)
     eps = (_eps("pft_stage_eps_blocks", w.device, int(spec.mode), 0,
@@ -435,9 +495,9 @@ def _check_dev(name: str, ctl: ControlBlock, stage: int, w: torch.Tensor,
     if not 0 <= stage <= 4:
         raise ValueError(f"{name}: stage must be 0-4, got {stage}")
     if out is not None:
-        _check_tensor(name, out, shape, w.device)
+        _check_tensor(name, out, shape, w.device, w.dtype)
     if eps is not None:
-        _check_tensor(name, eps, tuple(eps.shape), w.device)
+        _check_tensor(name, eps, tuple(eps.shape), w.device, w.dtype)
     if ctl.on_device and w.device != ctl.device:
         raise ValueError(f"{name}: inputs on {w.device}, control block on "
                          f"{ctl.device}")
@@ -447,16 +507,20 @@ def fused_stage_dev(spec: StencilSpec, ctl: ControlBlock, stage: int,
                     w: torch.Tensor, ks: Ks, out: torch.Tensor,
                     stage5: bool = False, eps=None) -> None:
     """The ``fused_stage`` kernel's _dev entry: K into ``out``, or with
-    ``stage5`` y_spec into ``out`` and the eps partials into ``eps``."""
+    ``stage5`` y_spec into ``out`` and the eps partials into ``eps``; for
+    a float64 ``spec`` the float64 kernel, whose stage reads the block's
+    float64 stage time and scale (``STAGE64_TIME``, ``STAGE64_SCALE``)."""
     _check(spec, "fused_stage_dev", w, ks, stage5, nk_min=0)
     _check_dev("fused_stage_dev", ctl, stage, w, out, spec.k_shape, eps)
+    wide = spec.dtype == torch.float64
     if not ctl.on_device:
         c = ctl.host
-        return _store(fused_stage_plain(spec, c.ts[stage], c.h32, w, ks,
-                                        stage5), out, eps)
-    _kernel_call("pft_fused_stage_dev", spec, (ctl.buf.data_ptr(), stage),
-                 (w.data_ptr(),), w.device, ks, int(stage5), out,
-                 eps=eps if stage5 else None)
+        t, h = ((c.ts64[STAGE64_TIME[stage]], c.hs[STAGE64_SCALE[stage]])
+                if wide else (c.ts[stage], c.h32))
+        return _store(fused_stage_plain(spec, t, h, w, ks, stage5), out, eps)
+    _kernel_call("pft_fused_stage_dev64" if wide else "pft_fused_stage_dev",
+                 spec, (ctl.buf.data_ptr(), stage), (w.data_ptr(),),
+                 w.device, ks, int(stage5), out, eps=eps if stage5 else None)
     fused_stage.launches += 1
 
 
@@ -914,7 +978,7 @@ def delta_ghost_values(t: float, h: float, prm: FreezingParams):
 
 
 def _kbuf(spec: StencilSpec, device: torch.device) -> torch.Tensor:
-    return torch.empty(spec.k_shape, dtype=torch.float32, device=device)
+    return torch.empty(spec.k_shape, dtype=spec.dtype, device=device)
 
 
 def eps_slots(kernel: bool, device: torch.device, fn_name: str,
@@ -925,32 +989,36 @@ def eps_slots(kernel: bool, device: torch.device, fn_name: str,
     return _eps_blocks(fn_name, device, *args) if kernel else 1
 
 
-def _eps_buf(kernel: bool, device: torch.device, fn_name: str, *args):
+def _eps_buf(kernel: bool, device: torch.device, fn_name: str, *args,
+             dtype: torch.dtype = torch.float32):
     """A tail's eps partials, ``eps_slots`` of them."""
     return torch.empty((eps_slots(kernel, device, fn_name, *args),),
-                       dtype=torch.float32, device=device)
+                       dtype=dtype, device=device)
 
 
 class _Attempt(DeviceAttempt):
-    """What the freezing attempt objects share: the kernels' spec, the
-    Dirichlet top for the control block and the state check."""
+    """What the freezing attempt objects share: the kernels' spec (in
+    ``dtype``), the Dirichlet top for the control block and the state
+    check."""
 
     @tracing.span("pft.setup.attempt")
     def __init__(self, geom: GridGeometry, params: FreezingParams,
-                 calc_mode: int, *, plain: bool = False):
+                 calc_mode: int, *, plain: bool = False,
+                 dtype: torch.dtype = torch.float32):
         tracing.annotate(cls=type(self).__name__)
         self.geom = geom
         self._prm = params
-        self._spec = StencilSpec.of(geom, params, calc_mode)
+        self._spec = StencilSpec.of(geom, params, calc_mode, dtype)
         self.plain = plain
         self.dirichlet = (params.top_temp1, params.top_temp2,
                           params.phase_switch_time)
 
     def _check_state(self, y: torch.Tensor, planes=(N_VARS,)) -> None:
         wants = [(n,) + self.geom.shape for n in planes]
-        if tuple(y.shape) not in wants or y.dtype != torch.float32:
+        dtype = self._spec.dtype
+        if tuple(y.shape) not in wants or y.dtype != dtype:
             raise ValueError(
-                f"{type(self).__name__} expects a float32 "
+                f"{type(self).__name__} expects a {dtype} "
                 f"{' or '.join(map(str, wants))} state, got {y.dtype} "
                 f"{tuple(y.shape)}")
 
@@ -1191,15 +1259,25 @@ class StageAttempt(_Attempt):
     y_spec copied into (u, p) of the state by the ``commit`` kernel.  The
     device loop through it equals the host loop through the stage_fn bit
     for bit.  ``plain=True`` computes with the plain versions on any
-    device."""
+    device.
+
+    With ``dtype=torch.float64`` it is the f64 path's attempt (the
+    freezing ``PlainAttempt``'s on the card): the float64 kernel's stages,
+    each ``merson_stages``' stage over ``make_rhs`` (``STAGE_COEFS``), the
+    eps partials, the control step and the commit in float64.  Its plain
+    versions give the host loop over ``make_rhs`` bit for bit."""
 
     def _dev_alloc(self, device: torch.device, kernel: bool) -> dict:
         spec = self._spec
+        wide = spec.dtype == torch.float64
         b = {k: _kbuf(spec, device) for k in ("K1", "K2", "K3", "K4", "out")}
-        b["y"] = torch.empty(spec.state_shape, dtype=torch.float32,
+        b["y"] = torch.empty(spec.state_shape, dtype=spec.dtype,
                              device=device)
-        b["eps"] = _eps_buf(kernel, device, "pft_stage_eps_blocks",
-                            int(spec.mode), 0, *self.geom.shape)
+        b["eps"] = (_eps_buf(kernel, device, "pft_stage_eps_blocks64",
+                             int(spec.mode), *self.geom.shape,
+                             dtype=spec.dtype) if wide else
+                    _eps_buf(kernel, device, "pft_stage_eps_blocks",
+                             int(spec.mode), 0, *self.geom.shape))
         return b
 
     def _dev_load(self, b: dict, y: torch.Tensor) -> None:
@@ -1209,13 +1287,12 @@ class StageAttempt(_Attempt):
     def _dev_attempt(self, ctl: ControlBlock, b: dict) -> None:
         spec, w = self._spec, b["y"]
         K1, K2, K3, K4 = b["K1"], b["K2"], b["K3"], b["K4"]
+        _, c2, c3, c4, c5 = STAGE_COEFS[spec.dtype]
         fused_stage_dev(spec, ctl, 0, w, [], K1)
-        fused_stage_dev(spec, ctl, 1, w, [(1.0 / 3.0, K1)], K2)
-        fused_stage_dev(spec, ctl, 2, w, [(1.0 / 6.0, K1), (1.0 / 6.0, K2)],
-                        K3)
-        fused_stage_dev(spec, ctl, 3, w, [(1.0 / 8.0, K1), (3.0 / 8.0, K3)],
-                        K4)
-        fused_stage_dev(spec, ctl, 4, w, [(0.5, K1), (-1.5, K3), (2.0, K4)],
+        fused_stage_dev(spec, ctl, 1, w, list(zip(c2, [K1])), K2)
+        fused_stage_dev(spec, ctl, 2, w, list(zip(c3, [K1, K2])), K3)
+        fused_stage_dev(spec, ctl, 3, w, list(zip(c4, [K1, K3])), K4)
+        fused_stage_dev(spec, ctl, 4, w, list(zip(c5, [K1, K3, K4])),
                         b["out"], stage5=True, eps=b["eps"])
         merson_control(ctl)
         commit_dev(ctl, COMMIT_COPY, w[:K_VARS], src=b["out"])

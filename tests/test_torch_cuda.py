@@ -3,8 +3,11 @@ PyTorch version at a small odd shape, the double-buffered attempt against
 the fused_stage chain, short solves whose launch counters show that every
 attempt went through the kernels, the device-resident loop against the
 host loop bit for bit (the freezing paths, the plain right-hand side's
-in f64 and in f32 with a noise field, and the DEM's, with the control
-and commit kernels in float64 and float32), and the shard kernels (K1s,
+in f32 with a noise field, and the DEM's, with the control and commit
+kernels in float64 and float32); the float64 stage kernel against its
+plain version at MR and at odd, unaligned shapes, and the f64 path on it
+(PlainAttempt's stage-kernel route) against the host loop over make_rhs
+with equal counts, to the kernel's rounding; and the shard kernels (K1s,
 K3, K2s):
 against their plain versions, and the mesh paths on virtual shards of the
 card against the single-device paths bit for bit; the shard kernels' _dev
@@ -487,15 +490,20 @@ def test_stage_times_of_the_control_kernel(dev):
             c.t, c.t + c.h / 3, c.t + c.h / 2, c.t + c.h]
 
 
+def _f64_params():
+    """The benchmark case's parameters, u absolute (f64 runs)."""
+    pf = parse_param_file(freezing_params_text(100, 0),
+                          env={"OUTPUT": "unused"})
+    return FreezingParams.from_dict(pf.vars)
+
+
 def _plain_case(dev, name):
     """(rhs, state, MersonParams keywords, params) at SHAPE on dev:
     'f64_<mode>' (the benchmark case's parameters) or 'noise_f32' (GradP,
     u stored as u - u*, a noise field of amplitude 0.5)."""
     from porousfreezethaw_tpu_torch.models.freezing.equation import (
         make_noise_field, make_rhs)
-    pf = parse_param_file(freezing_params_text(100, 0),
-                          env={"OUTPUT": "unused"})
-    prm = FreezingParams.from_dict(pf.vars)
+    prm = _f64_params()
     geom = GridGeometry(0.03, 0.03, 0.06, SHAPE[2], SHAPE[1], SHAPE[0])
     rng = np.random.default_rng(4)
     w = np.stack([6.0 * (rng.random(SHAPE) - 0.5), rng.random(SHAPE),
@@ -514,44 +522,202 @@ def _plain_case(dev, name):
 @pytest.mark.parametrize("name", ["f64_0", "f64_1", "f64_2", "f64_10",
                                   "f64_11", "noise_f32"])
 def test_plain_device_loop_equals_host_loop(dev, name):
-    """PlainAttempt through merson_solve_device (CUDA graphs of attempts of
-    the plain right-hand side, its stage times read from the control
-    block; the control and commit kernels in the field's width) against
-    merson_solve on the card, from 0.01 s below the Dirichlet switch
-    across it, in 4 calls of 25 attempts with a trace: bit for bit; the
-    control and commit launches count whole blocks and the idle attempt
-    before the capture."""
+    """PlainAttempt through merson_solve_device against merson_solve, from
+    0.01 s below the Dirichlet switch across it, in 4 calls of 25 attempts
+    with a trace; the control and commit launches count whole blocks and
+    the idle attempt before the capture.  f32 with noise (CUDA graphs of
+    attempts of the plain right-hand side, its stage times read from the
+    control block) against the host loop on the card: bit for bit.  f64
+    (the stage-kernel route: the float64 fused_stage kernel, 5 launches an
+    attempt, and the control and commit kernels in float64) against the
+    host loop over make_rhs whose PyTorch kernels round the model's
+    operations as the kernel does, each on its own: on the card for Temp,
+    on the CPU for the phase-field models, where PyTorch's CUDA kernels
+    divide by the scalar alpha as a product with its reciprocal (and the
+    CPU's exp, Temp's, is not correctly rounded).  On this rough state the
+    error estimate sits near its rounding floor (h about 1e-6), where an
+    ulp moves h by up to 1%; against those host loops: equal counts and
+    statuses, t, h and the trace within 1e-10 and the state within 1e-10
+    of max|ref| (Temp bit for bit)."""
     from porousfreezethaw_tpu_torch.models.freezing.attempt import (
-        PlainAttempt)
+        PLAIN_RHS, STAGE_KERNEL, PlainAttempt)
     from porousfreezethaw_tpu_torch.models.freezing.equation import (
-        dirichlet_at)
+        dirichlet_at, make_rhs)
     from porousfreezethaw_tpu_torch.ops.cuda import control
     rhs, y0, kw, prm = _plain_case(dev, name)
     att = PlainAttempt(rhs, SHAPE, y0.dtype)
+    wide = y0.dtype == torch.float64
+    assert att.route == (STAGE_KERNEL if wide else PLAIN_RHS)
+    on_cpu = wide and name != "f64_2"
+    host_rhs = make_rhs(*rhs.built[:3], "cpu") if on_cpu else rhs
     params = MersonParams(delta=1e-3, h_min=1e-6, max_steps=25,
                           record_trace=25, **kw)
-    counter = ("launches_f64" if y0.dtype == torch.float64
-               else "launches")
+    counter = "launches_f64" if wide else "launches"
     t0 = prm.phase_switch_time - 1e-2
-    sa = sb = merson_init(y0, t0, 1e-6)
+    sa = merson_init(y0.cpu() if on_cpu else y0, t0, 1e-6)
+    sb = merson_init(y0, t0, 1e-6)
     for call in range(4):
-        a = merson_solve(rhs, sa, t0 + 1.0, params)
+        a = merson_solve(host_rhs, sa, t0 + 1.0, params)
         before = getattr(control.commit, counter)
+        stages = st.fused_stage.launches
         b = merson_solve_device(sb, t0 + 1.0, params, att)
         n = b[0].steps_total - sb.steps_total
         blocks = -(-n // control.BLOCK)
-        assert getattr(control.commit, counter) - before == (
-            control.BLOCK * blocks + (call == 0))
+        launched = control.BLOCK * blocks + (call == 0)
+        assert getattr(control.commit, counter) - before == launched
+        assert st.fused_stage.launches - stages == 5 * launched * wide
         assert a[1] == b[1]
-        assert (a[0].t, a[0].h, a[0].steps, a[0].steps_total) == (
-            b[0].t, b[0].h, b[0].steps, b[0].steps_total)
-        assert torch.equal(a[0].y, b[0].y)
-        assert all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
+        assert (a[0].steps, a[0].steps_total) == (b[0].steps,
+                                                  b[0].steps_total)
+        if wide:
+            assert b[0].t == pytest.approx(a[0].t, rel=1e-10)
+            assert b[0].h == pytest.approx(a[0].h, rel=1e-10)
+            for x, y in zip(a[2], b[2]):
+                torch.testing.assert_close(y, x, rtol=1e-10, atol=0.0)
+            torch.testing.assert_close(
+                b[0].y.to(a[0].y.device), a[0].y, rtol=0.0,
+                atol=1e-10 * float(a[0].y.abs().max()))
+        else:
+            assert (a[0].t, a[0].h) == (b[0].t, b[0].h)
+            assert torch.equal(a[0].y, b[0].y)
+            assert all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
         sa, sb = a[0], b[0]
     assert dirichlet_at(sb.t, prm, y0.dtype) == dirichlet_at(
         prm.phase_switch_time, prm, y0.dtype)
     assert torch.isfinite(sb.y).all()
     assert att.device_loop(dev).capture_s > 0.0
+
+
+# --------------------------------------------------------------------------
+# the float64 stage kernel (fused_stage_dev64) and the f64 path on it
+# --------------------------------------------------------------------------
+
+# MR, and shapes whose rows allow 8-byte copies only (odd x), 16-byte ones
+# (x = 26), a grid smaller than a tile and one of 20 tiles of 37 planes
+STAGE64_SHAPES = ((200, 100, 100), SHAPE, (9, 21, 26), (2, 3, 7),
+                  (37, 100, 100))
+
+
+def _inputs64(dev, shape, prm):
+    rng = np.random.default_rng(13)
+    w = np.stack([prm.u_star + rng.uniform(-10, 10, shape),
+                  rng.uniform(0, 1, shape), rng.uniform(0, 0.6, shape)])
+    ks = [rng.standard_normal((2,) + shape) for _ in range(3)]
+    return (torch.from_numpy(w).to(dev),
+            [torch.from_numpy(k).to(dev) for k in ks])
+
+
+def _block64(dev, t, h, eps, **fields):
+    """A control block on dev at (t, h) with its next attempt's scalars."""
+    from porousfreezethaw_tpu_torch.ops.cuda import control
+    block = control.ControlBlock(dev, eps)
+    c = control.Control(t=t, h=h, h_cont=h, tf=1e12, delta=1e-3,
+                        max_steps=2**62, eps=eps.data_ptr(),
+                        eps_n=eps.numel(), eps_f64=1, **fields)
+    control.next_scalars_plain(c)
+    block.write(c)
+    return block, c
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 10, 11])
+def test_stage64_kernel_matches_plain(dev, mode):
+    """Each of the five stages of the float64 _dev entry (stage 5 with and
+    without its tail) against the float64 plain version on the block's
+    stage time and scale, at MR and at odd, unaligned shapes, on each side
+    of the Dirichlet switch: K and y_spec within 1e-13 of max|ref|, the
+    eps partials' max within 1e-12 of the plain eps; every launch counted
+    under fused_stage.launches, and a halted block's launch writes
+    nothing."""
+    prm = _f64_params()
+    h = 0.05
+    for shape in STAGE64_SHAPES:
+        geom = GridGeometry(0.03, 0.03, 0.06, shape[2], shape[1], shape[0])
+        spec = st.StencilSpec.of(geom, prm, mode, torch.float64)
+        w, ks = _inputs64(dev, shape, prm)
+        n_eps = st._eps_blocks("pft_stage_eps_blocks64", dev, mode, *shape)
+        eps = torch.empty(n_eps, dtype=torch.float64, device=dev)
+        for t in (prm.phase_switch_time - 0.4 * h,
+                  prm.phase_switch_time + 1.0):
+            block, c = _block64(dev, t, h, eps)
+            for stage, tail in ((0, False), (1, False), (2, False),
+                                (3, False), (4, False), (4, True)):
+                kk = list(zip(st.STAGE_COEFS[torch.float64][stage], ks))
+                out = torch.full((2,) + shape, float("nan"),
+                                 dtype=torch.float64, device=dev)
+                before = st.fused_stage.launches
+                st.fused_stage_dev(spec, block, stage, w, kk, out,
+                                   stage5=tail, eps=eps if tail else None)
+                assert st.fused_stage.launches == before + 1
+                ref = st.fused_stage_plain(
+                    spec, c.ts64[st.STAGE64_TIME[stage]],
+                    c.hs[st.STAGE64_SCALE[stage]], w, kk, stage5=tail)
+                want = ref[0] if tail else ref
+                torch.testing.assert_close(
+                    out, want, rtol=0.0,
+                    atol=1e-13 * float(want.abs().max()))
+                if tail:
+                    a, b = float(eps.max()), float(ref[1][0])
+                    assert abs(a - b) <= 1e-12 * b, (a, b)
+        halted, _ = _block64(dev, 100.0, h, eps, halt=1)
+        out = torch.full((2,) + shape, float("nan"), dtype=torch.float64,
+                         device=dev)
+        st.fused_stage_dev(spec, halted, 0, w, [], out)
+        assert bool(torch.isnan(out).all())
+    torch.cuda.synchronize()
+
+
+# (calc mode, chunks of 12 attempts): the windows of
+# tests/test_torch_freezing_device.py test_f64_counts_equal_jax
+F64_WINDOWS = ((0, 3), (1, 3), (2, 1), (10, 3), (11, 3))
+
+
+@pytest.mark.parametrize("mode,chunks", F64_WINDOWS,
+                         ids=[str(m) for m, _ in F64_WINDOWS])
+def test_f64_windows_on_the_stage_kernel(dev, mode, chunks):
+    """test_f64_counts_equal_jax's windows on the card: the f64 path's
+    device loop (PlainAttempt on the float64 stage kernel) against the
+    host loop over make_rhs on the CPU (the loop that test holds to JAX)
+    from the same smooth state at h0 = 0.3, in chunks of 12 attempts with
+    a trace (each after a MAX_STEPS exit), held as that test holds it:
+    equal counts and statuses chunk by chunk, the state within 1e-12 of
+    max|ref|, t, h and the traces within 1e-6 (T_RTOL, H_RTOL of
+    tests/test_torch_merson.py; the host's sqrt and exp are an ulp from
+    the kernel's correctly rounded ones here and there)."""
+    from porousfreezethaw_tpu_torch.models.freezing.attempt import (
+        STAGE_KERNEL, PlainAttempt)
+    from porousfreezethaw_tpu_torch.models.freezing.equation import (
+        make_rhs)
+    prm = _f64_params()
+    shape = (16, 8, 8)
+    geom = GridGeometry(0.03, 0.03, 0.06, shape[2], shape[1], shape[0])
+    z, y, x = np.meshgrid(*(np.linspace(0, 1, n) for n in shape),
+                          indexing="ij")
+    w = np.stack([
+        prm.u_star - 4.0 + 6.0 * z + 0.5 * np.sin(3 * x + 2 * y),
+        0.5 + 0.45 * np.tanh(4 * (0.5 - z) + np.cos(5 * x) * np.sin(4 * y)),
+        0.3 * np.exp(-8 * ((x - 0.5) ** 2 + (y - 0.4) ** 2
+                           + (z - 0.5) ** 2))])
+    att = PlainAttempt(make_rhs(geom, prm, mode, dev), shape, torch.float64)
+    assert att.route == STAGE_KERNEL
+    host_rhs = make_rhs(geom, prm, mode, "cpu")
+    params = MersonParams(delta=1e-3, h_min=1e-9, max_steps=12,
+                          record_trace=12)
+    sa = merson_init(torch.from_numpy(w), 0.0, 0.3)
+    sb = merson_init(torch.from_numpy(w).to(dev), 0.0, 0.3)
+    for _ in range(chunks):
+        a = merson_solve(host_rhs, sa, 1e9, params)
+        b = merson_solve_device(sb, 1e9, params, att)
+        assert a[1] == b[1]
+        assert (a[0].steps, a[0].steps_total) == (b[0].steps,
+                                                  b[0].steps_total)
+        assert b[0].t == pytest.approx(a[0].t, rel=1e-6)
+        assert b[0].h == pytest.approx(a[0].h, rel=1e-6)
+        for p, q in zip(a[2], b[2]):
+            torch.testing.assert_close(q, p, rtol=1e-6, atol=0.0)
+        torch.testing.assert_close(b[0].y.cpu(), a[0].y, rtol=0.0,
+                                   atol=1e-12 * float(a[0].y.abs().max()))
+        sa, sb = a[0], b[0]
+    assert sb.steps >= 9
 
 
 # --------------------------------------------------------------------------
